@@ -1,9 +1,10 @@
 """The PyTorch port's driver on one CUDA card (an H100 in this repository's
 measurements): builds the hand-written kernels from csrc/, holds each
-against its plain PyTorch version, runs the pipeline's main path (AdaMVS
-dense matching + fusion at 384x512, default configuration, seeded random
-weights), compares the kernel path with the plain path end to end, and runs
-one 1856x2752 production frame.
+against its plain PyTorch version, and for each ported model -- AdaMVS,
+then MSREDNet -- runs the pipeline's main path (dense matching + fusion at
+384x512, default configuration, seeded random weights), compares the
+kernel path with the plain path end to end, and runs one 1856x2752
+production frame.
 
     python3 chip_smoke.py
 
@@ -14,17 +15,21 @@ limit as nvidia-smi gives them, and the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Kernel numbers (one entry per kernel): `ms`, `plain_ms`, `bound_ms` and
-`library_ms` are per depth map of the main path at 384x512, i.e. the
-per-launch time at each stage's shape times that stage's launches per map,
-summed over stages. `ms` and `plain_ms` are device time: the durations of
-the device work one call launches, read from torch.profiler (CUPTI), so the
-host's time to issue the launches is not in them (the `[kernel]` lines also
-print the CUDA-event time of a host-issued loop of calls, which is).
-`launches` is the count over the main-path run;
-`max_abs_err` is the largest kernel-vs-plain difference over all checked
-shapes (full-res included). No single PyTorch call computes any of the
-three functions (projection + bilinear taps + channel reduction, or a
-whole GRU step), so `library_ms` is null.
+`library_ms` are per depth map of the main path at 384x512 of the model
+that `per_map_of` names, i.e. the per-launch time at each stage's shape
+times that stage's launches per map, summed over stages. `ms` and
+`plain_ms` are device time: the durations of the device work one call
+launches, read from torch.profiler (CUPTI), so the host's time to issue the
+launches is not in them (the `[kernel]` lines also print the CUDA-event
+time of a host-issued loop of calls, which is). `launches` is the count
+over that model's main-path run; `max_abs_err` is the largest
+kernel-vs-plain difference over all checked shapes (full-res included).
+K5, the channel-first conv template, runs inside K4's step (15 of its 19
+launches): its per-map numbers come from its 15 conv shapes per stage, each
+launched as often as a map launches it, and are part of K4's. Only K5 has a
+single PyTorch call that computes the same function (one cuDNN
+convolution), so `library_ms` is null for the others (projection +
+bilinear taps + channel reduction, or a whole GRU step).
 """
 
 from __future__ import annotations
@@ -51,12 +56,28 @@ CHANNELS = (32, 16, 8)
 CHUNK = 8
 FULL_H, FULL_W = 1856, 2752
 
+# MSREDNet at its published widths: base 8, 'unet' features 32/16/8,
+# RedStep4 hidden 8/16/32/64, the same planes per stage
+MSRED_CHANNELS = (32, 16, 8)
+# conv-template launches in one RedStep4 step (csrc/red_step4.cu)
+RED4_CONVS = 15
+
 # kernel vs plain on the card, stated before measuring: the kernels round
 # the projection exactly as the plain chain does, but nvcc contracts the
 # feature products and the sums run in another order (and cuDNN sums the
 # convolutions in its own order): unit-scale values agree to ~1e-6
 TOL_SWEEP = 1e-4
 TOL_RED = 1e-4
+# K2v sums the same warps in another order (the ref first) and squares
+# them: ~1e-6 on unit-scale features, as for K2. K5 sums its 9*Ci products
+# in another order than cuDNN: ~1e-6 at Ci 128 on unit-scale inputs. K4,
+# three chained planes: its one-group GroupNorm sums the whole map in
+# per-block partials (a fixed order, in double at the end) where cuDNN's
+# plain version takes torch.mean; the normalised values agree to ~1e-6
+# and the GRU keeps them bounded, so 1e-4 absolute as for K3.
+TOL_VAR = 1e-4
+TOL_CONV = 1e-4
+TOL_RED4 = 1e-4
 # end to end (as the CPU parity tests): depth within 1e-3 of the depth
 # range, confidence within 1e-4
 TOL_DEPTH_FRAC = 1e-3
@@ -217,16 +238,19 @@ def device_ms(fn, iters):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us == 0:
-        raise RuntimeError("torch.profiler saw no device work: device time "
-                           "not measured")
-    return us / 1e3 / iters
+    # a profiler session now and then returns no device events at all
+    # (seen on torch 2.11 right after another session): measure once more
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+        log("[profile] a profiler session saw no device events; measuring again")
+    raise RuntimeError("torch.profiler saw no device work: device time not measured")
 
 
 def bound_ms(nbytes, flops):
@@ -255,6 +279,51 @@ def sweep_cost_work(V, K, H, W, C):
     return nbytes, flops
 
 
+def sweep_var_work(V, K, H, W, C):
+    nbytes = 4 * ((V + 1) * H * W * C + K * H * W + K * C * H * W + 12 * V)
+    flops = K * H * W * (V * (GEOM_FLOPS + 11 * C) + 5 * C)  # taps, s, q; var
+    return nbytes, flops
+
+
+def red_step4_convs(cin, H, W):
+    """The 15 convolutions of one RedStep4 step at H x W, in launch order:
+    (name, Ci, Co, input H, input W, mode)."""
+    h, w = [H >> l for l in range(4)], [W >> l for l in range(4)]
+    return [("conv1", cin, 16, h[0], w[0], "down"),
+            ("conv2", 16, 32, h[1], w[1], "down"),
+            ("conv3", 32, 64, h[2], w[2], "down"),
+            ("gates1", cin + 8, 16, h[0], w[0], "same"),
+            ("gates2", 32, 32, h[1], w[1], "same"),
+            ("gates3", 64, 64, h[2], w[2], "same"),
+            ("gates4", 128, 128, h[3], w[3], "same"),
+            ("cand1", cin + 8, 8, h[0], w[0], "same"),
+            ("cand2", 32, 16, h[1], w[1], "same"),
+            ("cand3", 64, 32, h[2], w[2], "same"),
+            ("cand4", 128, 64, h[3], w[3], "same"),
+            ("upconv3", 64, 32, h[3], w[3], "up"),
+            ("upconv2", 32, 16, h[2], w[2], "up"),
+            ("upconv1", 16, 8, h[1], w[1], "up"),
+            ("score", 8, 1, h[0], w[0], "same")]
+
+
+def conv_work(ci, co, H, W, mode):
+    """One 3x3 conv: input, output and weights once; multiply-adds x 2
+    (a transposed conv: 9 taps per input pixel)."""
+    Ho, Wo = {"same": (H, W), "down": ((H + 1) // 2, (W + 1) // 2),
+              "up": (2 * H, 2 * W)}[mode]
+    macs = ci * co * 9 * (H * W if mode == "up" else Ho * Wo)
+    return 4 * (ci * H * W + co * Ho * Wo + ci * 9 * co + co), 2 * macs
+
+
+def red_step4_work(cin, H, W, n_weights):
+    """The 15 convs' multiply-adds x 2 (GroupNorm and GRU pointwise math
+    are ~1% and left out); bytes: cost and the four states in, the states
+    and the score out, and the weights."""
+    flops = sum(conv_work(*c[1:])[1] for c in red_step4_convs(cin, H, W))
+    states = sum(c * (H >> l) * (W >> l) for l, c in enumerate((8, 16, 32, 64)))
+    return 4 * (cin * H * W + 2 * states + H * W + n_weights), flops
+
+
 def red_step2_work(cin, H, W, up, n_weights):
     """Convolution multiply-adds x 2 (the pointwise GRU math is ~1% of it
     and left out); bytes: cost and both states in, states and score out,
@@ -269,20 +338,82 @@ def red_step2_work(cin, H, W, up, n_weights):
     return nbytes, 2 * macs
 
 
+def compare_kernel(records, name, shape_tag, kernel_fn, plain_fn, tol, work,
+                   per_map, iters, n_calls=1, library_fn=None):
+    """Kernel against its plain version on the same inputs: max abs error
+    (raises above `tol`), device ms of both (and of `library_fn`, one
+    PyTorch call computing the same function), the bound from `work`
+    (bytes, flops). Times are per call of the kernel's function, which is
+    `kernel_fn` over `n_calls`."""
+    out_k = kernel_fn()
+    out_p = plain_fn()
+    torch.cuda.synchronize()
+    outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
+    err = max(float((a - b).abs().max()) for a, b in zip(outs_k, outs_p))
+    rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-3)).max())
+              for a, b in zip(outs_k, outs_p))
+    finite = all(bool(torch.isfinite(a).all()) for a in outs_k)
+    ms = device_ms(kernel_fn, iters) / n_calls
+    loop = loop_ms(kernel_fn, iters) / n_calls
+    plain_ms = device_ms(plain_fn, max(1, iters // 4)) / n_calls
+    lib_ms = device_ms(library_fn, iters) if library_fn is not None else None
+    b_ms, b_by = bound_ms(*work)
+    rec = dict(name=name, shape=shape_tag, max_abs_err=err,
+               max_rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               per_map=per_map)
+    records.append(rec)
+    lib = "" if lib_ms is None else f" library {lib_ms:.4f}"
+    log(f"[kernel] {name:10s} {shape_tag:28s} err {err:.3e} (rel {rel:.3e}, "
+        f"tol {tol:g}) device ms: kernel {ms:.4f} plain {plain_ms:.4f}{lib} "
+        f"bound {b_ms:.4f} ({b_by}, {b_ms / ms:.1%} of it reached); "
+        f"host-issued loop {loop:.4f} ms/call; launches/map {per_map}")
+    if not finite or not err <= tol:
+        raise AssertionError(f"{name} {shape_tag}: kernel vs plain "
+                             f"max abs err {err} > {tol} (finite={finite})")
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels(dev, cam0, poses0, camF, posesF):
-    """Each kernel against its plain version at the main path's shapes
-    (+ 1856x2752 stage 3 for K2 and K3). Returns per-shape records."""
+def stage_rel(cam, poses, stage, dev):
+    """[V-1, 4, 4] relative projections of the survey's first VIEWS views
+    at one stage's resolution."""
     from deep3d_aerial_tpu_torch.geometry.camera import (
         proj_matrix,
         stage_relative_projections,
     )
-    from deep3d_aerial_tpu_torch.models.cost_reg import RedStep2
+
+    P = np.stack([proj_matrix(cam.K, p) for p in poses[:VIEWS]])
+    rel = stage_relative_projections(P, 3)[stage].astype(np.float32)
+    return torch.from_numpy(rel).to(dev)
+
+
+def stage_planes(cam, poses, stage, H, W, dev):
+    """One chunk of CHUNK depth planes [CHUNK, H, W] as the main path's
+    stage gives them: uniform over the range at stage 1, a window around
+    the rendered depth after."""
     from deep3d_aerial_tpu_torch.ops.depth_samplers import window_depth_samples
+
+    _, depth = render(cam, poses[0], dev)
+    center = torch.nn.functional.interpolate(
+        depth[None, None], size=(H, W), mode="bilinear",
+        align_corners=False)[0, 0]
+    if stage == 0:
+        lo, hi = float(depth.min()) - 10, float(depth.max()) + 10
+        d = torch.linspace(lo, hi, NDEPTHS[0], device=dev)[:CHUNK]
+        return d[:, None, None].expand(CHUNK, H, W).contiguous()
+    interval = (2.0 if stage == 1 else 1.0) * 0.1
+    return window_depth_samples(center, CHUNK, interval).contiguous()
+
+
+def phase_kernels(dev, cam0, poses0, camF, posesF):
+    """Each AdaMVS kernel against its plain version at the main path's
+    shapes (+ 1856x2752 stage 3 for K2 and K3). Returns per-shape records."""
+    from deep3d_aerial_tpu_torch.models.cost_reg import RedStep2
     from deep3d_aerial_tpu_torch.ops.red_step2 import red_step2, red_step2_plain
     from deep3d_aerial_tpu_torch.ops.sweep import (
         sweep_corr,
@@ -298,56 +429,16 @@ def phase_kernels(dev, cam0, poses0, camF, posesF):
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    def geometry(cam, poses, stage):
-        P = np.stack([proj_matrix(cam.K, p) for p in poses[:VIEWS]])
-        rel = stage_relative_projections(P, 3)[stage].astype(np.float32)
-        return torch.from_numpy(rel).to(dev)
-
-    def planes(cam, poses, stage, H, W):
-        _, depth = render(cam, poses[0], dev)
-        center = torch.nn.functional.interpolate(
-            depth[None, None], size=(H, W), mode="bilinear",
-            align_corners=False)[0, 0]
-        if stage == 0:
-            lo, hi = float(depth.min()) - 10, float(depth.max()) + 10
-            d = torch.linspace(lo, hi, NDEPTHS[0], device=dev)[:CHUNK]
-            return d[:, None, None].expand(CHUNK, H, W).contiguous()
-        interval = (2.0 if stage == 1 else 1.0) * 0.1
-        return window_depth_samples(center, CHUNK, interval).contiguous()
-
-    def compare(name, shape_tag, kernel_fn, plain_fn, tol, work, per_map, iters):
-        out_k = kernel_fn()
-        out_p = plain_fn()
-        torch.cuda.synchronize()
-        outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
-        outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        err = max(float((a - b).abs().max()) for a, b in zip(outs_k, outs_p))
-        rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-3)).max())
-                  for a, b in zip(outs_k, outs_p))
-        finite = all(bool(torch.isfinite(a).all()) for a in outs_k)
-        ms = device_ms(kernel_fn, iters)
-        loop = loop_ms(kernel_fn, iters)
-        plain_ms = device_ms(plain_fn, max(1, iters // 4))
-        b_ms, b_by = bound_ms(*work)
-        rec = dict(name=name, shape=shape_tag, max_abs_err=err,
-                   max_rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by, per_map=per_map)
-        records.append(rec)
-        log(f"[kernel] {name:10s} {shape_tag:28s} err {err:.3e} (rel {rel:.3e}, "
-            f"tol {tol:g}) device ms: kernel {ms:.4f} plain {plain_ms:.4f} "
-            f"bound {b_ms:.4f} ({b_by}, {b_ms / ms:.1%} of it reached); "
-            f"host-issued loop {loop:.4f} ms/call; launches/map {per_map}")
-        if not finite or not err <= tol:
-            raise AssertionError(f"{name} {shape_tag}: kernel vs plain "
-                                 f"max abs err {err} > {tol} (finite={finite})")
+    def compare(*args, **kw):
+        compare_kernel(records, *args, **kw)
 
     V1 = VIEWS - 1
     for stage, (C, D) in enumerate(zip(CHANNELS, NDEPTHS)):
         s = 2 ** (2 - stage)
         H, W = H0 // s, W0 // s
-        rel = geometry(cam0, poses0, stage)
+        rel = stage_rel(cam0, poses0, stage, dev)
         ref, srcs = rnd(H, W, C), rnd(V1, H, W, C)
-        d = planes(cam0, poses0, stage, H, W)
+        d = stage_planes(cam0, poses0, stage, H, W, dev)
         tag = f"stage{stage + 1} {H}x{W} C{C}"
         if stage == 0:
             compare("sweep_corr", tag + f" K{CHUNK}",
@@ -375,9 +466,9 @@ def phase_kernels(dev, cam0, poses0, camF, posesF):
 
     # production frame, stage 3 (1856x2752, C=8): K2 and K3
     H, W, C = FULL_H, FULL_W, CHANNELS[2]
-    rel = geometry(camF, posesF, 2)
+    rel = stage_rel(camF, posesF, 2, dev)
     ref, srcs = rnd(H, W, C), rnd(V1, H, W, C)
-    d = planes(camF, posesF, 2, H, W)
+    d = stage_planes(camF, posesF, 2, H, W, dev)
     wts = torch.rand((V1, H, W), generator=g, device=dev) * 0.9 + 0.1
     tag = f"full-res stage3 {H}x{W} C{C}"
     compare("sweep_cost", tag + f" V{V1} K{CHUNK}",
@@ -398,6 +489,264 @@ def phase_kernels(dev, cam0, poses0, camF, posesF):
                 TOL_RED, red_step2_work(C, H, W, False, n_w), 8, 5)
     torch.cuda.empty_cache()
     return records
+
+
+def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
+    """Each MSREDNet kernel against its plain version at the main path's
+    shapes (+ 1856x2752 stage 3 for K2v and K4): K2v per stage, K5 in each
+    mode at shapes the step launches, K4 chained over 3 planes per stage.
+    Then K5 per map: every conv shape of a map's steps, each held against
+    its plain version once and then launched as often as a map launches it
+    (kernel, plain version, library call). Returns (records, K5 per map)."""
+    from deep3d_aerial_tpu_torch.models.cost_reg import RedStep4
+    from deep3d_aerial_tpu_torch.ops.cf_conv import (
+        cf_conv3x3,
+        cf_conv3x3_plain,
+        pack_weight,
+    )
+    from deep3d_aerial_tpu_torch.ops.conv import same_pads
+    from deep3d_aerial_tpu_torch.ops.red_step4 import red_step4, red_step4_plain
+    from deep3d_aerial_tpu_torch.ops.sweep import sweep_var, sweep_var_plain
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(1)
+    records = []
+    V1 = VIEWS - 1
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def compare(*args, **kw):
+        compare_kernel(records, *args, **kw)
+
+    def conv_operands(ci, co, H, W, mode):
+        x = rnd(ci, H, W)
+        w = rnd(*((ci, co, 3, 3) if mode == "up" else (co, ci, 3, 3)),
+                scale=(9 * ci) ** -0.5)
+        return x, w, rnd(co, scale=0.1), pack_weight(w, mode)
+
+    def library(x, w, b, mode):
+        """One cuDNN call computing the same function ('down': the input
+        padded once beforehand, outside the timed call)."""
+        if mode == "same":
+            return lambda: F.conv2d(x[None], w, b, padding=1)
+        if mode == "down":
+            (yl, yh), (xl, xh) = (same_pads(n, 3, 2) for n in x.shape[1:])
+            xp = F.pad(x[None], (xl, xh, yl, yh))
+            return lambda: F.conv2d(xp, w, b, stride=2)
+        H, W = x.shape[1:]
+        return lambda: F.conv_transpose2d(x[None], w, b, stride=2)[..., :2 * H, :2 * W]
+
+    def var_case(cam, poses, stage, H, W, C, per_map, iters, tag):
+        rel = stage_rel(cam, poses, stage, dev)
+        ref, srcs = rnd(H, W, C), rnd(V1, H, W, C)
+        d = stage_planes(cam, poses, stage, H, W, dev)
+        compare("sweep_var", tag + f" V{V1} K{CHUNK}",
+                lambda: sweep_var(ref, srcs, rel, d),
+                lambda: sweep_var_plain(ref, srcs, rel, d),
+                TOL_VAR, sweep_var_work(V1, CHUNK, H, W, C), per_map, iters)
+
+    def red4_case(C, H, W, per_map, iters, tag):
+        mod = init_random_weights(RedStep4(C), seed=C).to(dev)
+        params = dict(mod.named_parameters())
+        packed = mod._packed.get(mod)
+        costs = [rnd(C, H, W) for _ in range(3)]
+        s0 = [rnd(c, H >> l, W >> l, scale=0.5)
+              for l, c in enumerate((8, 16, 32, 64))]
+        n_w = sum(p.numel() for p in params.values())
+
+        def chain(step):
+            states = s0
+            for cost in costs:
+                score, *states = step(cost, *states)
+            return (score, *states)
+
+        with torch.no_grad():
+            compare("red_step4", tag + " 3 planes",
+                    lambda: chain(lambda *a: red_step4(params, *a, packed=packed)),
+                    lambda: chain(lambda *a: red_step4_plain(params, *a)),
+                    TOL_RED4, red_step4_work(C, H, W, n_w), per_map, iters,
+                    n_calls=3)
+
+    def step_breakdown(C, H, W, tag):
+        """Device microseconds of each launch of one step (the second of
+        two profiled steps), labelled by layer in launch order."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        mod = init_random_weights(RedStep4(C), seed=C).to(dev)
+        params, packed = dict(mod.named_parameters()), mod._packed.get(mod)
+        cost, states = rnd(C, H, W), mod.init_states(H, W, device=dev)
+        with torch.no_grad():
+            red_step4(params, cost, *states, packed=packed)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    red_step4(params, cost, *states, packed=packed)
+                torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)[-(RED4_CONVS + 4):]
+        convs = iter(c[0] for c in red_step4_convs(C, H, W))
+        us = []
+        for e in evs:
+            lab = (next(convs, "conv?") if "cf_conv_kernel" in e.name else
+                   next((k for k in ("gn_finalize", "gru_reset", "gru_update")
+                         if k in e.name), e.name[:30]))
+            us.append([lab, round(e.time_range.elapsed_us(), 1)])
+        log(f"[profile:red_step4] {tag}: one step, {len(evs)} launches, "
+            f"{sum(u for _, u in us):.1f} us of device time: " + json.dumps(us))
+
+    for stage, (C, D) in enumerate(zip(MSRED_CHANNELS, NDEPTHS)):
+        s = 2 ** (2 - stage)
+        H, W = H0 // s, W0 // s
+        tag = f"stage{stage + 1} {H}x{W} C{C}"
+        var_case(cam0, poses0, stage, H, W, C, D // CHUNK, 50, tag)
+        red4_case(C, H, W, D, 20, tag)
+        step_breakdown(C, H, W, tag)
+    # K5 in each mode at shapes the stage-3 step launches (8 per map each)
+    for name, ci, co, H, W, mode in (("gates1 16->16", 16, 16, H0, W0, "same"),
+                                     ("conv1 8->16", 8, 16, H0, W0, "down"),
+                                     ("upconv1 16->8", 16, 8, H0 // 2, W0 // 2, "up"),
+                                     ("gates4 128->128", 128, 128, H0 // 8, W0 // 8, "same")):
+        x, w, b, pk = conv_operands(ci, co, H, W, mode)
+        compare("cf_conv3x3", f"{mode} {name} from {H}x{W}",
+                lambda: cf_conv3x3(x, w, b, mode=mode, relu=False, packed=pk),
+                lambda: cf_conv3x3_plain(x, w, b, mode=mode, relu=False),
+                TOL_CONV, conv_work(ci, co, H, W, mode), NDEPTHS[2], 50,
+                library_fn=library(x, w, b, mode))
+    # production frame, stage 3 (1856x2752, C=8): K2v and K4
+    tag = f"full-res stage3 {FULL_H}x{FULL_W} C8"
+    var_case(camF, posesF, 2, FULL_H, FULL_W, 8, 1, 5, tag)
+    red4_case(8, FULL_H, FULL_W, NDEPTHS[2], 2, tag)
+    torch.cuda.empty_cache()
+
+    # K5 per map: the 15 convs of each stage's step, D_stage times each
+    items, err, b_by = [], 0.0, {}
+    for stage, (C, D) in enumerate(zip(MSRED_CHANNELS, NDEPTHS)):
+        H, W = H0 >> (2 - stage), W0 >> (2 - stage)
+        for _, ci, co, h, w, mode in red_step4_convs(C, H, W):
+            x, wt, b, pk = conv_operands(ci, co, h, w, mode)
+            k = cf_conv3x3(x, wt, b, mode=mode, relu=False, packed=pk)
+            err = max(err, float((k - cf_conv3x3_plain(
+                x, wt, b, mode=mode, relu=False)).abs().max()))
+            bms, by = bound_ms(*conv_work(ci, co, h, w, mode))
+            b_by[by] = b_by.get(by, 0.0) + bms * D
+            items.append((D, x, wt, b, pk, mode))
+    if not err <= TOL_CONV:
+        raise AssertionError(f"cf_conv3x3 at the step's shapes: max abs err "
+                             f"{err} > {TOL_CONV}")
+
+    def per_map(make):
+        calls = [(D, make(x, w, b, pk, mode)) for D, x, w, b, pk, mode in items]
+
+        def run():
+            for D, fn in calls:
+                for _ in range(D):
+                    fn()
+        return device_ms(run, 1)
+
+    k5 = {
+        "ms": per_map(lambda x, w, b, pk, m: lambda: cf_conv3x3(
+            x, w, b, mode=m, relu=False, packed=pk)),
+        "plain_ms": per_map(lambda x, w, b, pk, m: lambda: cf_conv3x3_plain(
+            x, w, b, mode=m, relu=False)),
+        "library_ms": per_map(lambda x, w, b, pk, m: library(x, w, b, m)),
+        "bound_ms": sum(b_by.values()), "bound_by": max(b_by, key=b_by.get),
+        "max_abs_err": max([err] + [r["max_abs_err"] for r in records
+                                    if r["name"] == "cf_conv3x3"]),
+    }
+    log(f"[kernel] cf_conv3x3 per MSREDNet 384x512 map ({RED4_CONVS} convs x "
+        f"{sum(NDEPTHS)} steps, {len(items)} shapes, max abs err {err:.3e}): "
+        f"device ms kernel {k5['ms']:.4f} plain {k5['plain_ms']:.4f} library "
+        f"{k5['library_ms']:.4f} bound {k5['bound_ms']:.4f} ({k5['bound_by']}, "
+        f"{k5['bound_ms'] / k5['ms']:.1%} of it reached)")
+    del items
+    torch.cuda.empty_cache()
+    return records, k5
+
+
+class _PerPlane:
+    """A regularizer whose step is the module's whole forward, so every
+    plane gathers its parameters and checks its packed-weight cache again."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def init_states(self, *args, **kw):
+        return self.module.init_states(*args, **kw)
+
+    def plane_step(self, device):
+        return self.module
+
+
+def phase_host_per_plane(dev, cam0, poses0):
+    """Host time to issue one RedStep4 plane on the kernel path at stage
+    1's shape (96x128, Cin 32, where the main path waits most on the
+    host): the module's forward per plane (parameters gathered, packed-
+    weight cache checked, every plane) against the step gathered once
+    (`plane_step`, as streaming_sweep takes it). Each reading is the median
+    host clock over 16 planes issued back to back after a synchronize (304
+    launches, inside the launch queue, so the clock reads the issue, not
+    the device); then stage 1's whole 48-plane sweep, wall ms with a
+    synchronize, each way. Rounds alternate the two ways."""
+    from deep3d_aerial_tpu_torch.models.cascade import streaming_sweep
+    from deep3d_aerial_tpu_torch.models.cost_reg import RedStep4
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    C, H, W, D = MSRED_CHANNELS[0], H0 // 4, W0 // 4, NDEPTHS[0]
+    g = torch.Generator(device=dev).manual_seed(3)
+    mod = init_random_weights(RedStep4(C), seed=C).to(dev)
+    cost = torch.randn((C, H, W), generator=g, device=dev)
+    states = mod.init_states(H, W, device=dev)
+    rel = stage_rel(cam0, poses0, 0, dev)
+    ref = torch.randn((H, W, C), generator=g, device=dev)
+    srcs = torch.randn((VIEWS - 1, H, W, C), generator=g, device=dev)
+    depths = torch.linspace(90.0, 110.0, D, device=dev)   # the survey's ~100 m
+
+    def issue_ms(step):
+        torch.cuda.synchronize()
+        took = []
+        for _ in range(16):
+            t0 = time.perf_counter()
+            step(cost, *states)
+            took.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return float(np.median(took)) * 1e3
+
+    def sweep_ms(reg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streaming_sweep(reg, False, depths, ref, srcs, rel, None,
+                        plane_chunk=CHUNK, cost_mode="variance")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def host_us(fn):
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        return (time.perf_counter() - t0) / 200 * 1e6
+
+    res = {k: [] for k in ("issue module", "issue step", "sweep module", "sweep step")}
+    with torch.no_grad():
+        issue_ms(mod), sweep_ms(mod), sweep_ms(_PerPlane(mod))   # warm
+        for _ in range(3):
+            res["issue module"].append(issue_ms(mod))
+            res["issue step"].append(issue_ms(mod.plane_step(dev)))
+            res["sweep module"].append(sweep_ms(_PerPlane(mod)))
+            res["sweep step"].append(sweep_ms(mod))
+    med = {k: float(np.median(v)) for k, v in res.items()}
+    log(f"[host:red_step4] {H}x{W} Cin{C}, host ms to issue one plane (median "
+        f"of 16, per round): module per plane {res['issue module']}, step "
+        f"gathered once {res['issue step']}; the per-plane gathering alone: "
+        f"dict(named_parameters()) {host_us(lambda: dict(mod.named_parameters())):.1f} us, "
+        f"packed-cache check {host_us(lambda: mod._packed.get(mod)):.1f} us")
+    log(f"[host:red_step4] stage-1 sweep ({D} planes) wall ms per round: module "
+        f"per plane {res['sweep module']}, step gathered once {res['sweep step']}; "
+        f"medians {med['sweep module']:.3f} -> {med['sweep step']:.3f} ms, issue "
+        f"{med['issue module']:.4f} -> {med['issue step']:.4f} ms a plane")
+    return med
 
 
 class _Marked(torch.nn.Module):
@@ -422,9 +771,10 @@ class _Marked(torch.nn.Module):
         return out
 
 
-def phase_main_path(dev, cam0, poses0, counters):
+def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs"):
     """AerialPipeline(...).run_dense() on a synthetic workspace: dense
-    matching + fusion at 384x512, default AdaMVS, seeded random weights."""
+    matching + fusion at 384x512, the model's default configuration, seeded
+    random weights. `per_map`: the exact launches of each counter per map."""
     from deep3d_aerial_tpu_torch.io.pfm import read_pfm
     from deep3d_aerial_tpu_torch.io.ply import read_ply
     from deep3d_aerial_tpu_torch.pipeline.config import PipelineConfig
@@ -439,7 +789,7 @@ def phase_main_path(dev, cam0, poses0, counters):
             run_create_mesh=False, run_create_dsm=False,
             fusion_num=4, geo_consist_num=2, photomatric_threshold=0.0,
             position_threshold=2.0, depth_threshold=0.05,
-            normal_threshold=180.0,
+            normal_threshold=180.0, model_type=model_type,
         )
         pipe = AerialPipeline(str(ws), cfg, device=dev)
         model = _Marked(pipe.build_model())
@@ -467,9 +817,7 @@ def phase_main_path(dev, cam0, poses0, counters):
             raise AssertionError("fusion wrote no PLY")
         points = sum(read_ply(p)[0].shape[0] for p in plys)
 
-    per_map = {"sweep_corr": (VIEWS - 1) * NDEPTHS[0] // CHUNK,
-               "sweep_cost": sum(d // CHUNK for d in NDEPTHS),
-               "red_step2": sum(NDEPTHS)}
+    tag = "main" if model_type == "adamvs" else f"main:{model_type}"
     for name, k in per_map.items():
         if launches[name] != k * n:
             raise AssertionError(f"{name}: {launches[name]} launches on the "
@@ -480,13 +828,13 @@ def phase_main_path(dev, cam0, poses0, counters):
             stage_ms.setdefault(label, []).append(a.elapsed_time(b))
     secs = pipe.map_seconds
     steady = float(np.median(secs[1:])) if len(secs) > 1 else secs[0]
-    log(f"[main] {n} maps at {H0}x{W0}, {VIEWS} views, ndepths {NDEPTHS}: "
+    log(f"[{tag}] {n} maps at {H0}x{W0}, {VIEWS} views, ndepths {NDEPTHS}: "
         f"run_dense {total:.2f} s; per map first {secs[0]:.3f} s, "
         f"median after {steady * 1e3:.2f} ms = {1.0 / steady:.2f} maps/s; "
         f"fused points {points}")
-    log("[main] launches " + json.dumps(launches) + " per map "
+    log(f"[{tag}] launches " + json.dumps(launches) + " per map "
         + json.dumps(per_map))
-    log("[main] per-stage ms between CUDA events, idle gaps included "
+    log(f"[{tag}] per-stage ms between CUDA events, idle gaps included "
         "(median over maps 2..n): " + json.dumps(
         {k: round(float(np.median(v)), 4) for k, v in stage_ms.items()}))
     return launches, steady
@@ -520,14 +868,56 @@ def phase_end_to_end(dev, cam0, poses0):
     log(f"[e2e] pair depth max |diff| {dp:.3e} m")
     if not dp <= dtol:
         raise AssertionError(f"end to end pair depth {dp}")
-    profile_forward(mk, (imgs, rel, dmin, dmax))
+    profile_forward(mk, (imgs, rel, dmin, dmax),
+                    {"sweep_pair": "K1 sweep_corr", "sweep_cost": "K2 sweep_cost",
+                     "conv3x3_kernel": "K3 red_step2"})
     return res
 
 
-def profile_forward(model, inputs):
+def phase_end_to_end_msrednet(dev, cam0, poses0):
+    """One sample through the MSREDNet forward with the kernels and with
+    their plain versions (same weights), then the kernel forward profiled:
+    returns its busy ms and device launches by kernel family."""
+    from deep3d_aerial_tpu_torch.models.msrednet import MSREDNet
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    imgs, rel, dmin, dmax, _ = sample(cam0, poses0, dev, ref=1)
+    mk = init_random_weights(MSREDNet(), seed=0).to(dev).eval()
+    mp = MSREDNet(warp_impl="plain", red_impl="plain").to(dev).eval()
+    mp.load_state_dict(mk.state_dict())
+    with torch.no_grad():
+        ok = mk(imgs, rel, dmin, dmax)
+        op = mp(imgs, rel, dmin, dmax)
+    dtol = TOL_DEPTH_FRAC * (dmax - dmin)
+    for s in ("stage1", "stage2", "stage3"):
+        dd = float((ok[s]["depth"] - op[s]["depth"]).abs().max())
+        dc = float((ok[s]["photometric_confidence"]
+                    - op[s]["photometric_confidence"]).abs().max())
+        log(f"[e2e:msrednet] {s}: kernel vs plain depth max |diff| {dd:.3e} m "
+            f"(tol {dtol:.3e}), confidence {dc:.3e} (tol {TOL_CONF:g})")
+        if not (dd <= dtol and dc <= TOL_CONF):
+            raise AssertionError(f"MSREDNet end to end {s}: depth {dd}, conf {dc}")
+    busy, counts = profile_forward(
+        mk, (imgs, rel, dmin, dmax),
+        {"sweep_var": "K2v sweep_var", "cf_conv_kernel": "K5 cf_conv3x3 (in K4)",
+         "gn_finalize": "K4 GroupNorm + GRU passes", "gru_": "K4 GroupNorm + GRU passes"},
+        "profile:msrednet")
+    want = RED4_CONVS * sum(NDEPTHS)
+    got = counts.get("K5 cf_conv3x3 (in K4)", 0)
+    log(f"[profile:msrednet] conv-template launches in the forward's device "
+        f"events: {got} (expected {RED4_CONVS} x {sum(NDEPTHS)} planes)")
+    if busy and got != want:
+        raise AssertionError(f"{got} conv-template launches in one MSREDNet "
+                             f"forward, expected {want}")
+    return busy, counts
+
+
+def profile_forward(model, inputs, fams, tag="profile"):
     """Device busy time of one 384x512 forward (torch.profiler, CUPTI),
-    by kernel family, against the unprofiled forward's wall time: the
-    device's idle share of a map."""
+    by kernel family (`fams`: name substring -> family), against the
+    unprofiled forward's wall time: the device's idle share of a map.
+    Returns (busy ms, device launches) by family, empty if the profiler saw
+    no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -543,33 +933,35 @@ def profile_forward(model, inputs):
             model(*inputs)
             torch.cuda.synchronize()
     wall = float(np.median(walls))
-    fams = {"sweep_pair": "K1 sweep_corr", "sweep_cost": "K2 sweep_cost",
-            "conv3x3_kernel": "K3 red_step2"}
-    busy = {}
+    busy, counts = {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         fam = next((v for k, v in fams.items() if k in e.name), "other (PyTorch ops, cuDNN)")
         busy[fam] = busy.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+        counts[fam] = counts.get(fam, 0) + 1
     total = sum(busy.values())
     if total == 0:
-        log(f"[profile] forward {wall:.2f} ms wall; device time not measured "
+        log(f"[{tag}] forward {wall:.2f} ms wall; device time not measured "
             "(the profiler saw no device events)")
-        return
-    log(f"[profile] one 384x512 forward: {wall:.2f} ms wall (median of 3, "
+        return {}, {}
+    log(f"[{tag}] one 384x512 forward: {wall:.2f} ms wall (median of 3, "
         f"unprofiled), device busy {total:.2f} ms, idle share "
         f"{1 - total / wall:.3f}; busy ms by family " + json.dumps(
-            {k: round(v, 3) for k, v in sorted(busy.items())}))
+            {k: round(v, 3) for k, v in sorted(busy.items())})
+        + "; device launches by family " + json.dumps(dict(sorted(counts.items()))))
+    return busy, counts
 
 
-def phase_production_frame(dev, camF, posesF):
-    """One 1856x2752 map through the kernel forward at the f=3727 survey
-    geometry: every pixel finite."""
-    from deep3d_aerial_tpu_torch.models.adamvs import AdaMVS
+def phase_production_frame(dev, camF, posesF, model_type="adamvs"):
+    """One 1856x2752 map through the model's kernel forward at the f=3727
+    survey geometry: every pixel finite."""
+    from deep3d_aerial_tpu_torch.models import build_model
     from deep3d_aerial_tpu_torch.weights import init_random_weights
 
     imgs, rel, dmin, dmax, _ = sample(camF, posesF, dev, ref=1)
-    model = init_random_weights(AdaMVS(), seed=0).to(dev).eval()
+    model = init_random_weights(build_model(model_type), seed=0).to(dev).eval()
+    tag = "fullres" if model_type == "adamvs" else f"fullres:{model_type}"
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         model(imgs, rel, dmin, dmax)  # warm
@@ -581,11 +973,11 @@ def phase_production_frame(dev, camF, posesF):
         torch.cuda.synchronize()
         took = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[fullres] {FULL_H}x{FULL_W} f={camF.fx:.1f}: {tuple(depth.shape)}, "
+    log(f"[{tag}] {FULL_H}x{FULL_W} f={camF.fx:.1f}: {tuple(depth.shape)}, "
         f"finite {finite * 100:.4f}% of pixels, {took:.3f} s per map, "
         f"peak device memory {peak:.2f} GiB")
     if tuple(depth.shape) != (FULL_H, FULL_W) or finite != 1.0:
-        raise AssertionError(f"full-res map: shape {tuple(depth.shape)}, "
+        raise AssertionError(f"{tag} map: shape {tuple(depth.shape)}, "
                              f"finite share {finite}")
     return took
 
@@ -601,8 +993,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(repo))
     from deep3d_aerial_tpu_torch.ops import cuda_build
+    from deep3d_aerial_tpu_torch.ops.cf_conv import cf_conv3x3
     from deep3d_aerial_tpu_torch.ops.red_step2 import red_step2
-    from deep3d_aerial_tpu_torch.ops.sweep import sweep_corr, sweep_cost
+    from deep3d_aerial_tpu_torch.ops.red_step4 import red_step4
+    from deep3d_aerial_tpu_torch.ops.sweep import sweep_corr, sweep_cost, sweep_var
 
     dev = torch.device("cuda")
     # float32 throughout: no TF32 in cuDNN convs or matmuls
@@ -626,12 +1020,16 @@ def main() -> int:
     cam0, poses0 = survey(W0, H0)
     camF, posesF = survey(FULL_W, FULL_H)
 
+    # AdaMVS: K1, K2, K3
     t = time.perf_counter()
     records = phase_kernels(dev, cam0, poses0, camF, posesF)
     log(f"[phase] kernels {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    counters = (sweep_corr, sweep_cost, red_step2)
-    launches, _ = phase_main_path(dev, cam0, poses0, counters)
+    launches, _ = phase_main_path(
+        dev, cam0, poses0, (sweep_corr, sweep_cost, red_step2),
+        {"sweep_corr": (VIEWS - 1) * NDEPTHS[0] // CHUNK,
+         "sweep_cost": sum(d // CHUNK for d in NDEPTHS),
+         "red_step2": sum(NDEPTHS)})
     log(f"[phase] main path {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_end_to_end(dev, cam0, poses0)
@@ -640,14 +1038,37 @@ def main() -> int:
     phase_production_frame(dev, camF, posesF)
     log(f"[phase] production frame {time.perf_counter() - t:.1f} s")
 
-    src = {"sweep_corr": ("deep3d_aerial_tpu_torch/csrc/sweep.cu",
-                          "deep3d_aerial_tpu/ops/pallas_sweep.py:235"),
-           "sweep_cost": ("deep3d_aerial_tpu_torch/csrc/sweep.cu",
-                          "deep3d_aerial_tpu/ops/pallas_sweep.py:520"),
-           "red_step2": ("deep3d_aerial_tpu_torch/csrc/red_step2.cu",
-                         "deep3d_aerial_tpu/ops/pallas_red.py:250")}
+    # MSREDNet: K2v, K4, K5
+    t = time.perf_counter()
+    msred_records, k5 = phase_kernels_msrednet(dev, cam0, poses0, camF, posesF)
+    records += msred_records
+    log(f"[phase] kernels:msrednet {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    msred_launches, _ = phase_main_path(
+        dev, cam0, poses0, (sweep_var, red_step4, cf_conv3x3),
+        {"sweep_var": sum(d // CHUNK for d in NDEPTHS),
+         "red_step4": sum(NDEPTHS),
+         "cf_conv3x3": RED4_CONVS * sum(NDEPTHS)}, model_type="msrednet")
+    launches.update(msred_launches)
+    log(f"[phase] main path:msrednet {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_host_per_plane(dev, cam0, poses0)
+    log(f"[phase] host per plane:msrednet {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_end_to_end_msrednet(dev, cam0, poses0)
+    log(f"[phase] end to end:msrednet {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_production_frame(dev, camF, posesF, model_type="msrednet")
+    log(f"[phase] production frame:msrednet {time.perf_counter() - t:.1f} s")
+
+    adamvs, msred = f"AdaMVS {H0}x{W0} map", f"MSREDNet {H0}x{W0} map"
+    src = {"sweep_corr": ("sweep.cu", "pallas_sweep.py:235", adamvs),
+           "sweep_cost": ("sweep.cu", "pallas_sweep.py:520", adamvs),
+           "red_step2": ("red_step2.cu", "pallas_red.py:250", adamvs),
+           "sweep_var": ("sweep.cu", "pallas_sweep.py:520", msred),
+           "red_step4": ("red_step4.cu", "pallas_red4.py:138", msred)}
     kernels = []
-    for name, (source, replaces) in src.items():
+    for name, (source, replaces, path) in src.items():
         rs = [r for r in records if r["name"] == name]
         main = [r for r in rs if not r["shape"].startswith("full-res")]
 
@@ -658,12 +1079,24 @@ def main() -> int:
         # per-map bound: say which side bounds the stage that dominates it
         by = max(main, key=lambda r: r["bound_ms"] * r["per_map"])["bound_by"]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda",
+            "source": f"deep3d_aerial_tpu_torch/csrc/{source}",
+            "replaces": f"deep3d_aerial_tpu/ops/{replaces}",
+            "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": per_map("ms"), "plain_ms": per_map("plain_ms"),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "per_map_of": path,
         })
+    kernels.append({
+        "name": "cf_conv3x3", "route": "cuda",
+        "source": "deep3d_aerial_tpu_torch/csrc/red_step4.cu",
+        "replaces": "deep3d_aerial_tpu/ops/pallas_cf_conv.py:150",
+        "launches": launches["cf_conv3x3"], "max_abs_err": k5["max_abs_err"],
+        "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
+        "per_map_of": msred + f" (inside red_step4, {RED4_CONVS} per step)",
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

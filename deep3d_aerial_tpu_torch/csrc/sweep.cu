@@ -1,16 +1,21 @@
-// Plane-sweep kernels for Hopper (sm_90a): one kernel body, two modes.
+// Plane-sweep kernels for Hopper (sm_90a): one projection and tap code,
+// three modes.
 //
 // Replaces:
-//   pair mode -> deep3d_aerial_tpu/ops/pallas_sweep.py:_sweep_corr_kernel
-//                (entry sweep_corr_chunk_pallas; the AdaMVS stage-1 pair
-//                volumes, models/adamvs.py:_pair_volumes_pallas)
-//   cost mode -> deep3d_aerial_tpu/ops/pallas_sweep.py:_sweep_cost_kernel,
-//                mode='corr' (entry sweep_cost_chunk_prepared; every cascade
-//                stage's cost chunk, models/cascade.py:_pallas_chunk_costs)
+//   pair mode     -> deep3d_aerial_tpu/ops/pallas_sweep.py:_sweep_corr_kernel
+//                    (entry sweep_corr_chunk_pallas; the AdaMVS stage-1 pair
+//                    volumes, models/adamvs.py:_pair_volumes_pallas)
+//   cost mode     -> deep3d_aerial_tpu/ops/pallas_sweep.py:_sweep_cost_kernel,
+//                    mode='corr' (entry sweep_cost_chunk_prepared; every
+//                    AdaMVS stage's cost chunk, models/cascade.py:_pallas_chunk_costs)
+//   variance mode -> the same TPU kernel, mode='variance' (every MSREDNet
+//                    stage's cost chunk; oracle models/cascade.py:variance_cost_plane)
 //
-// pair: out[k,y,x]   = mean_c ref[y,x,c] * warp(src, k)[y,x,c]
-// cost: out[k,c,y,x] = sum_v w_v[y,x] * ref[y,x,c] * warp(src_v, k)[y,x,c]
-//                      / (sum_v w_v[y,x] + 1e-5)
+// pair:     out[k,y,x]   = mean_c ref[y,x,c] * warp(src, k)[y,x,c]
+// cost:     out[k,c,y,x] = sum_v w_v[y,x] * ref[y,x,c] * warp(src_v, k)[y,x,c]
+//                          / (sum_v w_v[y,x] + 1e-5)
+// variance: out[k,c,y,x] = E[f^2] - E[f]^2 over f in {ref[y,x,c]} and the
+//                          V values warp(src_v, k)[y,x,c] (n = V + 1, no weights)
 // warp(src, k)[y,x] is the bilinear sample of src [H,W,C] at the projection
 // of ref pixel (x, y) at depth depths[k,y,x] through the view's 12 rel
 // scalars (rows 0-2 of src_P @ inv(ref_P)); each of the 4 taps is zeroed on
@@ -30,7 +35,8 @@
 // on neighbouring source pixels. Features are channels-last, so one tap is
 // C/4 16-byte loads of one contiguous run. The sums over C and over views
 // stay in registers; no [V,K,H,W,C] warp buffer exists and only the output
-// reaches device memory. No source windows: a tap may land anywhere in the
+// reaches device memory (the variance mode keeps its sum and sum of
+// squares per channel the same way). No source windows: a tap may land anywhere in the
 // source image (the TPU kernel's windows and coverage flag are what made it
 // miss at 1856x2752). The projection uses round-to-nearest intrinsics so no
 // product and sum is fused into an FMA: the coordinates round exactly as the
@@ -174,6 +180,48 @@ sweep_cost_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
   for (int c = 0; c < C; ++c) o[(long long)c * HW] = acc[c] / denom;
 }
 
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+sweep_var_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
+                 const float* __restrict__ rels, const float* __restrict__ depths,
+                 float* __restrict__ out, int V, int K, int H, int W) {
+  const long long HW = (long long)H * W;
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long long)K * HW) return;
+  const long long pix = idx % HW;
+  const int k = (int)(idx / HW);
+  const int y = (int)(pix / W), x = (int)(pix % W);
+  const float d = depths[idx];
+
+  // s: ref + sum of the warps, q: ref^2 + sum of their squares
+  float s[C], q[C];
+#pragma unroll
+  for (int c = 0; c < C; c += 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(ref + pix * C + c));
+    s[c] = v.x; s[c + 1] = v.y; s[c + 2] = v.z; s[c + 3] = v.w;
+    q[c] = v.x * v.x; q[c + 1] = v.y * v.y;
+    q[c + 2] = v.z * v.z; q[c + 3] = v.w * v.w;
+  }
+  for (int v = 0; v < V; ++v) {
+    const Taps t = project_taps(rels + 12 * v, srcs + (long long)v * HW * C,
+                                C, H, W, (float)x, (float)y, d);
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      const float4 w = sample4(t, c);
+      s[c] += w.x; s[c + 1] += w.y; s[c + 2] += w.z; s[c + 3] += w.w;
+      q[c] += w.x * w.x; q[c + 1] += w.y * w.y;
+      q[c + 2] += w.z * w.z; q[c + 3] += w.w * w.w;
+    }
+  }
+  const float n = (float)(V + 1);
+  float* o = out + (long long)k * C * HW + pix;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float mean = s[c] / n;
+    o[(long long)c * HW] = q[c] / n - mean * mean;
+  }
+}
+
 inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -215,6 +263,23 @@ extern "C" int sweep_cost_f32(const float* ref, const float* srcs,
     case 8: sweep_cost_kernel<8><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, weights, out, V, K, H, W); break;
     case 16: sweep_cost_kernel<16><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, weights, out, V, K, H, W); break;
     case 32: sweep_cost_kernel<32><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, weights, out, V, K, H, W); break;
+    default: return kUnsupported;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Variance mode (K2v). ref [H,W,C], srcs [V,H,W,C], rels [V,12],
+// depths [K,H,W] -> out [K,C,H,W].
+extern "C" int sweep_var_f32(const float* ref, const float* srcs,
+                             const float* rels, const float* depths, float* out,
+                             int V, int K, int H, int W, int C, void* stream) {
+  const long long n = (long long)K * H * W;
+  if (n == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (C) {
+    case 8: sweep_var_kernel<8><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, K, H, W); break;
+    case 16: sweep_var_kernel<16><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, K, H, W); break;
+    case 32: sweep_var_kernel<32><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, K, H, W); break;
     default: return kUnsupported;
   }
   return (int)cudaGetLastError();

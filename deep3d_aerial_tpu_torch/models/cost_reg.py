@@ -1,21 +1,27 @@
-"""Cost-volume regularizers of AdaMVS (counterpart of
+"""Cost-volume regularizers (counterpart of
 deep3d_aerial_tpu/models/cost_reg.py):
 
   * CostRegNet2D -- 2D hourglass treating the D score planes as channels
-  * RedStep2     -- one depth plane of the 2-level ConvGRU regularizer; its
-                    step is kernel K3 (ops/red_step2.py) on CUDA
+                    (AdaMVS pair branch)
+  * RedStep2     -- one depth plane of the 2-level ConvGRU regularizer
+                    (AdaMVS); its step is kernel K3 (ops/red_step2.py) on CUDA
+  * NormGRUCell  -- ConvGRU with one-group GroupNorms on gates and candidate
+  * RedStep4     -- one depth plane of the 4-level NormGRU encoder-decoder
+                    (MSREDNet); its step is kernel K4 (ops/red_step4.py) on
+                    CUDA, built from the conv template K5 (ops/cf_conv.py)
 
-CostRegNet3D and RedStep4 (CasMVSNet, UCSNet, MSREDNet) are not ported yet
-(ROADMAP, section A).
+CostRegNet3D (CasMVSNet, UCSNet) is not ported yet (ROADMAP, section A).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import functools
+from typing import Callable, List, Tuple
 
 import torch
 import torch.nn as nn
 
+from ..ops import red_step4 as rs4
 from ..ops.red_step2 import pack_params, red_step2, red_step2_plain
 from .blocks import Conv2d, ConvBlock, ConvGRUCell, ConvTranspose2d, DeconvBlock
 
@@ -24,6 +30,22 @@ def _crop_like(x, ref):
     """Crop a decoder output to the skip tensor's spatial shape (transposed
     convs overshoot by one on odd input sizes)."""
     return x[..., :ref.shape[-2], :ref.shape[-1]]
+
+
+class _PackedCache:
+    """A kernel's packed weights, rebuilt only when a parameter changed."""
+
+    def __init__(self, pack):
+        self._pack = pack
+        self._key = None
+        self._packed = None
+
+    def get(self, module: nn.Module):
+        key = tuple((p.data_ptr(), p._version) for p in module.parameters())
+        if key != self._key:
+            self._packed = self._pack(dict(module.named_parameters()))
+            self._key = key
+        return self._packed
 
 
 class CostRegNet2D(nn.Module):
@@ -81,26 +103,107 @@ class RedStep2(nn.Module):
             self.upconv2d = ConvTranspose2d(b, 1)
         else:
             self.out2d = Conv2d(b, 1)
-        self._packed: Optional[List[torch.Tensor]] = None
-        self._packed_key = None
-
-    def _params(self):
-        return dict(self.named_parameters())
+        self._packed = _PackedCache(lambda p: pack_params(p, up))
 
     def _packed_params(self) -> List[torch.Tensor]:
         """K3's packed weights, rebuilt only when a parameter changed."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if key != self._packed_key:
-            self._packed = pack_params(self._params(), self.up)
-            self._packed_key = key
-        return self._packed
+        return self._packed.get(self)
+
+    def plane_step(self, device: torch.device) -> Callable:
+        """The step as a function of (cost, s1, s2) on `device`, its
+        parameters (and K3's packed weights) gathered once: the streaming
+        sweep calls it for every plane."""
+        params = dict(self.named_parameters())
+        if self.impl == "plain":
+            return functools.partial(red_step2_plain, params, up=self.up)
+        packed = self._packed_params() if device.type == "cuda" else None
+        return functools.partial(red_step2, params, up=self.up, packed=packed)
 
     def forward(self, cost, s1, s2) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        if self.impl == "plain":
-            return red_step2_plain(self._params(), cost, s1, s2, up=self.up)
-        packed = self._packed_params() if cost.is_cuda else None
-        return red_step2(self._params(), cost, s1, s2, up=self.up, packed=packed)
+        return self.plane_step(cost.device)(cost, s1, s2)
 
     def init_states(self, H: int, W: int, device=None):
         return (torch.zeros((8, H, W), device=device),
                 torch.zeros((16, (H + 1) // 2, (W + 1) // 2), device=device))
+
+
+class GroupNorm1(nn.Module):
+    """GroupNorm with ONE group over the whole [C, H, W] map (the JAX
+    NormGRUCell's nn.GroupNorm(num_groups=1, reduction_axes=(-3, -2, -1))),
+    eps 1e-6. Not the per-row blocks.GroupNorm of the feature net."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return rs4.group_norm_global(x, self.weight, self.bias)
+
+
+class NormGRUCell(nn.Module):
+    """ConvGRU with GroupNorm1 on r, u and the candidate, on [C, H, W]
+    maps: r, u = sigmoid(GN(conv([x, h]))), o = tanh(GN(conv([x, r*h]))),
+    h' = u*h + (1-u)*o (the JAX package's NormGRUCell)."""
+
+    def __init__(self, cin: int, hidden: int):
+        super().__init__()
+        self.gates = Conv2d(cin + hidden, 2 * hidden)
+        self.cand = Conv2d(cin + hidden, hidden)
+        self.rn = GroupNorm1(hidden)
+        self.un = GroupNorm1(hidden)
+        self.on = GroupNorm1(hidden)
+
+    def forward(self, x, h):
+        return rs4.norm_gru_plain(dict(self.named_parameters()), x, h)
+
+
+class RedStep4(nn.Module):
+    """One 4-level recurrent encoder-decoder step, MSREDNet flavour.
+
+    cost [Cin, H, W] (the variance cost; the step negates it), states
+    s1 [8, H, W], s2 [16, H/2, W/2], s3 [32, H/4, W/4], s4 [64, H/8, W/8]
+    (channel-first, the layout K4 reads and writes), H and W multiples of 8
+    -> (score [H, W], s1', s2', s3', s4'), at MSREDNet's published base
+    width 8. impl 'kernel' runs K4 on CUDA tensors (its plain version on
+    CPU tensors); 'plain' always runs the plain version.
+    """
+
+    def __init__(self, cin: int, impl: str = "kernel"):
+        super().__init__()
+        if impl not in ("kernel", "plain"):
+            raise ValueError(f"RedStep4 impl {impl!r} (kernel, plain)")
+        b = 8
+        self.impl = impl
+        self.conv1 = ConvBlock(cin, 2 * b, stride=2, norm="none")
+        self.conv2 = ConvBlock(2 * b, 4 * b, stride=2, norm="none")
+        self.conv3 = ConvBlock(4 * b, 8 * b, stride=2, norm="none")
+        self.gru1 = NormGRUCell(cin, b)
+        self.gru2 = NormGRUCell(2 * b, 2 * b)
+        self.gru3 = NormGRUCell(4 * b, 4 * b)
+        self.gru4 = NormGRUCell(8 * b, 8 * b)
+        self.upconv3 = DeconvBlock(8 * b, 4 * b, norm="none")
+        self.upconv2 = DeconvBlock(4 * b, 2 * b, norm="none")
+        self.upconv1 = DeconvBlock(2 * b, b, norm="none")
+        self.out2d = Conv2d(b, 1)
+        self._packed = _PackedCache(lambda p: rs4.pack_params(p, cin))
+
+    def plane_step(self, device: torch.device) -> Callable:
+        """The step as a function of (cost, s1, s2, s3, s4) on `device`, its
+        parameters (and K4's packed weights) gathered once: the streaming
+        sweep calls it for every plane."""
+        params = dict(self.named_parameters())
+        if self.impl == "plain":
+            return functools.partial(rs4.red_step4_plain, params)
+        packed = self._packed.get(self) if device.type == "cuda" else None
+        return functools.partial(rs4.red_step4, params, packed=packed)
+
+    def forward(self, cost, s1, s2, s3, s4) -> Tuple[torch.Tensor, ...]:
+        return self.plane_step(cost.device)(cost, s1, s2, s3, s4)
+
+    def init_states(self, H: int, W: int, device=None):
+        if H % 8 or W % 8:
+            raise ValueError(f"RedStep4 needs H and W multiples of 8, got "
+                             f"{H} x {W}")
+        return tuple(torch.zeros((c, H >> l, W >> l), device=device)
+                     for l, c in enumerate(rs4.HIDDEN))

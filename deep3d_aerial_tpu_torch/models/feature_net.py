@@ -1,8 +1,11 @@
-"""AdaMVS feature pyramid, arch 'branch' (counterpart of
-deep3d_aerial_tpu/models/feature_net.py): UNet decoder plus two avg-pool
-context branches per stage. Stages at 1/4, 1/2 and 1/1 resolution with
-[4b, 2b, b] channels, NCHW. The 'fpn' and 'unet' archs are not ported yet
-(ROADMAP, section A).
+"""Feature pyramids (counterpart of deep3d_aerial_tpu/models/feature_net.py):
+
+  * 'unet'   -- deconv-fuse decoder (MSREDNet)
+  * 'branch' -- the UNet decoder plus two avg-pool context branches per
+                stage (AdaMVS)
+
+Stages at 1/4, 1/2 and 1/1 resolution with [4b, 2b, b] channels, NCHW. The
+'fpn' arch (CasMVSNet, UCSNet) is not ported yet (ROADMAP, section A).
 """
 
 from __future__ import annotations
@@ -19,27 +22,31 @@ class FeatureNet(nn.Module):
     def __init__(self, base_channels: int = 8, arch: str = "branch",
                  norm: str = "group"):
         super().__init__()
-        if arch != "branch":
+        if arch not in ("branch", "unet"):
             raise NotImplementedError(
                 f"FeatureNet arch {arch!r} is not ported (ROADMAP A: "
                 "CasMVSNet/UCSNet)")
         b = base_channels
         self.base_channels = b
+        self.arch = arch
         specs = [(3, b, 3, 1), (b, b, 3, 1),
                  (b, 2 * b, 5, 2), (2 * b, 2 * b, 3, 1), (2 * b, 2 * b, 3, 1),
                  (2 * b, 4 * b, 5, 2), (4 * b, 4 * b, 3, 1), (4 * b, 4 * b, 3, 1)]
         self.convs = nn.ModuleList(
             [ConvBlock(ci, co, k, s, norm=norm) for ci, co, k, s in specs])
-        for stage, (cin, cbr) in enumerate(((4 * b, 2 * b), (2 * b, b),
-                                            (b, b // 2)), start=1):
-            for j in (1, 2):
-                self.add_module(f"branch{stage}_{j}",
-                                ConvBlock(cin, cbr, kernel=1, norm=norm))
-        self.out1 = Conv2d(8 * b, 4 * b, 1, bias=False)
+        # 'branch' heads see [ctx1, ctx2, x]: twice the stage's channels
+        k = 2 if arch == "branch" else 1
+        if arch == "branch":
+            for stage, (cin, cbr) in enumerate(((4 * b, 2 * b), (2 * b, b),
+                                                (b, b // 2)), start=1):
+                for j in (1, 2):
+                    self.add_module(f"branch{stage}_{j}",
+                                    ConvBlock(cin, cbr, kernel=1, norm=norm))
+        self.out1 = Conv2d(4 * k * b, 4 * b, 1, bias=False)
         self.deconv1 = DeconvFuse(4 * b, 2 * b, 2 * b, norm=norm)
-        self.out2 = Conv2d(4 * b, 2 * b, 1, bias=False)
+        self.out2 = Conv2d(2 * k * b, 2 * b, 1, bias=False)
         self.deconv2 = DeconvFuse(2 * b, b, b, norm=norm)
-        self.out3 = Conv2d(2 * b, b, 1, bias=False)
+        self.out3 = Conv2d(k * b, b, 1, bias=False)
 
     @property
     def out_channels(self) -> Tuple[int, int, int]:
@@ -47,6 +54,8 @@ class FeatureNet(nn.Module):
         return (4 * b, 2 * b, b)
 
     def _head(self, x, stage: int, out: Conv2d):
+        if self.arch == "unet":
+            return out(x)
         br1 = avgpool_branch(x, 4, getattr(self, f"branch{stage}_1"))
         br2 = avgpool_branch(x, 8, getattr(self, f"branch{stage}_2"))
         return out(torch.cat([br1, br2, x], dim=1))

@@ -1,0 +1,92 @@
+"""Channel-first 3x3 convolution: CUDA kernel K5 and its plain PyTorch
+version.
+
+Replaces deep3d_aerial_tpu/ops/pallas_cf_conv.py:_k_same, _k_down and _k_up
+(entry cf_conv3x3), the convs that the JAX package's tiled RedStep4
+composes. x [Ci, H, W] ->
+  'same'  [Co, H, W]                    3x3 stride 1, 'SAME'
+  'down'  [Co, ceil(H/2), ceil(W/2)]    3x3 stride 2, 'SAME' (low-side pad)
+  'up'    [Co, 2H, 2W]                  3x3 stride-2 'SAME' transposed conv
++ bias, then ReLU when `relu`. Weights are in the port's layouts: OIHW for
+'same'/'down', [in, out, 3, 3] flipped for 'up' (ops/conv.py). Exact shapes:
+none of the TPU kernel's row padding, row masks or column slabs.
+
+The kernel is the conv template of csrc/red_step4.cu (its design and bound
+are described there); the RedStep4 step (ops/red_step4.py) launches it
+from C. `cf_conv3x3` launches it for CUDA tensors and raises if the launch
+fails; it takes the plain version only for CPU tensors. It counts its
+launches in `cf_conv3x3.launches`, and red_step4 adds the launches its step
+makes.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .conv import conv2d_same, conv_transpose2d_same
+
+MODES = ("same", "down", "up")
+
+
+def cf_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                     mode: str = "same", relu: bool = True) -> torch.Tensor:
+    """Plain version of K5 (F.pad + F.conv2d, or conv_transpose2d_same)."""
+    if mode == "up":
+        y = conv_transpose2d_same(x[None], w, b)[0]
+    elif mode in ("same", "down"):
+        y = conv2d_same(x[None], w, b, stride=1 if mode == "same" else 2)[0]
+    else:
+        raise ValueError(f"cf_conv3x3 mode {mode!r} ({', '.join(MODES)})")
+    return torch.relu(y) if relu else y
+
+
+def pack_weight(w: torch.Tensor, mode: str) -> torch.Tensor:
+    """The kernel's weight layout [Ci, 3, 3, Co], flat: convs OIHW ->
+    IHWO, transposed convs [in, out, 3, 3] -> [in, 3, 3, out]."""
+    wp = w.permute(0, 2, 3, 1) if mode == "up" else w.permute(1, 2, 3, 0)
+    return wp.float().reshape(-1).contiguous()
+
+
+def cf_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+               mode: str = "same", relu: bool = True,
+               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5 on CUDA tensors (`packed` = pack_weight(w, mode), to skip
+    repacking per call); cf_conv3x3_plain on CPU tensors."""
+    if not x.is_cuda:
+        return cf_conv3x3_plain(x, w, b, mode=mode, relu=relu)
+    from .cuda_build import check, load
+
+    if mode not in MODES:
+        raise ValueError(f"cf_conv3x3 mode {mode!r} ({', '.join(MODES)})")
+    Ci, H, W = x.shape
+    Co = w.shape[1] if mode == "up" else w.shape[0]
+    wi = w.shape[0] if mode == "up" else w.shape[1]
+    if wi != Ci or tuple(w.shape[2:]) != (3, 3) or tuple(b.shape) != (Co,):
+        raise ValueError(f"cf_conv3x3: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"b {tuple(b.shape)} do not fit mode {mode!r}")
+    if packed is None:
+        packed = pack_weight(w, mode)
+    x, b = x.contiguous(), b.contiguous()
+    for name, t in (("x", x), ("w", packed), ("b", b)):
+        if not t.is_cuda or t.dtype != torch.float32:
+            raise ValueError(f"cf_conv3x3: {name} must be a float32 CUDA "
+                             f"tensor, got {t.dtype} on {t.device}")
+    if packed.numel() != Ci * 9 * Co:
+        raise ValueError(f"cf_conv3x3: packed weight of {packed.numel()} "
+                         f"floats for Ci {Ci}, Co {Co}")
+    shape = {"same": (Co, H, W), "down": (Co, (H + 1) // 2, (W + 1) // 2),
+             "up": (Co, 2 * H, 2 * W)}[mode]
+    out = torch.empty(shape, device=x.device, dtype=torch.float32)
+    lib = load("red_step4")
+    rc = lib.cf_conv3x3_f32(x.data_ptr(), packed.data_ptr(), b.data_ptr(), Ci,
+                            Co, H, W, MODES.index(mode), int(relu),
+                            out.data_ptr(),
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    check(lib, rc, "cf_conv3x3")
+    cf_conv3x3.launches += 1
+    return out
+
+
+cf_conv3x3.launches = 0

@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-SOURCES = ("sweep", "red_step2")
+SOURCES = ("sweep", "red_step2", "red_step4")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -30,16 +30,27 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _ARGTYPES = {
     "sweep": {
         "sweep_corr_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "sweep_cost_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "sweep_var_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "red_step2": {
         "red_step2_f32": [_P, _I, _P, _P] + [_P] * 8 + [_P] * 4
                          + [_I, _I, _I, _P],
     },
+    "red_step4": {
+        "cf_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+        "red_step4_param_floats": [_I],
+        "red_step4_scratch_floats": [_I, _I],
+        "red_step4_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, ctypes.POINTER(_I), _P],
+    },
 }
+# entries that return a size instead of an error code
+_RESTYPES = {"red_step4_param_floats": _L, "red_step4_scratch_floats": _L}
 
 
 def nvcc() -> str:
@@ -102,7 +113,7 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in _ARGTYPES[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = _RESTYPES.get(fn, _I)
             lib.error_string.argtypes = [ctypes.c_int]
             lib.error_string.restype = ctypes.c_char_p
             _libs[name] = lib

@@ -1,0 +1,183 @@
+"""One RedStep4 recurrent-regularizer step: CUDA kernel K4 and its plain
+PyTorch version.
+
+Replaces deep3d_aerial_tpu/ops/pallas_red4.py:_red4_kernel (entries
+red_step4_fused / red_step4_tiled; oracle red_step4_reference).
+Channel-first tensors: cost [Cin, H, W] (a sweep_var output plane, read as
+it is), states s1 [8, H, W], s2 [16, H/2, W/2], s3 [32, H/4, W/4],
+s4 [64, H/8, W/8], H and W multiples of 8 -> (score [H, W], s1', s2', s3',
+s4'). `params` maps the names of models.cost_reg.RedStep4's parameters
+(conv1.conv.weight, gru1.gates.weight, gru1.rn.weight, upconv3.conv.weight,
+out2d.weight, ...) to tensors; transposed-conv weights are in PyTorch's
+[in, out, 3, 3] layout, flipped (ops/conv.py).
+
+The kernel source, with its design, launches per step and bound, is
+csrc/red_step4.cu; its convolutions are the K5 template (ops/cf_conv.py).
+`red_step4` launches it for CUDA tensors and raises if the launch fails; it
+takes the plain version only for CPU tensors. It counts one launch per step
+in `red_step4.launches` and adds the step's conv-template launches to
+`cf_conv3x3.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .cf_conv import cf_conv3x3
+from .conv import conv2d_same, conv_transpose2d_same
+
+Params = Dict[str, torch.Tensor]
+HIDDEN = (8, 16, 32, 64)
+GN_EPS = 1e-6
+
+
+def group_norm_global(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, eps: float = GN_EPS) -> torch.Tensor:
+    """GroupNorm with one group over the whole [C, H, W] map, as the JAX
+    package's NormGRUCell applies it (num_groups=1, reduction over (H, W,
+    C)): variance E[x^2] - E[x]^2 clamped at 0, the scale folded into the
+    inverse deviation."""
+    mean = x.mean()
+    var = ((x * x).mean() - mean * mean).clamp_min(0)
+    mul = torch.rsqrt(var + eps) * weight[:, None, None]
+    return (x - mean) * mul + bias[:, None, None]
+
+
+def norm_gru_plain(p: Params, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """NormGRUCell on [C, H, W] maps; p holds gates.*, cand.*, rn.*, un.*,
+    on.* (weight and bias each)."""
+    hid = h.shape[0]
+    g = conv2d_same(torch.cat([x, h])[None], p["gates.weight"],
+                    p["gates.bias"])[0]
+    r = torch.sigmoid(group_norm_global(g[:hid], p["rn.weight"], p["rn.bias"]))
+    u = torch.sigmoid(group_norm_global(g[hid:], p["un.weight"], p["un.bias"]))
+    o = conv2d_same(torch.cat([x, r * h])[None], p["cand.weight"],
+                    p["cand.bias"])[0]
+    o = torch.tanh(group_norm_global(o, p["on.weight"], p["on.bias"]))
+    return u * h + (1.0 - u) * o
+
+
+def _sub(p: Params, name: str) -> Params:
+    n = len(name) + 1
+    return {k[n:]: v for k, v in p.items() if k.startswith(name + ".")}
+
+
+def red_step4_plain(params: Params, cost: torch.Tensor, s1: torch.Tensor,
+                    s2: torch.Tensor, s3: torch.Tensor, s4: torch.Tensor
+                    ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K4 (F.conv2d / F.conv_transpose2d), the JAX
+    package's RedStep4 body on channel-first maps."""
+    p = params
+
+    def down(x, name):
+        return torch.relu(conv2d_same(x[None], p[f"{name}.conv.weight"],
+                                      p[f"{name}.conv.bias"], stride=2)[0])
+
+    def up(x, name):
+        return torch.relu(conv_transpose2d_same(
+            x[None], p[f"{name}.conv.weight"], p[f"{name}.conv.bias"])[0])
+
+    neg = -cost
+    d1 = down(neg, "conv1")
+    d2 = down(d1, "conv2")
+    d3 = down(d2, "conv3")
+    r4 = norm_gru_plain(_sub(p, "gru4"), d3, s4)
+    u3 = up(r4, "upconv3")
+    r3 = norm_gru_plain(_sub(p, "gru3"), d2, s3)
+    u2 = up(u3 + r3, "upconv2")
+    r2 = norm_gru_plain(_sub(p, "gru2"), d1, s2)
+    u1 = up(u2 + r2, "upconv1")
+    r1 = norm_gru_plain(_sub(p, "gru1"), neg, s1)
+    score = conv2d_same((u1 + r1)[None], p["out2d.weight"], p["out2d.bias"])[0, 0]
+    return score, r1, r2, r3, r4
+
+
+# the C entry's layer order; each packed [ci][ky][kx][co] + bias
+_LAYERS = ("conv1.conv", "conv2.conv", "conv3.conv",
+           "gru1.gates", "gru1.cand", "gru2.gates", "gru2.cand",
+           "gru3.gates", "gru3.cand", "gru4.gates", "gru4.cand",
+           "upconv3.conv", "upconv2.conv", "upconv1.conv", "out2d")
+# the cost's consumers: the negation folds into their first `cin` inputs
+_NEG = ("conv1.conv", "gru1.gates", "gru1.cand")
+
+
+@torch.no_grad()
+def pack_params(params: Params, cin: int) -> torch.Tensor:
+    """K4's one packed parameter buffer: the 15 layers in _LAYERS order
+    (convs OIHW -> [I, 3, 3, O], transposed convs [I, O, 3, 3] ->
+    [I, 3, 3, O], each followed by its bias), neg = -cost folded into the
+    cost's input channels of conv1 and of gru1's gates and candidate, then
+    per level the GroupNorm vectors rn, un, on (weight, bias)."""
+    out = []
+    for name in _LAYERS:
+        w = params[f"{name}.weight"].float()
+        if name in _NEG:
+            w = torch.cat([-w[:, :cin], w[:, cin:]], dim=1)
+        wp = w.permute(0, 2, 3, 1) if name.startswith("upconv") else w.permute(1, 2, 3, 0)
+        out += [wp.reshape(-1), params[f"{name}.bias"].float()]
+    for l in range(4):
+        for gn in ("rn", "un", "on"):
+            out += [params[f"gru{l + 1}.{gn}.weight"].float(),
+                    params[f"gru{l + 1}.{gn}.bias"].float()]
+    return torch.cat(out).contiguous()
+
+
+def check_shapes(cost: torch.Tensor, states) -> None:
+    """Raise ValueError unless cost is [Cin, H, W] with H and W multiples
+    of 8 and the states are the pyramid [8|16|32|64, H>>l, W>>l]."""
+    if cost.ndim != 3:
+        raise ValueError(f"red_step4: cost {tuple(cost.shape)} is not [Cin, H, W]")
+    _, H, W = cost.shape
+    if H % 8 or W % 8 or H == 0 or W == 0:
+        raise ValueError(f"red_step4: H x W = {H} x {W}; the step needs "
+                         "multiples of 8 (three stride-2 levels)")
+    want = [(c, H >> l, W >> l) for l, c in enumerate(HIDDEN)]
+    got = [tuple(s.shape) for s in states]
+    if got != want:
+        raise ValueError(f"red_step4: states {got} do not fit cost "
+                         f"{tuple(cost.shape)} (want {want})")
+
+
+def red_step4(params: Params, cost: torch.Tensor, s1: torch.Tensor,
+              s2: torch.Tensor, s3: torch.Tensor, s4: torch.Tensor, *,
+              packed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """K4 on CUDA tensors (`packed` = pack_params(params, Cin), to skip
+    repacking per plane); red_step4_plain on CPU tensors."""
+    if not cost.is_cuda:
+        return red_step4_plain(params, cost, s1, s2, s3, s4)
+    from .cuda_build import check, load
+
+    states = (s1, s2, s3, s4)
+    check_shapes(cost, states)
+    tensors = (cost,) + states
+    if any(t.dtype != torch.float32 or not t.is_cuda for t in tensors):
+        raise ValueError("red_step4: cost and states must be float32 CUDA tensors")
+    cost, s1, s2, s3, s4 = (t.contiguous() for t in tensors)
+    Cin, H, W = cost.shape
+    lib = load("red_step4")
+    if packed is None:
+        packed = pack_params(params, Cin)
+    if (not packed.is_cuda or packed.dtype != torch.float32
+            or packed.numel() != lib.red_step4_param_floats(Cin)):
+        raise ValueError(f"red_step4: packed parameters ({packed.numel()} "
+                         f"floats) do not fit Cin {Cin}")
+    dev = cost.device
+    score = torch.empty((H, W), device=dev)
+    outs = [torch.empty_like(s) for s in (s1, s2, s3, s4)]
+    scratch = torch.empty(lib.red_step4_scratch_floats(H, W), device=dev)
+    convs = ctypes.c_int(0)
+    rc = lib.red_step4_f32(cost.data_ptr(), Cin, s1.data_ptr(), s2.data_ptr(),
+                           s3.data_ptr(), s4.data_ptr(), packed.data_ptr(),
+                           score.data_ptr(), *(o.data_ptr() for o in outs),
+                           scratch.data_ptr(), H, W, ctypes.byref(convs),
+                           torch.cuda.current_stream(dev).cuda_stream)
+    check(lib, rc, "red_step4")
+    red_step4.launches += 1
+    cf_conv3x3.launches += convs.value
+    return (score, *outs)
+
+
+red_step4.launches = 0

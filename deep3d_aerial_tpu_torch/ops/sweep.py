@@ -1,14 +1,16 @@
-"""Fused plane-sweep correlation: CUDA kernels K1 (pair) and K2 (cost),
-with their plain PyTorch versions.
+"""Fused plane sweep: CUDA kernels K1 (pair), K2 (cost) and K2v
+(variance), with their plain PyTorch versions.
 
   sweep_corr  (K1)  one source view, K planes -> [K, H, W]
                     mean_c(ref * warp(src))                  (AdaMVS pair branch)
   sweep_cost  (K2)  all V source views, K planes -> [K, C, H, W]
                     sum_v w_v * ref * warp(src_v) / (sum_v w_v + 1e-5)
-                                                             (every cascade stage)
+                                                             (AdaMVS stages)
+  sweep_var   (K2v) all V source views, K planes -> [K, C, H, W]
+                    E[f^2] - E[f]^2 over {ref} and the V warps (MSREDNet stages)
 
 They replace deep3d_aerial_tpu/ops/pallas_sweep.py:_sweep_corr_kernel and
-:_sweep_cost_kernel (mode='corr'). Features are channels-last ([H, W, C]),
+:_sweep_cost_kernel (mode='corr' and mode='variance'). Features are channels-last ([H, W, C]),
 depths per pixel ([K, H, W]), rel the [4, 4] (or [3, 4]) src_P @ inv(ref_P).
 The kernel source, with its design and bound, is csrc/sweep.cu.
 
@@ -44,6 +46,23 @@ def sweep_cost_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
         acc = corr if acc is None else acc + corr
     cost = acc / (weights.sum(0) + 1e-5)[None, :, :, None]
     return cost.permute(0, 3, 1, 2).contiguous()
+
+
+def sweep_var_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
+                    depths: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2v: [K, C, H, W] variance over {ref} and the V
+    warped source views (the JAX package's variance_cost_plane per plane)."""
+    H, W, _ = ref.shape
+    s, q = None, None
+    for v in range(srcs.shape[0]):
+        x, y, _ = sweep_coordinates(rels[v], depths, (H, W))
+        w = bilinear_sample(srcs[v], x, y)
+        s = w if s is None else s + w
+        q = w * w if q is None else q + w * w
+    n = srcs.shape[0] + 1
+    mean = (ref[None] + s) / n
+    cost = (ref * ref)[None] + q
+    return (cost / n - mean * mean).permute(0, 3, 1, 2).contiguous()
 
 
 def _rel12(rel: torch.Tensor) -> torch.Tensor:
@@ -120,3 +139,34 @@ def sweep_cost(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
 
 
 sweep_cost.launches = 0
+
+
+def sweep_var(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
+              depths: torch.Tensor) -> torch.Tensor:
+    """K2v: ref [H, W, C] (C in 8, 16, 32), srcs [V, H, W, C], rels
+    [V, 4, 4], depths [K, H, W] -> [K, C, H, W]."""
+    if not ref.is_cuda:
+        return sweep_var_plain(ref, srcs, rels, depths)
+    from .cuda_build import check, load
+
+    H, W, C = ref.shape
+    V, K = srcs.shape[0], depths.shape[0]
+    if (tuple(srcs.shape) != (V, H, W, C) or tuple(depths.shape) != (K, H, W)
+            or rels.shape[0] != V):
+        raise ValueError(f"sweep_var: shapes ref {tuple(ref.shape)}, srcs "
+                         f"{tuple(srcs.shape)}, rels {tuple(rels.shape)}, "
+                         f"depths {tuple(depths.shape)}")
+    ref, srcs, depths = ref.contiguous(), srcs.contiguous(), depths.contiguous()
+    rels = _rel12(rels).to(ref.device)
+    _check_cuda("sweep_var", ref=ref, srcs=srcs, depths=depths)
+    out = torch.empty((K, C, H, W), device=ref.device, dtype=torch.float32)
+    lib = load("sweep")
+    rc = lib.sweep_var_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
+                           depths.data_ptr(), out.data_ptr(), V, K, H, W, C,
+                           torch.cuda.current_stream(ref.device).cuda_stream)
+    check(lib, rc, "sweep_var")
+    sweep_var.launches += 1
+    return out
+
+
+sweep_var.launches = 0

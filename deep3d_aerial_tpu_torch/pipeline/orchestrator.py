@@ -7,10 +7,11 @@ deep3d_aerial_tpu/pipeline/orchestrator.py), with the same file artifacts:
     dense/fusion/         scene_i.ply (+ scene_i.txt border)
     production/           copied final products
 
-Ported: dense matching with AdaMVS and depth fusion. View selection and
-COLMAP ingest, mesh and DSM, the `.dmap` and `.mvs` outputs, the pipelined
-run, batched inference and depth previews are not: switching one on raises
-NotImplementedError naming its ROADMAP item.
+Ported: dense matching with AdaMVS or MSREDNet, and depth fusion. View
+selection and COLMAP ingest, mesh and DSM, the `.dmap` and `.mvs` outputs,
+the pipelined run, batched inference, depth previews and the CasMVSNet and
+UCSNet models are not: switching one on raises NotImplementedError naming
+its ROADMAP item.
 
 The pipeline runs on a CUDA device unless the caller asks for the CPU
 (`device="cpu"`); with no CUDA device and no such request it raises.
@@ -58,6 +59,9 @@ def _check_dense_config(cfg: PipelineConfig) -> None:
     """Refuse a dense-matching setting the port does not run, before any
     work: an unported one raises NotImplementedError naming its ROADMAP
     item, one that has no meaning in the port raises ValueError."""
+    from ..models import check_model_type
+
+    check_model_type(cfg.model_type)
     if cfg.compute_dtype != "float32":
         raise _not_ported(f"compute_dtype {cfg.compute_dtype!r}", "bf16")
     if cfg.warp_precision != "float32":
@@ -119,7 +123,7 @@ class AerialPipeline:
 
     # ---------------- stage 2: dense matching -------------------------
     def build_model(self):
-        """The configured AdaMVS on this pipeline's device, in eval mode,
+        """The configured model on this pipeline's device, in eval mode,
         with the weights of `pretrain_weight` (the JAX package's `.npz`) or, with
         `allow_random_weights`, seeded random ones."""
         from ..models import build_model

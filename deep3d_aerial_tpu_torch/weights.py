@@ -112,7 +112,7 @@ def init_random_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                     model.get_submodule(name.rsplit(".", 1)[0]),
                     ConvTranspose2d) else p.shape[0] * 9
                 p.copy_(torch.randn(p.shape, generator=g) / fan_in ** 0.5)
-            elif name.endswith("norm.weight"):
+            elif name.endswith("weight"):  # 1-D: a norm's scale
                 p.fill_(1.0)
             else:
                 p.zero_()

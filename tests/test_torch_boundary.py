@@ -24,7 +24,8 @@ def _modules():
 def test_importing_every_module_pulls_no_jax():
     """In a fresh interpreter (this one has JAX loaded by conftest)."""
     mods = _modules()
-    assert "deep3d_aerial_tpu_torch.ops.sweep" in mods
+    for m in ("ops.sweep", "ops.cf_conv", "ops.red_step4", "models.msrednet"):
+        assert f"deep3d_aerial_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -73,7 +74,7 @@ def test_cuda_wrappers_never_take_the_plain_path_for_a_cuda_tensor(monkeypatch):
     on this machine fails to build: no quiet plain fallback."""
     import torch
 
-    from deep3d_aerial_tpu_torch.ops import cuda_build, red_step2, sweep
+    from deep3d_aerial_tpu_torch.ops import cf_conv, cuda_build, red_step2, red_step4, sweep
 
     class FakeCuda(torch.Tensor):
         @property
@@ -94,5 +95,16 @@ def test_cuda_wrappers_never_take_the_plain_path_for_a_cuda_tensor(monkeypatch):
     with pytest.raises((RuntimeError, ValueError)):
         red_step2.red_step2({}, torch.zeros(8, 4, 4).as_subclass(FakeCuda),
                             torch.zeros(8, 4, 4), torch.zeros(16, 2, 2), up=True)
+    with pytest.raises((RuntimeError, ValueError)):
+        sweep.sweep_var(t, t[None], rel[None], d)
+    with pytest.raises((RuntimeError, ValueError)):
+        cf_conv.cf_conv3x3(torch.zeros(8, 4, 4).as_subclass(FakeCuda),
+                           torch.zeros(8, 8, 3, 3), torch.zeros(8))
+    states = [torch.zeros(c, 8 >> l, 8 >> l) for l, c in enumerate((8, 16, 32, 64))]
+    with pytest.raises((RuntimeError, ValueError)):
+        red_step4.red_step4({}, torch.zeros(8, 8, 8).as_subclass(FakeCuda),
+                            *states)
     assert sweep.sweep_corr.launches == sweep.sweep_cost.launches == 0
-    assert red_step2.red_step2.launches == 0
+    assert sweep.sweep_var.launches == 0
+    assert red_step2.red_step2.launches == red_step4.red_step4.launches == 0
+    assert cf_conv.cf_conv3x3.launches == 0

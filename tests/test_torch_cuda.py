@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from deep3d_aerial_tpu_torch.models.cost_reg import RedStep2
+from deep3d_aerial_tpu_torch.models.cost_reg import RedStep2, RedStep4
+from deep3d_aerial_tpu_torch.ops import cf_conv as cc
 from deep3d_aerial_tpu_torch.ops import red_step2 as rs
+from deep3d_aerial_tpu_torch.ops import red_step4 as rs4
 from deep3d_aerial_tpu_torch.ops import sweep as sw
 from deep3d_aerial_tpu_torch.weights import init_random_weights
 
@@ -90,3 +92,98 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         sw.sweep_corr(x, x, torch.eye(4, device=dev), d)
     with pytest.raises(ValueError):
         sw.sweep_corr(x.double(), x.double(), torch.eye(4, device=dev), d)
+
+
+@pytest.mark.parametrize("C,H,W", [(8, 13, 21), (16, 40, 33), (32, 24, 40)])
+def test_sweep_var_kernel_matches_plain(dev, C, H, W):
+    """K2v at odd sizes; the last view sees part of the planes from behind."""
+    rng = np.random.default_rng(C + W)
+    V, K = 4, 8
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    ref, srcs = t(rng.normal(size=(H, W, C))), t(rng.normal(size=(V, H, W, C)))
+    rels = t(_rels(rng, V))
+    depths = t(rng.uniform(90, 110, size=(K, H, W)))
+    n = sw.sweep_var.launches
+    k = sw.sweep_var(ref, srcs, rels, depths)
+    p = sw.sweep_var_plain(ref, srcs, rels, depths)
+    torch.testing.assert_close(k, p, rtol=0, atol=TOL)
+    assert sw.sweep_var.launches == n + 1
+
+
+@pytest.mark.parametrize("mode", ["same", "down", "up"])
+@pytest.mark.parametrize("ci,co,H,W", [(16, 16, 37, 50), (8, 1, 20, 33),
+                                       (128, 128, 12, 16), (24, 40, 9, 7)])
+def test_cf_conv3x3_kernel_matches_plain(dev, mode, ci, co, H, W):
+    g = torch.Generator(device=dev).manual_seed(ci + co)
+    x = torch.randn((ci, H, W), generator=g, device=dev)
+    shape = (ci, co, 3, 3) if mode == "up" else (co, ci, 3, 3)
+    w = torch.randn(shape, generator=g, device=dev) / (9 * ci) ** 0.5
+    b = torch.randn((co,), generator=g, device=dev) * 0.1
+    n = cc.cf_conv3x3.launches
+    for relu in (False, True):
+        k = cc.cf_conv3x3(x, w, b, mode=mode, relu=relu)
+        p = cc.cf_conv3x3_plain(x, w, b, mode=mode, relu=relu)
+        torch.testing.assert_close(k, p, rtol=0, atol=TOL)
+    assert cc.cf_conv3x3.launches == n + 2
+
+
+@pytest.mark.parametrize("cin,H,W", [(8, 16, 24), (16, 40, 64), (32, 96, 128)])
+def test_red_step4_kernel_matches_plain(dev, cin, H, W):
+    """Three planes chained, states carried across them."""
+    g = torch.Generator(device=dev).manual_seed(cin)
+    mod = init_random_weights(RedStep4(cin), seed=cin).to(dev)
+    params = dict(mod.named_parameters())
+    states = [torch.randn((c, H >> l, W >> l), generator=g, device=dev) * 0.5
+              for l, c in enumerate(rs4.HIDDEN)]
+    n, nc = rs4.red_step4.launches, cc.cf_conv3x3.launches
+    with torch.no_grad():
+        for _ in range(3):
+            cost = torch.randn((cin, H, W), generator=g, device=dev)
+            k = rs4.red_step4(params, cost, *states)
+            p = rs4.red_step4_plain(params, cost, *states)
+            for a, b in zip(k, p):
+                torch.testing.assert_close(a, b, rtol=0, atol=TOL)
+            states = list(p[1:])
+    assert rs4.red_step4.launches == n + 3
+    assert cc.cf_conv3x3.launches == nc + 3 * 15
+
+
+def test_red_step4_plane_step_launches_the_kernel(dev):
+    """The step the streaming sweep takes once (packed weights gathered
+    once) launches K4 and gives the module's forward bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    mod = init_random_weights(RedStep4(16), seed=16).to(dev)
+    cost = torch.randn((16, 24, 32), generator=g, device=dev)
+    states = mod.init_states(24, 32, device=dev)
+    n = rs4.red_step4.launches
+    with torch.no_grad():
+        k = mod.plane_step(dev)(cost, *states)
+        f = mod(cost, *states)
+    for a, b in zip(k, f):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert rs4.red_step4.launches == n + 2
+
+
+def test_red_step4_wrapper_refuses(dev):
+    mod = init_random_weights(RedStep4(8), seed=0).to(dev)
+    params = dict(mod.named_parameters())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        rs4.red_step4(params, torch.zeros((8, 12, 16), device=dev),
+                      *(torch.zeros((c, 12 >> l, 16 >> l), device=dev)
+                        for l, c in enumerate(rs4.HIDDEN)))
+    states = mod.init_states(16, 16, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        rs4.red_step4(params, torch.zeros((8, 16, 16), device=dev).double(),
+                      *states)
+    with pytest.raises(ValueError):
+        sw.sweep_var(torch.zeros((4, 4, 8), device=dev, dtype=torch.float64),
+                     torch.zeros((2, 4, 4, 8), device=dev),
+                     torch.eye(4, device=dev).repeat(2, 1, 1),
+                     torch.full((2, 4, 4), 100.0, device=dev))
+    with pytest.raises(ValueError):
+        cc.cf_conv3x3(torch.zeros((8, 4, 4), device=dev).double(),
+                      torch.zeros((8, 8, 3, 3), device=dev),
+                      torch.zeros(8, device=dev))

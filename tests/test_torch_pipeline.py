@@ -143,6 +143,8 @@ def test_unported_stage_raises(tmp_path, switch, method):
     ({"warp_impl": "xla"}, ValueError),
     ({"red_impl": "flax"}, ValueError),
     ({"strict_coverage": True}, ValueError),
+    ({"model_type": "casmvsnet"}, NotImplementedError),
+    ({"model_type": "ucsnet"}, NotImplementedError),
 ])
 def test_dense_setting_the_port_does_not_run_raises(tmp_path, setting, error):
     """Refused before any work (the workspace's export/ is empty); an

@@ -1,6 +1,7 @@
-"""Plain versions of the sweep kernels K1 (pair correlation) and K2
-(weighted correlation cost) against the JAX package's gather oracles, on
-the CPU, with real camera geometry from the JAX package's own helpers.
+"""Plain versions of the sweep kernels K1 (pair correlation), K2 (weighted
+correlation cost) and K2v (variance cost) against the JAX package's gather
+oracles, on the CPU, with real camera geometry from the JAX package's own
+helpers.
 
 Tolerance 1e-5 absolute: the same fp32 elementwise coordinate chain and
 bilinear taps on both sides; features are unit-scale, so the remaining
@@ -14,13 +15,19 @@ import pytest
 import torch
 
 from deep3d_aerial_tpu.geometry.camera import proj_matrix, stage_relative_projections
-from deep3d_aerial_tpu.models.cascade import correlation_cost_plane
+from deep3d_aerial_tpu.models.cascade import (
+    correlation_cost_plane,
+    variance_cost_plane,
+)
 from deep3d_aerial_tpu.ops.pallas_sweep import sweep_corr_chunk_reference
+from deep3d_aerial_tpu_torch.models import cascade
 from deep3d_aerial_tpu_torch.ops.sweep import (
     sweep_corr,
     sweep_cost,
     sweep_cost_plain,
     sweep_corr_plain,
+    sweep_var,
+    sweep_var_plain,
 )
 from tests.conftest import random_pose, toy_camera
 
@@ -70,3 +77,29 @@ def test_sweep_cost_plain_matches_correlation_cost_plane(C, H, W, V):
     np.testing.assert_allclose(t.numpy(), np.transpose(np.asarray(j), (0, 3, 1, 2)),
                                rtol=0, atol=1e-5)
     np.testing.assert_array_equal(sweep_cost(*args).numpy(), t.numpy())
+
+
+@pytest.mark.parametrize("C,H,W,V", [(32, 12, 20, 4), (8, 13, 19, 2)])
+def test_sweep_var_plain_matches_variance_cost_plane(C, H, W, V):
+    """Per-pixel depth planes; one source view sees part of the planes from
+    behind its camera (those taps sample nothing)."""
+    rng = np.random.default_rng(23)
+    rels = _geometry(rng, V + 1, H, W)
+    rels[-1, 2, :3] = [0.002, 0.0, -1.0]
+    rels[-1, 2, 3] = 100.0
+    ref = rng.normal(size=(H, W, C)).astype(np.float32)
+    srcs = rng.normal(size=(V, H, W, C)).astype(np.float32)
+    depths = rng.uniform(85, 115, size=(5, H, W)).astype(np.float32)
+    j = jax.vmap(lambda d: variance_cost_plane(
+        jnp.asarray(ref), jnp.asarray(srcs), jnp.asarray(rels), d))(
+        jnp.asarray(depths))  # [K, H, W, C]
+    args = [torch.from_numpy(a) for a in (ref, srcs, rels, depths)]
+    t = sweep_var_plain(*args)
+    assert t.shape == (5, C, H, W)
+    np.testing.assert_allclose(t.numpy(), np.transpose(np.asarray(j), (0, 3, 1, 2)),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(sweep_var(*args).numpy(), t.numpy())
+    # the cascade's one-plane form
+    np.testing.assert_array_equal(
+        cascade.variance_cost_plane(*args[:3], args[3][2]).numpy(),
+        t[2].permute(1, 2, 0).numpy())
