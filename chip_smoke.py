@@ -24,9 +24,13 @@ launches is not in them (the `[kernel]` lines also print the CUDA-event
 time of a host-issued loop of calls, which is). `launches` is the count
 over that model's main-path run; `max_abs_err` is the largest
 kernel-vs-plain difference over all checked shapes (full-res included).
-K5, the channel-first conv template, runs inside K4's step (15 of its 19
-launches): its per-map numbers come from its 15 conv shapes per stage, each
-launched as often as a map launches it, and are part of K4's. Only K5 has a
+K5, the channel-first conv template, runs inside K4's step (9 of its 11
+launches, two of them grouped over the four levels): its per-map numbers
+come from the step's 15 conv shapes per stage, each launched on its own as
+often as a map runs it, and are part of K4's. Bounds: conv work (K3, K4,
+K5) at the tensor cores' fp32-exact rate, the sweeps' arithmetic at the
+fp32 CUDA-core rate; a conv `[kernel]` line prints the CUDA-core bound
+beside it. Only K5 has a
 single PyTorch call that computes the same function (one cuDNN
 convolution), so `library_ms` is null for the others (projection +
 bilinear taps + channel reduction, or a whole GRU step).
@@ -44,9 +48,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3;
+# fp32-exact convolution on the dense TF32 tensor cores (3xTF32: three
+# products per multiply-add) at a third of 495 TFLOP/s
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_TF32X3 = 495e12 / 3
 
 # main path: the default AdaMVS configuration at 384x512
 H0, W0 = 384, 512
@@ -59,8 +66,11 @@ FULL_H, FULL_W = 1856, 2752
 # MSREDNet at its published widths: base 8, 'unet' features 32/16/8,
 # RedStep4 hidden 8/16/32/64, the same planes per stage
 MSRED_CHANNELS = (32, 16, 8)
-# conv-template launches in one RedStep4 step (csrc/red_step4.cu)
-RED4_CONVS = 15
+# one RedStep4 step (csrc/red_step4.cu): 11 launches, 9 of them the conv
+# template (conv1-3, the grouped gates and candidates, upconv3-1, score)
+# over the step's 15 convolutions
+RED4_LAUNCHES = 11
+RED4_CONVS = 9
 
 # kernel vs plain on the card, stated before measuring: the kernels round
 # the projection exactly as the plain chain does, but nvcc contracts the
@@ -253,11 +263,11 @@ def device_ms(fn, iters):
     raise RuntimeError("torch.profiler saw no device work: device time not measured")
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=PEAK_FP32):
     """(least time in ms, 'bytes' or 'operations'): each input read once
     and each output written once over the memory rate, against the
-    arithmetic over the fp32 peak."""
-    tb, to = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    arithmetic over `peak` (conv work: PEAK_TF32X3)."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -339,11 +349,13 @@ def red_step2_work(cin, H, W, up, n_weights):
 
 
 def compare_kernel(records, name, shape_tag, kernel_fn, plain_fn, tol, work,
-                   per_map, iters, n_calls=1, library_fn=None):
+                   per_map, iters, n_calls=1, library_fn=None, conv=False):
     """Kernel against its plain version on the same inputs: max abs error
     (raises above `tol`), device ms of both (and of `library_fn`, one
     PyTorch call computing the same function), the bound from `work`
-    (bytes, flops). Times are per call of the kernel's function, which is
+    (bytes, flops; `conv`: the flops at the tensor cores' fp32-exact rate,
+    the CUDA-core bound printed beside it). Raises if a time is below its
+    bound. Times are per call of the kernel's function, which is
     `kernel_fn` over `n_calls`."""
     out_k = kernel_fn()
     out_p = plain_fn()
@@ -358,7 +370,8 @@ def compare_kernel(records, name, shape_tag, kernel_fn, plain_fn, tol, work,
     loop = loop_ms(kernel_fn, iters) / n_calls
     plain_ms = device_ms(plain_fn, max(1, iters // 4)) / n_calls
     lib_ms = device_ms(library_fn, iters) if library_fn is not None else None
-    b_ms, b_by = bound_ms(*work)
+    b_ms, b_by = bound_ms(*work, PEAK_TF32X3 if conv else PEAK_FP32)
+    old = f" (fp32 CUDA cores: {bound_ms(*work)[0]:.4f})" if conv else ""
     rec = dict(name=name, shape=shape_tag, max_abs_err=err,
                max_rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
@@ -367,11 +380,14 @@ def compare_kernel(records, name, shape_tag, kernel_fn, plain_fn, tol, work,
     lib = "" if lib_ms is None else f" library {lib_ms:.4f}"
     log(f"[kernel] {name:10s} {shape_tag:28s} err {err:.3e} (rel {rel:.3e}, "
         f"tol {tol:g}) device ms: kernel {ms:.4f} plain {plain_ms:.4f}{lib} "
-        f"bound {b_ms:.4f} ({b_by}, {b_ms / ms:.1%} of it reached); "
+        f"bound {b_ms:.4f}{old} ({b_by}, {b_ms / ms:.1%} of it reached); "
         f"host-issued loop {loop:.4f} ms/call; launches/map {per_map}")
     if not finite or not err <= tol:
         raise AssertionError(f"{name} {shape_tag}: kernel vs plain "
                              f"max abs err {err} > {tol} (finite={finite})")
+    if ms < b_ms:
+        raise AssertionError(f"{name} {shape_tag}: {ms} ms is below its "
+                             f"{b_ms} ms bound: the work count is wrong")
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +478,7 @@ def phase_kernels(dev, cam0, poses0, camF, posesF):
             compare("red_step2", tag + (" up" if up else ""),
                     lambda: red_step2(params, cost, s1, s2, up=up, packed=packed),
                     lambda: red_step2_plain(params, cost, s1, s2, up=up),
-                    TOL_RED, red_step2_work(C, H, W, up, n_w), D, 50)
+                    TOL_RED, red_step2_work(C, H, W, up, n_w), D, 50, conv=True)
 
     # production frame, stage 3 (1856x2752, C=8): K2 and K3
     H, W, C = FULL_H, FULL_W, CHANNELS[2]
@@ -486,7 +502,7 @@ def phase_kernels(dev, cam0, poses0, camF, posesF):
         compare("red_step2", tag,
                 lambda: red_step2(params, cost, s1, s2, up=False, packed=packed),
                 lambda: red_step2_plain(params, cost, s1, s2, up=False),
-                TOL_RED, red_step2_work(C, H, W, False, n_w), 8, 5)
+                TOL_RED, red_step2_work(C, H, W, False, n_w), 8, 5, conv=True)
     torch.cuda.empty_cache()
     return records
 
@@ -567,7 +583,7 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
                     lambda: chain(lambda *a: red_step4(params, *a, packed=packed)),
                     lambda: chain(lambda *a: red_step4_plain(params, *a)),
                     TOL_RED4, red_step4_work(C, H, W, n_w), per_map, iters,
-                    n_calls=3)
+                    n_calls=3, conv=True)
 
     def step_breakdown(C, H, W, tag):
         """Device microseconds of each launch of one step (the second of
@@ -586,14 +602,20 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
                     red_step4(params, cost, *states, packed=packed)
                 torch.cuda.synchronize()
         evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)[-(RED4_CONVS + 4):]
-        convs = iter(c[0] for c in red_step4_convs(C, H, W))
-        us = []
-        for e in evs:
-            lab = (next(convs, "conv?") if "cf_conv_kernel" in e.name else
-                   next((k for k in ("gn_finalize", "gru_reset", "gru_update")
-                         if k in e.name), e.name[:30]))
-            us.append([lab, round(e.time_range.elapsed_us(), 1)])
+                     key=lambda e: e.time_range.start)
+        n_step = len(evs) // 2
+        evs = evs[n_step:]
+        want = [("conv1", "conv_mma"), ("conv2", "conv_mma"), ("conv3", "conv_mma"),
+                ("gates1-4", "conv_mma"), ("reset", "gru_reset"),
+                ("cand1-4", "conv_mma"), ("update", "gru_update"),
+                ("upconv3", "conv_mma"), ("upconv2", "conv_mma"),
+                ("upconv1", "conv_mma"), ("score", "conv_mma")]
+        if len(evs) != RED4_LAUNCHES or any(
+                k not in e.name for (_, k), e in zip(want, evs)):
+            raise AssertionError(f"one RedStep4 step launched {len(evs)} kernels, "
+                                 f"expected {RED4_LAUNCHES}: "
+                                 + ", ".join(e.name[:40] for e in evs))
+        us = [[lab, round(e.time_range.elapsed_us(), 1)] for (lab, _), e in zip(want, evs)]
         log(f"[profile:red_step4] {tag}: one step, {len(evs)} launches, "
             f"{sum(u for _, u in us):.1f} us of device time: " + json.dumps(us))
 
@@ -604,17 +626,20 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
         var_case(cam0, poses0, stage, H, W, C, D // CHUNK, 50, tag)
         red4_case(C, H, W, D, 20, tag)
         step_breakdown(C, H, W, tag)
-    # K5 in each mode at shapes the stage-3 step launches (8 per map each)
-    for name, ci, co, H, W, mode in (("gates1 16->16", 16, 16, H0, W0, "same"),
-                                     ("conv1 8->16", 8, 16, H0, W0, "down"),
-                                     ("upconv1 16->8", 16, 8, H0 // 2, W0 // 2, "up"),
-                                     ("gates4 128->128", 128, 128, H0 // 8, W0 // 8, "same")):
+    # K5 in each mode at shapes the stage-3 step launches (8 per map each),
+    # and gru4's gates at stage 1 (48 per map), where the warps split K
+    for name, ci, co, H, W, mode, n in (
+            ("gates1 16->16", 16, 16, H0, W0, "same", NDEPTHS[2]),
+            ("conv1 8->16", 8, 16, H0, W0, "down", NDEPTHS[2]),
+            ("upconv1 16->8", 16, 8, H0 // 2, W0 // 2, "up", NDEPTHS[2]),
+            ("gates4 128->128", 128, 128, H0 // 8, W0 // 8, "same", NDEPTHS[2]),
+            ("gates4 128->128", 128, 128, H0 // 32, W0 // 32, "same", NDEPTHS[0])):
         x, w, b, pk = conv_operands(ci, co, H, W, mode)
         compare("cf_conv3x3", f"{mode} {name} from {H}x{W}",
                 lambda: cf_conv3x3(x, w, b, mode=mode, relu=False, packed=pk),
                 lambda: cf_conv3x3_plain(x, w, b, mode=mode, relu=False),
-                TOL_CONV, conv_work(ci, co, H, W, mode), NDEPTHS[2], 50,
-                library_fn=library(x, w, b, mode))
+                TOL_CONV, conv_work(ci, co, H, W, mode), n, 50,
+                library_fn=library(x, w, b, mode), conv=True)
     # production frame, stage 3 (1856x2752, C=8): K2v and K4
     tag = f"full-res stage3 {FULL_H}x{FULL_W} C8"
     var_case(camF, posesF, 2, FULL_H, FULL_W, 8, 1, 5, tag)
@@ -622,7 +647,7 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
     torch.cuda.empty_cache()
 
     # K5 per map: the 15 convs of each stage's step, D_stage times each
-    items, err, b_by = [], 0.0, {}
+    items, err, b_by, old_bound = [], 0.0, {}, 0.0
     for stage, (C, D) in enumerate(zip(MSRED_CHANNELS, NDEPTHS)):
         H, W = H0 >> (2 - stage), W0 >> (2 - stage)
         for _, ci, co, h, w, mode in red_step4_convs(C, H, W):
@@ -630,8 +655,9 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
             k = cf_conv3x3(x, wt, b, mode=mode, relu=False, packed=pk)
             err = max(err, float((k - cf_conv3x3_plain(
                 x, wt, b, mode=mode, relu=False)).abs().max()))
-            bms, by = bound_ms(*conv_work(ci, co, h, w, mode))
+            bms, by = bound_ms(*conv_work(ci, co, h, w, mode), PEAK_TF32X3)
             b_by[by] = b_by.get(by, 0.0) + bms * D
+            old_bound += bound_ms(*conv_work(ci, co, h, w, mode))[0] * D
             items.append((D, x, wt, b, pk, mode))
     if not err <= TOL_CONV:
         raise AssertionError(f"cf_conv3x3 at the step's shapes: max abs err "
@@ -656,10 +682,14 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
         "max_abs_err": max([err] + [r["max_abs_err"] for r in records
                                     if r["name"] == "cf_conv3x3"]),
     }
-    log(f"[kernel] cf_conv3x3 per MSREDNet 384x512 map ({RED4_CONVS} convs x "
+    if k5["ms"] < k5["bound_ms"]:
+        raise AssertionError(f"cf_conv3x3 per map: {k5['ms']} ms is below its "
+                             f"{k5['bound_ms']} ms bound")
+    log(f"[kernel] cf_conv3x3 per MSREDNet 384x512 map ({len(items) // len(NDEPTHS)} convs x "
         f"{sum(NDEPTHS)} steps, {len(items)} shapes, max abs err {err:.3e}): "
         f"device ms kernel {k5['ms']:.4f} plain {k5['plain_ms']:.4f} library "
-        f"{k5['library_ms']:.4f} bound {k5['bound_ms']:.4f} ({k5['bound_by']}, "
+        f"{k5['library_ms']:.4f} bound {k5['bound_ms']:.4f} (fp32 CUDA cores: "
+        f"{old_bound:.4f}) ({k5['bound_by']}, "
         f"{k5['bound_ms'] / k5['ms']:.1%} of it reached)")
     del items
     torch.cuda.empty_cache()
@@ -899,8 +929,8 @@ def phase_end_to_end_msrednet(dev, cam0, poses0):
             raise AssertionError(f"MSREDNet end to end {s}: depth {dd}, conf {dc}")
     busy, counts = profile_forward(
         mk, (imgs, rel, dmin, dmax),
-        {"sweep_var": "K2v sweep_var", "cf_conv_kernel": "K5 cf_conv3x3 (in K4)",
-         "gn_finalize": "K4 GroupNorm + GRU passes", "gru_": "K4 GroupNorm + GRU passes"},
+        {"sweep_var": "K2v sweep_var", "conv_mma_kernel": "K5 cf_conv3x3 (in K4)",
+         "gru_": "K4 GroupNorm + GRU passes"},
         "profile:msrednet")
     want = RED4_CONVS * sum(NDEPTHS)
     got = counts.get("K5 cf_conv3x3 (in K4)", 0)

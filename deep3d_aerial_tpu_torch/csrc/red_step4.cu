@@ -28,40 +28,82 @@
 // PyTorch's conv_transpose2d (stride 2, no padding) on the bridge's flipped
 // kernel, cropped to 2n.
 //
-// Launches per step: 19 -- 15 of the conv template (3 down, 4 gates, 4
-// candidate, 3 up, score), 2 GroupNorm finalizes (r/u of every level, then
-// o of every level) and 2 pointwise passes over all four levels (r*h, then
-// the state update). The gates and candidate convs write per-block partial
-// (sum, sum of squares) of each GroupNorm part in their epilogue; the
-// finalize kernel reduces them in a fixed order (no atomics), so a plane
-// gives the same bits from run to run.
-//
 // What bounds it on an H100: operations. A step is ~31 kflop per full-res
-// pixel against ~150 B of cost, state and score traffic, so on fp32 CUDA
-// cores (67 TFLOP/s) it sits far above the 3.35 TB/s memory line (384x512
-// Cin 8: 6.14 GFLOP, bound 0.092 ms). Design for that in this first
-// version: one thread per output pixel, a block of 128 pixels times a tile
-// of T <= 32 output channels (blockIdx.y), so at most 32 accumulators live
-// in registers whatever the layer's width (gru4's gates are 128 -> 128).
-// The tile's weights are staged through shared memory 16 input channels
-// at a time (16*9*32 floats, 18 KB: a whole 128x9x128 layer, 590 KB, does
-// not fit a block's 227 KB), read as float4 broadcasts, so every input
-// value loaded feeds T FMAs. A block walks its input channels in series,
-// so on the small deep levels (CI 64-128 over a few hundred pixels) the
-// time is that walk's latency: each input channel's 9 tap loads are
-// issued together, predicated rather than branched around. Small levels
-// (stage 1's level 3 is 12x16 pixels) take T = 8 when the grid would
-// otherwise not cover two blocks per SM.
-// Static shared memory stays under 48 KB, so no launch needs the dynamic
-// shared-memory attribute. Tensor cores (TF32/bf16 wgmma) and fewer, fused
-// launches are later work.
+// pixel against ~150 B of cost, state and score traffic. Done fp32-exact on
+// the tensor cores (3xTF32: 495 / 3 = 165 TFLOP/s) the 384x512 Cin 8 step's
+// 6.14 GFLOP take 0.037 ms, still above its 0.011 ms of memory traffic.
+//
+// K5, the conv template, is an implicit GEMM on the tensor cores: M = output
+// pixels, N = output channels, K = input channels x taps, with no im2col in
+// device memory.
+//   - Tile: a block of 4 warps owns 16 output channels (two n8 fragments)
+//     over a tile of rows x 16 pixels; a warp owns 2 rows (two m16
+//     fragments, 16 pixels of a row each). Its A fragments are read from
+//     the input's halo tile in shared memory at each tap's offset (the
+//     halo's channel planes are padded to 8 mod 32 words, so a fragment
+//     load hits 32 banks); its B fragments are one 16-byte load per lane
+//     from weights packed in fragment order.
+//   - 3xTF32: mma.sync m16n8k8 TF32 with every operand split hi + lo and
+//     hi*hi + hi*lo + lo*hi summed in fp32 (the TPU kernel's 'f32x3' MXU
+//     precision). The weights are split once, when they are packed
+//     (ops/cf_conv.py:pack_weight); the inputs when a fragment is built.
+//   - Staging: cp.async fills a 3-stage ring, one stage per 8 input
+//     channels (halo tile + the stage's weights), so two chunks are in
+//     flight while the MMAs run on a third. Stages above 48 KB take the
+//     dynamic shared-memory attribute, set once per device.
+//   - Split input channels where the grid is small. A tile (8 rows x 16
+//     pixels x 16 channels) reads its weights from L2 once per 128 pixels;
+//     the deep levels' weights (gru4's 128 -> 128: 1.2 MB as hi + lo)
+//     dwarf their inputs, so tiles stay whole. While a layer's tiles
+//     would not give every SM 4 blocks, S blocks split its input
+//     channels: each leaves its sums in scratch, and the tile's last
+//     split to finish (an integer ticket per tile) adds the S sums in
+//     split order and runs the epilogue. Only where one split per chunk
+//     still leaves an SM idle do a block's warps split the taps too (2
+//     or 4 ways, tile rows 8 -> 4 -> 2), their sums added in shared
+//     memory in warp order. No float atomics: the order of every sum is
+//     fixed.
+//   - Transposed conv by output phase: a block covers one of the four
+//     output parities, which reads only its own 1, 2, 2 or 4 taps.
+//   - Epilogue: bias, optional ReLU, the block's GroupNorm (sum, sum of
+//     squares) partials in a fixed order; a concatenated second input
+//     (GRU) or a summed one (decoder skips, added from a second halo) on
+//     load.
+//   - One launch runs up to four such convolutions from a problem table
+//     indexed by blockIdx, each with as many blocks as its tiles: a level's
+//     share of the grid follows its work, the deepest level first.
+//
+// Launches per step: 11 -- conv1, conv2, conv3 (down), the gates of all
+// four levels (one grouped launch), the reset pass (r*h), the candidates
+// of all four levels (grouped), the update pass (h'), upconv3, upconv2,
+// upconv1 and the score; 9 of them are the conv template. The reset pass
+// reduces the gates' GroupNorm partials itself (every block the same sums
+// in the same order, in double; block 0 keeps the r/u statistics for the
+// update pass), and the update pass reduces the candidates' partials. No
+// float atomics anywhere (the K splits' tickets are integers, back at 0
+// when a launch ends), and every sum runs in an order fixed by the shapes
+// and the device's SM count, so a plane gives the same bits from run to
+// run.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 128;   // output pixels per conv block
-constexpr int kChunk = 16;      // input channels per shared-memory weight stage
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMI = 2;            // m16 fragments (tile rows) per warp
+constexpr int kNF = 2;            // n8 fragments per block
+constexpr int kBN = 8 * kNF;      // output channels per block
+constexpr int kTW = 16;           // tile width: one m16 fragment
+constexpr int kCC = 8;            // input channels per stage (one k8 step a tap)
+constexpr int kStages = 3;
+constexpr int kMaxRows = kMI * kWarps;  // tile rows when the warps do not split K
+constexpr int kFrag = 128;        // floats of one packed (chunk, tap, n8) fragment
+constexpr int kWF = 9 * kNF * kFrag;    // weight floats per stage
+constexpr int kVals = kMI * kNF * 4;    // accumulators per thread
+constexpr int kMaxProblems = 4;
 constexpr int kPointThreads = 256;
 constexpr int kBadShape = 10001;
 constexpr int kBadParams = 10002;
@@ -70,136 +112,415 @@ constexpr int kHidden[4] = {8, 16, 32, 64};
 
 enum Geom { kSame = 0, kDown = 1, kUp = 2 };
 
-struct ConvArgs {
-  const float* a;     // [CA, Hi, Wi]
-  const float* b;     // concat: [CB, Hi, Wi] after a; sum: [CA, Hi, Wi] added to a
-  const float* w;     // [CI][3][3][CO], CI = CA (sum) or CA + CB (concat)
-  const float* bias;  // [CO]
-  float* out;         // [CO, Ho, Wo]
-  float* partial;     // per block (sum, sum of squares) x 2 GN parts, or null
-  int CA, CB, CO, Hi, Wi, Ho, Wo, pad_y, pad_x;
-  int sum_b, relu;
-  int part;           // output channels per GroupNorm part (with partial)
+// Input halo of a tile of R output rows x 16: rows and stored columns.
+//   same: rows R + 2, columns x0-4 .. x0+19 (x0-1 .. x0+16 are read)
+//   down: rows 2R + 1, columns 2x0-pad .. +32, stored even columns (17)
+//         then odd (16), so a fragment's lanes read consecutive words
+//   up:   rows R + 1, columns x0-4 .. x0+15 (a phase reads i and i-1)
+// 'same' and 'up' rows start 16-byte aligned, so where the input's width
+// is a multiple of 4 a row is copied in 16-byte pieces.
+template <int G>
+struct Halo {
+  static constexpr int kCols = G == kSame ? kTW + 8 : G == kDown ? 2 * kTW + 1 : kTW + 4;
+  static constexpr bool kVec = G != kDown;
+  static constexpr int kPieces = kCols / 4;  // 16-byte pieces of a row (kVec)
+  static constexpr int kMaxR = G == kSame ? kMaxRows + 2 : G == kDown ? 2 * kMaxRows + 1
+                                                                      : kMaxRows + 1;
+  // channel planes padded to 8 mod 32 words: the 4 channels of a fragment
+  // load land 8 banks apart
+  static constexpr int kPlane = ((kMaxR * kCols - 8 + 31) / 32) * 32 + 8;
+  static constexpr int kIn = kCC * kPlane;
 };
 
-template <int GEOM>
-__device__ __forceinline__ int tap_in(int o, int k, int pad, int n) {
-  int i;
-  if (GEOM == kSame) {
-    i = o + k - 1;
-  } else if (GEOM == kDown) {
-    i = 2 * o + k - pad;
-  } else {  // output o = 2 i + k
-    const int t = o - k;
-    if (t < 0 || (t & 1)) return -1;
-    i = t >> 1;
-  }
-  return i >= 0 && i < n ? i : -1;
+template <int G>
+__host__ __device__ constexpr int stage_floats(int sum) { return kWF + Halo<G>::kIn * (sum ? 2 : 1); }
+
+struct Problem {
+  const float* a;     // [CA, Hi, Wi]
+  const float* b;     // concat: [CB, Hi, Wi] after a; sum: [CA, Hi, Wi] added to a
+  const float* w;     // packed fragments (ops/cf_conv.py:pack_weight)
+  const float* bias;  // [CO]
+  float* out;         // [CO, Ho, Wo]
+  float* partial;     // per tile (sum, sum of squares) x 2 GN parts, or null
+  int CA, CB, CI, CO, Hi, Wi, Ho, Wo, pad_y, pad_x;
+  int sum_b, relu;
+  int vec;            // rows in 16-byte pieces (not 'down'; width % 4 == 0, aligned)
+  int part;           // output channels per GroupNorm part (with partial)
+  int ks, rows;       // warps splitting K; output rows per tile
+  int S, cps;         // blocks splitting K (a tile's splits), chunks per split
+  int tiles_x, tiles_y, ntiles, phases, tiles, nblocks, first_block;
+  float* spart;       // S > 1: each block's sums, [nblocks][kThreads][kVals]
+  int* ticket;        // S > 1: per tile, splits done (0 between launches)
+};
+
+struct Problems {
+  Problem p[kMaxProblems];
+  int n;
+  int sum;            // any problem sums a second input: a second halo per stage
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 4 : 0));
 }
 
-template <int T>
-__device__ __forceinline__ void fma_row(float (&acc)[T], float xv, const float* wr) {
-  if constexpr (T % 4 == 0) {
+// 16 bytes to shared memory: the first `bytes` from src, zeros after
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// x = hi + lo: hi rounded to TF32 (nearest, ties away), lo the exact rest
+// (the tensor core reads its top 10 mantissa bits)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// K5. Block -> (problem, K split, n tile, phase, tile row, tile column),
+// the K splits of a tile side by side, then its n tiles, so that blocks
+// reading one halo run together.
+template <int G>
+__global__ void __launch_bounds__(kThreads) conv_mma_kernel(const __grid_constant__ Problems P) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[kWarps][4];
+  using HL = Halo<G>;
+  constexpr int kCols = HL::kCols, kPlane = HL::kPlane;
+
+  int pi = 0;
 #pragma unroll
-    for (int t = 0; t < T; t += 4) {
-      const float4 w4 = *reinterpret_cast<const float4*>(wr + t);
-      acc[t] = fmaf(xv, w4.x, acc[t]);
-      acc[t + 1] = fmaf(xv, w4.y, acc[t + 1]);
-      acc[t + 2] = fmaf(xv, w4.z, acc[t + 2]);
-      acc[t + 3] = fmaf(xv, w4.w, acc[t + 3]);
-    }
+  for (int i = 1; i < kMaxProblems; ++i)
+    if (i < P.n && (int)blockIdx.x >= P.p[i].first_block) pi = i;
+  const Problem& p = P.p[pi];
+  const int lb = blockIdx.x - p.first_block;
+  const int sk = lb % p.S, tile = lb / p.S;  // a tile's K splits side by side
+  const int nt = tile % p.ntiles;
+  int rest = tile / p.ntiles;
+  const int ph = rest % p.phases;
+  rest /= p.phases;
+  const int tx = rest % p.tiles_x, ty = rest / p.tiles_x;
+  const int py = ph >> 1, px = ph & 1;      // 'up': the output parity
+  const int y0 = ty * p.rows, x0 = tx * kTW;  // 'up': in the phase's sub-image
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int kg = warp & (p.ks - 1), wm = warp / p.ks;  // ks is 1, 2 or 4
+  const int nfr = (p.CO + 7) >> 3;          // n8 fragments of the packed layer
+  const int nf_act = min(kNF, nfr - nt * kNF);
+  const int n0 = nt * kBN;
+
+  int iy0, ix0, hrows;
+  if (G == kSame) {
+    iy0 = y0 - 1; ix0 = x0 - 4; hrows = p.rows + 2;
+  } else if (G == kDown) {
+    iy0 = 2 * y0 - p.pad_y; ix0 = 2 * x0 - p.pad_x; hrows = 2 * p.rows + 1;
   } else {
-#pragma unroll
-    for (int t = 0; t < T; ++t) acc[t] = fmaf(xv, wr[t], acc[t]);
+    iy0 = y0 - 1; ix0 = x0 - 4; hrows = p.rows + 1;
   }
-}
-
-// K5: output pixel blockIdx.x * kThreads + threadIdx.x, output channels
-// [blockIdx.y * T, blockIdx.y * T + T).
-template <int GEOM, int T>
-__global__ void __launch_bounds__(kThreads) cf_conv_kernel(ConvArgs p) {
-  __shared__ __align__(16) float ws[kChunk * 9 * T];
-  __shared__ float red[kThreads / 32][4];
-  const int CI = p.sum_b ? p.CA : p.CA + p.CB;
-  const int co0 = blockIdx.y * T;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = idx < p.Ho * p.Wo;
-  const int oy = live ? idx / p.Wo : 0, ox = live ? idx - oy * p.Wo : 0;
+  const int sfl = stage_floats<G>(P.sum);
   const long long HWi = (long long)p.Hi * p.Wi;
+  const int nchunks = (p.CI + kCC - 1) / kCC;
+  const int c0 = sk * p.cps, c1 = min(nchunks, c0 + p.cps);  // this split's chunks
 
-  int off[9];  // input offset of each tap, -1 outside the input
+  // Each thread's copies, the same in every channel and chunk, worked out
+  // once: halo slots (shared-memory position or -1 past the halo; offset
+  // in the input plane or -1 outside the image) and weight pieces (offset
+  // in the chunk's fragments or -1 for a fragment past the layer).
+  constexpr int kSlots = (HL::kMaxR * kCols + kThreads - 1) / kThreads;
+  constexpr int kWPieces = 9 * kNF * 32;  // 16-byte pieces of a stage's weights
+  constexpr int kWSlots = (kWPieces + kThreads - 1) / kThreads;
+  constexpr int kVSlots = HL::kVec ? (HL::kMaxR * HL::kPieces + kThreads - 1) / kThreads : 1;
+  const bool vec = HL::kVec && p.vec;
+  int spos[kSlots], goff[kSlots], woff[kWSlots], vpos[kVSlots], voff[kVSlots], vbytes[kVSlots];
 #pragma unroll
-  for (int ky = 0; ky < 3; ++ky) {
-    const int iy = tap_in<GEOM>(oy, ky, p.pad_y, p.Hi);
+  for (int k = 0; k < kVSlots; ++k) {  // 16-byte pieces: ix is a multiple of 4
+    const int idx = threadIdx.x + k * kThreads;
+    const int r = idx / HL::kPieces, q = idx - r * HL::kPieces;
+    const int iy = iy0 + r, ix = ix0 + 4 * q;
+    const int n = iy < 0 || iy >= p.Hi || ix < 0 ? 0 : max(0, min(4, p.Wi - ix));
+    vpos[k] = idx < hrows * HL::kPieces ? r * kCols + 4 * q : -1;
+    voff[k] = n > 0 ? iy * p.Wi + ix : 0;
+    vbytes[k] = 4 * n;
+  }
 #pragma unroll
-    for (int kx = 0; kx < 3; ++kx) {
-      const int ix = tap_in<GEOM>(ox, kx, p.pad_x, p.Wi);
-      off[ky * 3 + kx] = iy < 0 || ix < 0 ? -1 : iy * p.Wi + ix;
-    }
+  for (int k = 0; k < kSlots; ++k) {
+    const int idx = threadIdx.x + k * kThreads;
+    const int r = idx / kCols, xc = idx - r * kCols;
+    const int iy = iy0 + r, ix = ix0 + xc;
+    const int col = G == kDown ? ((xc & 1) ? 17 + (xc >> 1) : (xc >> 1)) : xc;
+    spos[k] = idx < hrows * kCols ? r * kCols + col : -1;
+    goff[k] = iy >= 0 && iy < p.Hi && ix >= 0 && ix < p.Wi ? iy * p.Wi + ix : -1;
+  }
+#pragma unroll
+  for (int k = 0; k < kWSlots; ++k) {
+    const int e = threadIdx.x + k * kThreads;
+    const int nf = (e >> 5) % kNF, tap = (e >> 5) / kNF;
+    woff[k] = e < kWPieces && nf < nf_act ? (tap * nfr + nf) * kFrag + (e & 31) * 4 : -1;
   }
 
-  float acc[T];
+  auto load = [&](int chunk, int s) {
+    float* st = smem + s * sfl;
+    const float* wsrc = p.w + ((long long)chunk * 9 * nfr + nt * kNF) * kFrag;
 #pragma unroll
-  for (int t = 0; t < T; ++t) acc[t] = 0.f;
-
-  for (int ci0 = 0; ci0 < CI; ci0 += kChunk) {
-    __syncthreads();  // the previous chunk's weights are consumed
-    for (int i = threadIdx.x; i < kChunk * 9 * T; i += kThreads) {
-      const int t = i % T, r = i / T;  // r = local channel * 9 + tap
-      const int ci = ci0 + r / 9, co = co0 + t;
-      ws[i] = ci < CI && co < p.CO
-                  ? __ldg(p.w + ((long long)ci * 9 + r % 9) * p.CO + co) : 0.f;
+    for (int k = 0; k < kWSlots; ++k) {
+      const int e = threadIdx.x + k * kThreads;
+      if (e < kWPieces) cp_async16(st + e * 4, woff[k] >= 0 ? wsrc + woff[k] : p.w, woff[k] >= 0 ? 16 : 0);
     }
-    __syncthreads();
-    if (!live) continue;
+    float* in = st + kWF;
+#pragma unroll 2
+    for (int c = 0; c < kCC; ++c) {
+      const int ci = chunk * kCC + c;
+      const bool live = ci < p.CI;
+      const float* src = !live ? p.a : ci < p.CA ? p.a + ci * HWi : p.b + (ci - p.CA) * HWi;
+      const bool live2 = live && p.sum_b;
+      const float* src2 = live2 ? p.b + ci * HWi : p.a;
+      if (vec) {
 #pragma unroll
-    for (int cl = 0; cl < kChunk; ++cl) {
-      const int ci = ci0 + cl;
-      if (ci >= CI) break;
-      const float* src = ci < p.CA ? p.a + ci * HWi : p.b + (ci - p.CA) * HWi;
-      // the 9 taps' loads are predicated, not branched around, so they
-      // issue together; a tap outside the input reads 0, and an FMA with 0
-      // leaves the sum exactly as skipping it would
-      float xv[9];
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap)
-        xv[tap] = off[tap] >= 0 ? __ldg(src + off[tap]) : 0.f;
-      if (p.sum_b) {
-        const float* add = p.b + ci * HWi;
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap)
-          xv[tap] += off[tap] >= 0 ? __ldg(add + off[tap]) : 0.f;
+        for (int k = 0; k < kVSlots; ++k) {
+          if (vpos[k] < 0) continue;
+          cp_async16(in + c * kPlane + vpos[k], src + voff[k], live ? vbytes[k] : 0);
+          if (P.sum)
+            cp_async16(in + HL::kIn + c * kPlane + vpos[k], src2 + voff[k], live2 ? vbytes[k] : 0);
+        }
+        continue;
       }
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap)
-        fma_row<T>(acc, xv[tap], ws + (cl * 9 + tap) * T);
+      for (int k = 0; k < kSlots; ++k) {
+        if (spos[k] < 0) continue;
+        const bool ok = live && goff[k] >= 0;
+        cp_async4(in + c * kPlane + spos[k], ok ? src + goff[k] : p.a, ok);
+        if (P.sum) {
+          const bool ok2 = live2 && goff[k] >= 0;
+          cp_async4(in + HL::kIn + c * kPlane + spos[k], ok2 ? src2 + goff[k] : p.a, ok2);
+        }
+      }
+    }
+  };
+
+  float acc[kMI][kNF][4], acl[kMI][kNF][4];
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][nf][j] = acl[mi][nf][j] = 0.f;
+
+  // the lane's A element (channel tq, pixel g) of the warp's first row
+  const int abase = tq * kPlane + wm * kMI * (G == kDown ? 2 : 1) * kCols + g;
+  const int ksm = p.ks - 1;
+  const bool sum2 = P.sum;
+
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (c0 + s < c1) load(c0 + s, s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int c = c0; c < c1; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk c arrived; everyone is done with chunk c - 1
+    {
+      const int nc = c + kStages - 1;
+      if (nc < c1) load(nc, (nc - c0) % kStages);
+      cp_async_commit();
+    }
+    const float* st = smem + ((c - c0) % kStages) * sfl;
+    const float* in = st + kWF + abase;
+    // taps: 9 ('same', 'down'; halo offsets known at compile time), or
+    // the phase's 1, 2, 2 or 4 of (jy, jx) in {0,1}^2 ('up'); the k-th
+    // tap a block reads goes to the warps with kg = k mod ks
+    constexpr int kJ = G == kUp ? 4 : 9;
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      int tap, ord, roff, coff;
+      bool on = true;
+      if (G == kUp) {
+        const int jy = j >> 1, jx = j & 1;
+        on = (!py || !jy) && (!px || !jx);
+        ord = jy * (px ? 1 : 2) + jx;
+        tap = (py ? 1 : 2 * jy) * 3 + (px ? 1 : 2 * jx);
+        roff = jy ? 0 : 1;  // ky = 2 reads input row Y - 1, the halo's row rl
+        coff = jx ? 3 : 4;  // kx = 2 reads input column X - 1
+      } else {
+        const int ky = j / 3, kx = j % 3;
+        ord = tap = j;
+        roff = ky;
+        coff = G == kSame ? kx + 3 : (kx & 1) ? 17 : (kx >> 1);
+      }
+      if (!on || (ord & ksm) != kg) continue;
+      float4 bw[kNF];
+#pragma unroll
+      for (int nf = 0; nf < kNF; ++nf)
+        if (nf < nf_act)
+          bw[nf] = *reinterpret_cast<const float4*>(st + ((tap * kNF + nf) * 32 + lane) * 4);
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi) {
+        // halo row of output row mi (pixel g + 8 is 8 words on in every mode)
+        const int o = ((G == kDown ? 2 * mi : mi) + roff) * kCols + coff;
+        float x[4] = {in[o], in[o + 8], in[o + 4 * kPlane], in[o + 4 * kPlane + 8]};
+        if (sum2) {
+          const float* in2 = in + HL::kIn;
+          x[0] += in2[o]; x[1] += in2[o + 8];
+          x[2] += in2[o + 4 * kPlane]; x[3] += in2[o + 4 * kPlane + 8];
+        }
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(x[q], ah[q], al[q]);
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf) {
+          if (nf < nf_act) {
+            const uint32_t bh0 = __float_as_uint(bw[nf].x), bh1 = __float_as_uint(bw[nf].y);
+            const uint32_t bl0 = __float_as_uint(bw[nf].z), bl1 = __float_as_uint(bw[nf].w);
+            mma_tf32(acl[mi][nf], al, bh0, bh1);
+            mma_tf32(acl[mi][nf], ah, bl0, bl1);
+            mma_tf32(acc[mi][nf], ah, bh0, bh1);
+          }
+        }
+      }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the split-K partial sums next
 
-  const long long HWo = (long long)p.Ho * p.Wo;
-  // (sum, sum of squares) of the (at most two) GN parts this tile touches
-  float st0 = 0.f, sq0 = 0.f, st1 = 0.f, sq1 = 0.f;
-  const int part0 = p.partial != nullptr ? co0 / p.part : 0;
-  if (live) {
 #pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const int co = co0 + t;
-      if (co >= p.CO) break;
-      float v = acc[t] + __ldg(p.bias + co);
-      if (p.relu) v = fmaxf(v, 0.f);
-      p.out[co * HWo + idx] = v;
-      if (p.partial != nullptr) {
-        if (co / p.part == part0) {
-          st0 += v; sq0 += v * v;
-        } else {
-          st1 += v; sq1 += v * v;
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][nf][j] += acl[mi][nf][j];
+  if (p.ks > 1) {  // uniform over the block
+    if (kg > 0) {
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            smem[(warp * kVals + (mi * kNF + nf) * 4 + j) * 32 + lane] = acc[mi][nf][j];
+    }
+    __syncthreads();
+    if (kg == 0) {
+      for (int k = 1; k < p.ks; ++k) {  // the split's warps in a fixed order
+        const int wsrc = warp + k;
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+          for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[mi][nf][j] += smem[(wsrc * kVals + (mi * kNF + nf) * 4 + j) * 32 + lane];
+      }
+    }
+  }
+  if (p.S > 1) {  // uniform over the block
+    // every split leaves its sums; the last to finish adds all S of them
+    // in split order (its own from registers: the same bits) and goes on
+    // to the epilogue, so the order does not depend on who came last
+    __shared__ int last;
+    float4* mine = reinterpret_cast<float4*>(p.spart + ((long long)lb * kThreads + threadIdx.x) * kVals);
+    if (kg == 0) {
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf)
+          mine[mi * kNF + nf] = make_float4(acc[mi][nf][0], acc[mi][nf][1], acc[mi][nf][2],
+                                            acc[mi][nf][3]);
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(p.ticket + tile, 1) == p.S - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (kg == 0) {
+      float sum[kMI][kNF][4];
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sum[mi][nf][j] = 0.f;
+      for (int s = 0; s < p.S; ++s) {
+        const float4* other = reinterpret_cast<const float4*>(
+            p.spart + (((long long)tile * p.S + s) * kThreads + threadIdx.x) * kVals);
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+          for (int nf = 0; nf < kNF; ++nf) {
+            float4 v;
+            if (s == sk) v = make_float4(acc[mi][nf][0], acc[mi][nf][1], acc[mi][nf][2], acc[mi][nf][3]);
+            else v = __ldcg(other + mi * kNF + nf);
+            sum[mi][nf][0] += v.x; sum[mi][nf][1] += v.y;
+            sum[mi][nf][2] += v.z; sum[mi][nf][3] += v.w;
+          }
+      }
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[mi][nf][j] = sum[mi][nf][j];
+    }
+    if (threadIdx.x == 0) p.ticket[tile] = 0;  // ready for the next launch
+  }
+
+  // epilogue: C fragment element j is pixel g (j < 2) or g + 8, channel
+  // 2 tq + (j & 1) of its n8 fragment
+  const long long HWo = (long long)p.Ho * p.Wo;
+  const int Hs = G == kUp ? p.Hi : p.Ho, Ws = G == kUp ? p.Wi : p.Wo;
+  const int part0 = p.partial != nullptr ? n0 / p.part : 0;
+  float st0 = 0.f, sq0 = 0.f, st1 = 0.f, sq1 = 0.f;
+  if (kg == 0) {
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi) {
+      const int Y = y0 + wm * kMI + mi;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int X = x0 + g + 8 * half;
+        if (Y >= Hs || X >= Ws) continue;
+        const int oy = G == kUp ? 2 * Y + py : Y, ox = G == kUp ? 2 * X + px : X;
+        const long long pix = (long long)oy * p.Wo + ox;
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf) {
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int co = n0 + nf * 8 + 2 * tq + jj;
+            if (co >= p.CO) continue;
+            float v = acc[mi][nf][half * 2 + jj] + __ldg(p.bias + co);
+            if (p.relu) v = fmaxf(v, 0.f);
+            p.out[co * HWo + pix] = v;
+            if (p.partial != nullptr) {
+              if (co / p.part == part0) {
+                st0 += v; sq0 += v * v;
+              } else {
+                st1 += v; sq1 += v * v;
+              }
+            }
+          }
         }
       }
     }
   }
   if (p.partial == nullptr) return;  // uniform over the block
   float vals[4] = {st0, sq0, st1, sq1};
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     float v = vals[j];
@@ -211,17 +532,13 @@ __global__ void __launch_bounds__(kThreads) cf_conv_kernel(ConvArgs p) {
   if (threadIdx.x < 4) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w][threadIdx.x];
-    p.partial[((long long)blockIdx.y * gridDim.x + blockIdx.x) * 4 + threadIdx.x] = s;
+    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
+    p.partial[(long long)tile * 4 + threadIdx.x] = s;
   }
 }
 
-struct Tiling {
-  int T, nbx, nty;
-};
-
 // Streaming multiprocessors of the current device (132 on an H100 SXM),
-// read once per device; 0 if the query fails (the tile then stays wide).
+// read once per device; 0 if the query fails (no split then).
 inline int sm_count() {
   static int cached[64] = {0};
   int dev = 0;
@@ -235,24 +552,100 @@ inline int sm_count() {
   return cached[dev];
 }
 
-// Output-channel tile: the layer's width up to 32, and 8 when the grid
-// would not give every SM two blocks. The scratch plan and the launches
-// read the same SM count, so their partial-sum layouts agree.
-inline Tiling tiling(int CO, long long npix) {
-  int T = CO == 1 ? 1 : CO <= 8 ? 8 : CO <= 16 ? 16 : 32;
-  const int nbx = (int)((npix + kThreads - 1) / kThreads);
-  if (T > 8 && (long long)nbx * ((CO + T - 1) / T) < 2LL * sm_count()) T = 8;
-  return {T, nbx, (CO + T - 1) / T};
+// Dynamic shared memory above 48 KB needs the attribute, set once per
+// device and kernel to the most the kernel can ask for.
+template <int G>
+cudaError_t allow_smem() {
+  static bool done[64] = {false};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 0 && dev < 64 && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(conv_mma_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kStages * stage_floats<G>(1) * (int)sizeof(float));
+  if (e == cudaSuccess && dev >= 0 && dev < 64) done[dev] = true;
+  return e;
 }
 
-template <int GEOM>
-void launch_geom(const ConvArgs& p, const Tiling& tl, cudaStream_t s) {
-  const dim3 grid(tl.nbx, tl.nty);
-  switch (tl.T) {
-    case 1: cf_conv_kernel<GEOM, 1><<<grid, kThreads, 0, s>>>(p); break;
-    case 8: cf_conv_kernel<GEOM, 8><<<grid, kThreads, 0, s>>>(p); break;
-    case 16: cf_conv_kernel<GEOM, 16><<<grid, kThreads, 0, s>>>(p); break;
-    default: cf_conv_kernel<GEOM, 32><<<grid, kThreads, 0, s>>>(p); break;
+// Blocks of the conv template one SM holds at once (shared memory and
+// registers), per geometry and second-halo flag, read once per device.
+inline int resident(int geom, int sum) {
+  static int cached[64][3][2] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  int& n = cached[dev][geom][sum];
+  if (n == 0) {
+    cudaError_t e;
+    if (geom == kSame) e = allow_smem<kSame>();
+    else if (geom == kDown) e = allow_smem<kDown>();
+    else e = allow_smem<kUp>();
+    int got = 0;
+    if (e == cudaSuccess) {
+      const int bytes = kStages * (int)sizeof(float) *
+                        (geom == kSame ? stage_floats<kSame>(sum)
+                         : geom == kDown ? stage_floats<kDown>(sum) : stage_floats<kUp>(sum));
+      if (geom == kSame)
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got, conv_mma_kernel<kSame>, kThreads, bytes);
+      else if (geom == kDown)
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got, conv_mma_kernel<kDown>, kThreads, bytes);
+      else
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got, conv_mma_kernel<kUp>, kThreads, bytes);
+    }
+    n = got > 0 ? got : 1;
+  }
+  return n;
+}
+
+// The tiling of one conv. A tile is 8 rows x 16 pixels x 16 channels, so
+// every block reads its weights for 128 pixels. Blocks split the input
+// channels (S splits of cps chunks each) where that shortens the launch:
+// S is chosen for the least waves x (cps + 2), the waves counted over the
+// blocks the device holds at once and 2 standing for a block's fixed cost
+// in chunks (staging the first chunk, the epilogue, the split's sum).
+// Splitting over blocks keeps the tile, where splitting over a block's
+// warps shrinks it and so multiplies the weight traffic; only where one
+// split per chunk still leaves an SM without a block do the warps split K
+// too (2, then 4 ways; tile rows 8 -> 4 -> 2). The scratch plan and the
+// launches read the same device, so their layouts agree.
+struct Tile {
+  int ks, rows, S, cps, tiles_x, tiles_y, ntiles, phases, tiles, nblocks;
+};
+
+inline Tile tile_for(int geom, int sum, int CI, int CO, int Hs, int Ws) {
+  Tile t;
+  t.phases = geom == kUp ? 4 : 1;
+  t.ntiles = (CO + kBN - 1) / kBN;
+  t.tiles_x = (Ws + kTW - 1) / kTW;
+  const int nchunks = (CI + kCC - 1) / kCC;
+  const long long sms = sm_count() > 0 ? sm_count() : 1;
+  const long long cap = sms * resident(geom, sum);
+  for (int ks = 1;; ks *= 2) {
+    t.ks = ks;
+    t.rows = kMaxRows / ks;
+    t.tiles_y = (Hs + t.rows - 1) / t.rows;
+    t.tiles = t.tiles_y * t.tiles_x * t.ntiles * t.phases;
+    long long best = -1;
+    for (int cps = nchunks; cps >= 1; --cps) {
+      const int S = (nchunks + cps - 1) / cps;
+      const long long waves = ((long long)t.tiles * S + cap - 1) / cap;
+      const long long cost = waves * (cps + 2);
+      if (best < 0 || cost < best) {
+        best = cost;
+        t.S = S;
+        t.cps = cps;
+      }
+    }
+    t.nblocks = t.tiles * t.S;
+    if (ks == kWarps || (long long)t.tiles * nchunks >= sms) break;
+  }
+  return t;
+}
+
+// Scratch of a launch's K splits: floats of block sums, tickets
+inline void split_need(const Tile& t, long long* floats, long long* tickets) {
+  if (t.S > 1) {
+    *floats += (long long)t.nblocks * kThreads * kVals;
+    *tickets += t.tiles;
   }
 }
 
@@ -263,131 +656,182 @@ inline int same_pad_lo(int n) {
   return total > 0 ? total / 2 : 0;
 }
 
-ConvArgs conv_args(const float* a, int CA, const float* b, int CB, int sum_b,
-                   const float* w, int CO, int Hi, int Wi, int geom,
-                   float* out, int relu, float* partial = nullptr, int part = 0) {
-  ConvArgs p;
-  p.a = a; p.b = b; p.w = w; p.out = out; p.partial = partial;
-  p.CA = CA; p.CB = CB; p.CO = CO; p.sum_b = sum_b; p.relu = relu;
-  p.part = part;
+Problem problem(const float* a, int CA, const float* b, int CB, int sum_b,
+                const float* w, const float* bias, int CO, int Hi, int Wi,
+                int geom, float* out, int relu, float* partial = nullptr,
+                int part = 0) {
+  Problem p = {};
+  p.a = a; p.b = b; p.w = w; p.bias = bias; p.out = out; p.partial = partial;
+  p.CA = CA; p.CB = CB; p.CI = sum_b ? CA : CA + CB; p.CO = CO;
+  p.sum_b = sum_b; p.relu = relu; p.part = part;
   p.Hi = Hi; p.Wi = Wi;
   p.Ho = geom == kUp ? 2 * Hi : geom == kDown ? (Hi + 1) / 2 : Hi;
   p.Wo = geom == kUp ? 2 * Wi : geom == kDown ? (Wi + 1) / 2 : Wi;
   p.pad_y = same_pad_lo(Hi); p.pad_x = same_pad_lo(Wi);
-  const int CI = sum_b ? CA : CA + CB;
-  p.bias = w + (long long)CI * 9 * CO;
+  p.vec = geom != kDown && Wi % 4 == 0 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
+  const Tile t = tile_for(geom, sum_b, p.CI, CO, geom == kUp ? Hi : p.Ho,
+                         geom == kUp ? Wi : p.Wo);
+  p.ks = t.ks; p.rows = t.rows; p.S = t.S; p.cps = t.cps;
+  p.tiles_x = t.tiles_x; p.tiles_y = t.tiles_y; p.ntiles = t.ntiles;
+  p.phases = t.phases; p.tiles = t.tiles; p.nblocks = t.nblocks;
   return p;
 }
 
-cudaError_t conv(const ConvArgs& p, int geom, cudaStream_t s) {
-  const Tiling tl = tiling(p.CO, (long long)p.Ho * p.Wo);
-  if (tl.nbx == 0) return cudaSuccess;
-  if (geom == kSame) launch_geom<kSame>(p, tl, s);
-  else if (geom == kDown) launch_geom<kDown>(p, tl, s);
-  else launch_geom<kUp>(p, tl, s);
+template <int G>
+cudaError_t launch_geom(const Problems& P, int nblocks, cudaStream_t s) {
+  const cudaError_t e = allow_smem<G>();
+  if (e != cudaSuccess) return e;
+  const int bytes = kStages * stage_floats<G>(P.sum) * (int)sizeof(float);
+  conv_mma_kernel<G><<<nblocks, kThreads, bytes, s>>>(P);
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// GroupNorm statistics and the pointwise GRU passes
-// ---------------------------------------------------------------------------
-
-struct GnJob {
-  const float* partial;  // the conv's [nty][nbx][4] block partials
-  float* stats;          // -> (mean, inverse deviation)
-  int nbx, T, part, p;   // tiling, channels per part, this part's index
-  double count;          // elements of the part: part * H * W
-};
-
-struct GnJobs {
-  GnJob j[8];
-};
-
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
-
-// One block per GN part: the part's block partials summed in a fixed order.
-__global__ void __launch_bounds__(256) gn_finalize_kernel(GnJobs jobs) {
-  const GnJob jb = jobs.j[blockIdx.x];
-  const int y_lo = jb.p * jb.part / jb.T;
-  const int y_hi = ((jb.p + 1) * jb.part - 1) / jb.T;
-  const long long n = (long long)(y_hi - y_lo + 1) * jb.nbx;
-  double s = 0.0, q = 0.0;
-  for (long long e = threadIdx.x; e < n; e += blockDim.x) {
-    const int y = y_lo + (int)(e / jb.nbx);
-    const int x = (int)(e % jb.nbx);
-    const int l = jb.p - y * jb.T / jb.part;  // which of the tile's 2 parts
-    const float* pp = jb.partial + ((long long)y * jb.nbx + x) * 4 + 2 * l;
-    s += pp[0];
-    q += pp[1];
-  }
-  __shared__ double rs[256], rq[256];
-  rs[threadIdx.x] = s;
-  rq[threadIdx.x] = q;
-  __syncthreads();
-  for (int o = blockDim.x / 2; o > 0; o >>= 1) {
-    if (threadIdx.x < o) {
-      rs[threadIdx.x] += rs[threadIdx.x + o];
-      rq[threadIdx.x] += rq[threadIdx.x + o];
+// One launch of the conv template over up to kMaxProblems convs of one
+// geometry, in the order given (put the deepest first: its blocks are the
+// longest and start first). `split` and `tickets` hold the K splits'
+// scratch (split_need of the launch's tilings; the tickets all 0).
+cudaError_t convs(int geom, const Problem* ps, int n, float* split, int* tickets,
+                  cudaStream_t s) {
+  Problems P = {};
+  P.n = n;
+  int first = 0;
+  for (int i = 0; i < n; ++i) {
+    P.p[i] = ps[i];
+    P.p[i].first_block = first;
+    first += ps[i].nblocks;
+    P.sum |= ps[i].sum_b;
+    if (ps[i].S > 1) {
+      P.p[i].spart = split;
+      P.p[i].ticket = tickets;
+      split += (long long)ps[i].nblocks * kThreads * kVals;
+      tickets += ps[i].tiles;
     }
-    __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    const double mean = rs[0] / jb.count;
-    const double var = fmax(rq[0] / jb.count - mean * mean, 0.0);
-    jb.stats[0] = (float)mean;
-    jb.stats[1] = (float)(1.0 / sqrt(var + (double)kEps));
-  }
+  if (first == 0) return cudaSuccess;
+  if (geom == kSame) return launch_geom<kSame>(P, first, s);
+  if (geom == kDown) return launch_geom<kDown>(P, first, s);
+  return launch_geom<kUp>(P, first, s);
 }
 
-struct Level {
+// ---------------------------------------------------------------------------
+// the GRU's pointwise passes, each reducing the GroupNorm partials it needs
+// ---------------------------------------------------------------------------
+
+struct GruLevel {
   const float* gp;  // gates pre-activation [2C, H, W] (r, then u)
   const float* h;   // state [C, H, W]
   const float* cp;  // candidate pre-activation [C, H, W]
   const float* gn;  // rn.w, rn.b, un.w, un.b, on.w, on.b, each [C]
-  const float* st;  // (mean, inv) of r, u, o
+  const float* pg;  // the gates conv's tile partials [nbg][4]
+  const float* pc;  // the candidate conv's tile partials [nbc][4]
   float* out;       // r*h (reset pass) or h' (update pass)
-  int C;
-  int HW;
+  int C, HW, nbg, ntg, nbc, ntc;
 };
 
-struct Levels {
-  Level l[4];
+struct GruLevels {
+  GruLevel l[4];
   long long start[5];  // first flat element of each level; start[4] = total
+  float* stats;        // per level (mean, inverse deviation) of r, u, o
 };
+
+__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
 __device__ __forceinline__ float gn_apply(float x, const float* st, float w, float b) {
   return (x - st[0]) * (st[1] * w) + b;
 }
 
-// r*h with r = sigmoid(GN_r(g[:C])), all four levels in one launch
-__global__ void __launch_bounds__(kPointThreads) gru_reset_kernel(Levels L) {
-  const long long e = (long long)blockIdx.x * kPointThreads + threadIdx.x;
-  if (e >= L.start[4]) return;
-  int l = 0;
-  while (e >= L.start[l + 1]) ++l;
-  const Level& v = L.l[l];
-  const int i = (int)(e - L.start[l]);
-  const int c = i / v.HW;
-  const float r = sigmoidf_(gn_apply(v.gp[i], v.st, v.gn[c], v.gn[v.C + c]));
-  v.out[i] = r * v.h[i];
+// The statistics of every level's GroupNorm parts of the gates (cand =
+// false: r and u) or of the candidates (cand = true: o), into st[l][0..5]
+// at (r, u, o). Each thread adds every blockDim-th tile partial in double,
+// then the warps and the block in a fixed order: every block of a pass gets
+// the same bits.
+__device__ void reduce_stats(const GruLevels& L, bool cand, float (*st)[6]) {
+  double v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) v[i] = 0.0;
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    const GruLevel& lv = L.l[l];
+    const float* pp = cand ? lv.pc : lv.pg;
+    const int nb = cand ? lv.nbc : lv.nbg, ntl = cand ? lv.ntc : lv.ntg;
+    for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+      const float* q = pp + (long long)b * 4;
+      // a block's first channel is in part p0; slot 1 holds part p0 + 1
+      if (((b % ntl) * kBN) / lv.C == 0) {
+        v[4 * l] += q[0]; v[4 * l + 1] += q[1];
+        v[4 * l + 2] += q[2]; v[4 * l + 3] += q[3];
+      } else {
+        v[4 * l + 2] += q[0]; v[4 * l + 3] += q[1];
+      }
+    }
+  }
+  __shared__ double rs[kPointThreads / 32][16];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    double x = v[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+    if (lane == 0) rs[warp][i] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x < 8) {  // (level, part): 4 x (first, second)
+    const int l = threadIdx.x >> 1, k = threadIdx.x & 1;
+    double s = 0.0, q = 0.0;
+    for (int w = 0; w < (int)blockDim.x / 32; ++w) {
+      s += rs[w][4 * l + 2 * k];
+      q += rs[w][4 * l + 2 * k + 1];
+    }
+    const double count = (double)L.l[l].C * L.l[l].HW;
+    const double mean = s / count;
+    const double var = fmax(q / count - mean * mean, 0.0);
+    const int slot = cand ? 4 : 2 * k;
+    if (!cand || k == 0) {
+      st[l][slot] = (float)mean;
+      st[l][slot + 1] = (float)(1.0 / sqrt(var + (double)kEps));
+    }
+  }
+  __syncthreads();
+}
+
+// r*h with r = sigmoid(GN_r(g[:C])), all four levels in one launch; block 0
+// keeps the r/u statistics for the update pass
+__global__ void __launch_bounds__(kPointThreads) gru_reset_kernel(const __grid_constant__ GruLevels L) {
+  __shared__ float st[4][6];
+  reduce_stats(L, false, st);
+  if (blockIdx.x == 0 && threadIdx.x < 16)
+    L.stats[(threadIdx.x >> 2) * 6 + (threadIdx.x & 3)] = st[threadIdx.x >> 2][threadIdx.x & 3];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < L.start[4];
+       e += stride) {
+    int l = 0;
+    while (e >= L.start[l + 1]) ++l;
+    const GruLevel& v = L.l[l];
+    const int i = (int)(e - L.start[l]);  // a level holds < 2^31 elements
+    const int c = i / v.HW;
+    const float r = sigmoidf_(gn_apply(v.gp[i], st[l], v.gn[c], v.gn[v.C + c]));
+    v.out[i] = r * v.h[i];
+  }
 }
 
 // h' = u*h + (1-u)*tanh(GN_o(cp)) with u = sigmoid(GN_u(g[C:]))
-__global__ void __launch_bounds__(kPointThreads) gru_update_kernel(Levels L) {
-  const long long e = (long long)blockIdx.x * kPointThreads + threadIdx.x;
-  if (e >= L.start[4]) return;
-  int l = 0;
-  while (e >= L.start[l + 1]) ++l;
-  const Level& v = L.l[l];
-  const int i = (int)(e - L.start[l]);  // a level holds < 2^31 elements
-  const int C = v.C;
-  const int c = i / v.HW;
-  const float u = sigmoidf_(gn_apply(v.gp[(long long)C * v.HW + i], v.st + 2,
-                                     v.gn[2 * C + c], v.gn[3 * C + c]));
-  const float o = tanhf(gn_apply(v.cp[i], v.st + 4, v.gn[4 * C + c],
-                                 v.gn[5 * C + c]));
-  const float h = v.h[i];
-  v.out[i] = u * h + (1.f - u) * o;
+__global__ void __launch_bounds__(kPointThreads) gru_update_kernel(const __grid_constant__ GruLevels L) {
+  __shared__ float st[4][6];
+  reduce_stats(L, true, st);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < L.start[4];
+       e += stride) {
+    int l = 0;
+    while (e >= L.start[l + 1]) ++l;
+    const GruLevel& v = L.l[l];
+    const int i = (int)(e - L.start[l]);
+    const int C = v.C;
+    const int c = i / v.HW;
+    const float u = sigmoidf_(gn_apply(v.gp[(long long)C * v.HW + i], L.stats + 6 * l + 2,
+                                       v.gn[2 * C + c], v.gn[3 * C + c]));
+    const float o = tanhf(gn_apply(v.cp[i], st[l] + 4, v.gn[4 * C + c], v.gn[5 * C + c]));
+    v.out[i] = u * v.h[i] + (1.f - u) * o;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -395,6 +839,12 @@ __global__ void __launch_bounds__(kPointThreads) gru_update_kernel(Levels L) {
 // ---------------------------------------------------------------------------
 
 constexpr int kLayers = 15;
+
+inline int r8(int n) { return (n + 7) / 8 * 8; }
+
+// Floats of one packed conv layer: (Ci/8 chunks) x 9 taps x (Co/8 n8
+// fragments) x 32 lanes x (b0, b1) x (hi, lo), channels rounded up to 8.
+inline long long frag_floats(int ci, int co) { return (long long)r8(ci) * r8(co) * 18; }
 
 // (in, out) channels of the packed layers, in packing order: conv1-3,
 // gates/cand of gru1-4, upconv3/2/1, out2d
@@ -410,14 +860,18 @@ inline void layer_shapes(int Cin, int ci[kLayers], int co[kLayers]) {
   }
 }
 
+// each layer: its fragments, then its bias padded to a multiple of 8 (so
+// every layer's fragments start 32-byte aligned); then the GN vectors
 long long param_floats(int Cin, const float* base, const float* w[kLayers],
-                       const float** gn) {
+                       const float* bias[kLayers], const float** gn) {
   int ci[kLayers], co[kLayers];
   layer_shapes(Cin, ci, co);
   long long off = 0;
   for (int i = 0; i < kLayers; ++i) {
     if (w != nullptr) w[i] = base + off;
-    off += (long long)ci[i] * 9 * co[i] + co[i];
+    off += frag_floats(ci[i], co[i]);
+    if (bias != nullptr) bias[i] = base + off;
+    off += r8(co[i]);
   }
   if (gn != nullptr) *gn = base + off;
   return off + 6 * (8 + 16 + 32 + 64);
@@ -426,15 +880,11 @@ long long param_floats(int Cin, const float* base, const float* w[kLayers],
 struct Plan {
   int H[4], W[4];
   long long P[4];
-  long long d[3], gp[4], rh[4], cp[4], u[3], pg[4], pc[4], stats, total;
+  long long d[3], gp[4], rh[4], cp[4], u[3], pg[4], pc[4], stats, split, total;
+  long long tickets;  // the K splits' tickets, in their own zeroed buffer
 };
 
-inline long long partial_floats(int CO, long long npix) {
-  const Tiling t = tiling(CO, npix);
-  return 4LL * t.nbx * t.nty;
-}
-
-Plan plan(int H, int W) {
+Plan plan(int Cin, int H, int W) {
   Plan q;
   long long off = 0;
   auto take = [&off](long long n) {
@@ -447,19 +897,53 @@ Plan plan(int H, int W) {
     q.W[l] = W >> l;
     q.P[l] = (long long)q.H[l] * q.W[l];
   }
+  // the conv-template launches' tilings, in red_step4_f32's order: the K
+  // splits' scratch serves one launch at a time, so it is their largest
+  const int xc[4] = {Cin, 16, 32, 64};
+  Tile down[3], gates[4], cands[4], dec[4];
+  for (int l = 0; l < 3; ++l)
+    down[l] = tile_for(kDown, 0, xc[l], 16 << l, q.H[l + 1], q.W[l + 1]);
+  for (int l = 0; l < 4; ++l) {
+    gates[l] = tile_for(kSame, 0, xc[l] + kHidden[l], 2 * kHidden[l], q.H[l], q.W[l]);
+    cands[l] = tile_for(kSame, 0, xc[l] + kHidden[l], kHidden[l], q.H[l], q.W[l]);
+  }
+  dec[0] = tile_for(kUp, 0, 64, 32, q.H[3], q.W[3]);
+  dec[1] = tile_for(kUp, 1, 32, 16, q.H[2], q.W[2]);
+  dec[2] = tile_for(kUp, 1, 16, 8, q.H[1], q.W[1]);
+  dec[3] = tile_for(kSame, 1, 8, 1, q.H[0], q.W[0]);
+  long long split = 0;
+  q.tickets = 0;
+  auto need = [&](const Tile* ts, int n) {
+    long long f = 0, t = 0;
+    for (int i = 0; i < n; ++i) split_need(ts[i], &f, &t);
+    split = f > split ? f : split;
+    q.tickets = t > q.tickets ? t : q.tickets;
+  };
+  for (int l = 0; l < 3; ++l) need(down + l, 1);
+  need(gates, 4);
+  need(cands, 4);
+  for (int i = 0; i < 4; ++i) need(dec + i, 1);
+
   for (int l = 0; l < 3; ++l) q.d[l] = take((16LL << l) * q.P[l + 1]);
   for (int l = 0; l < 4; ++l) {
     const int C = kHidden[l];
     q.gp[l] = take(2LL * C * q.P[l]);
     q.rh[l] = take((long long)C * q.P[l]);
     q.cp[l] = take((long long)C * q.P[l]);
-    q.pg[l] = take(partial_floats(2 * C, q.P[l]));
-    q.pc[l] = take(partial_floats(C, q.P[l]));
+    q.pg[l] = take(4LL * gates[l].tiles);
+    q.pc[l] = take(4LL * cands[l].tiles);
   }
   for (int l = 0; l < 3; ++l) q.u[l] = take((long long)kHidden[l] * q.P[l]);  // u1, u2, u3
   q.stats = take(24);
+  q.split = take(split);
   q.total = off;
   return q;
+}
+
+inline unsigned point_blocks(long long total) {
+  const long long need = (total + kPointThreads - 1) / kPointThreads;
+  const long long cap = 4LL * (sm_count() > 0 ? sm_count() : 132);
+  return (unsigned)(need < cap ? need : cap);
 }
 
 #define RS4_CHECK(expr)                    \
@@ -472,111 +956,134 @@ Plan plan(int H, int W) {
 
 extern "C" const char* error_string(int code) {
   if (code == kBadShape) return "RedStep4 needs H and W that are multiples of 8";
-  if (code == kBadParams) return "bad conv mode or channel count";
+  if (code == kBadParams) return "bad conv mode, channel count or weight alignment";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// K5 on its own. x [Ci,H,W], w packed [Ci][3][3][Co], b [Co]; mode 0 'same'
-// -> out [Co,H,W], 1 'down' -> [Co,ceil(H/2),ceil(W/2)], 2 'up' -> [Co,2H,2W].
+inline Tile conv_tile(int Ci, int Co, int H, int W, int mode) {
+  const bool up = mode == kUp;
+  return tile_for(mode, 0, Ci, Co, up ? H : mode == kDown ? (H + 1) / 2 : H,
+                  up ? W : mode == kDown ? (W + 1) / 2 : W);
+}
+
+// K5 on its own. x [Ci,H,W], w packed fragments (ops/cf_conv.py:pack_weight,
+// 16-byte aligned), b [Co]; mode 0 'same' -> out [Co,H,W], 1 'down' ->
+// [Co,ceil(H/2),ceil(W/2)], 2 'up' -> [Co,2H,2W]. scratch and tickets (all
+// 0, and left so) as cf_conv3x3_scratch_floats and cf_conv3x3_tickets say.
 extern "C" int cf_conv3x3_f32(const float* x, const float* w, const float* b,
                               int Ci, int Co, int H, int W, int mode, int relu,
-                              float* out, void* stream) {
-  if (mode < kSame || mode > kUp || Ci < 1 || Co < 1) return kBadParams;
-  ConvArgs p = conv_args(x, Ci, nullptr, 0, 0, w, Co, H, W, mode, out, relu);
-  p.bias = b;
-  return (int)conv(p, mode, (cudaStream_t)stream);
+                              float* out, float* scratch, int* tickets, void* stream) {
+  if (mode < kSame || mode > kUp || Ci < 1 || Co < 1 || (uintptr_t)w % 16) return kBadParams;
+  const Problem p = problem(x, Ci, nullptr, 0, 0, w, b, Co, H, W, mode, out, relu);
+  return (int)convs(mode, &p, 1, scratch, tickets, (cudaStream_t)stream);
+}
+
+extern "C" long long cf_conv3x3_scratch_floats(int Ci, int Co, int H, int W, int mode) {
+  long long f = 0, t = 0;
+  split_need(conv_tile(Ci, Co, H, W, mode), &f, &t);
+  return f;
+}
+
+extern "C" long long cf_conv3x3_tickets(int Ci, int Co, int H, int W, int mode) {
+  long long f = 0, t = 0;
+  split_need(conv_tile(Ci, Co, H, W, mode), &f, &t);
+  return t;
 }
 
 // Floats of the packed parameter buffer red_step4_f32 reads.
 extern "C" long long red_step4_param_floats(int Cin) {
-  return param_floats(Cin, nullptr, nullptr, nullptr);
+  return param_floats(Cin, nullptr, nullptr, nullptr, nullptr);
 }
 
-// Floats of the scratch buffer red_step4_f32 needs at H x W.
-extern "C" long long red_step4_scratch_floats(int H, int W) {
-  return plan(H, W).total;
+// Floats of the scratch buffer red_step4_f32 needs at Cin x H x W.
+extern "C" long long red_step4_scratch_floats(int Cin, int H, int W) {
+  return plan(Cin, H, W).total;
+}
+
+// Tickets (ints, all 0, and left so) red_step4_f32 needs at Cin x H x W.
+extern "C" long long red_step4_tickets(int Cin, int H, int W) {
+  return plan(Cin, H, W).tickets;
 }
 
 // One RedStep4 step. cost [Cin,H,W], states h1 [8,H,W] .. h4 [64,H/8,W/8];
-// params packed as red_step4_param_floats describes (each layer
-// [ci][ky][kx][co] then bias; the cost's negation folded in; then the GN
-// vectors per level). Writes score [H,W] and the new states; the inputs are
-// not modified. *conv_launches receives the launches of the conv template.
+// params packed as red_step4_param_floats describes (ops/red_step4.py:
+// pack_params: each layer's fragments then its padded bias, the cost's
+// negation folded in; then the GN vectors per level), 16-byte aligned.
+// Writes score [H,W] and the new states; the inputs are not modified.
+// *conv_launches receives the launches of the conv template (9 of the
+// step's 11).
 extern "C" int red_step4_f32(const float* cost, int Cin, const float* s1,
                              const float* s2, const float* s3, const float* s4,
                              const float* params, float* score, float* h1n,
                              float* h2n, float* h3n, float* h4n, float* scratch,
-                             int H, int W, int* conv_launches, void* stream) {
+                             int* tickets, int H, int W, int* conv_launches,
+                             void* stream) {
   *conv_launches = 0;
   if (H % 8 || W % 8 || H <= 0 || W <= 0) return kBadShape;
-  if (Cin < 1) return kBadParams;
+  if (Cin < 1 || (uintptr_t)params % 16) return kBadParams;
   cudaStream_t s = (cudaStream_t)stream;
   const float* w[kLayers];
+  const float* bias[kLayers];
   const float* gn;
-  param_floats(Cin, params, w, &gn);
-  const Plan q = plan(H, W);
+  param_floats(Cin, params, w, bias, &gn);
+  const Plan q = plan(Cin, H, W);
+  float* split = scratch + q.split;
   float* d[3] = {scratch + q.d[0], scratch + q.d[1], scratch + q.d[2]};
   const float* h[4] = {s1, s2, s3, s4};
   float* hn[4] = {h1n, h2n, h3n, h4n};
-  float* stats = scratch + q.stats;
   int n = 0;
 
   // encoder: three stride-2 convs on -cost
   const float* x[4] = {cost, d[0], d[1], d[2]};
   const int xc[4] = {Cin, 16, 32, 64};
   for (int l = 0; l < 3; ++l) {
-    RS4_CHECK(conv(conv_args(x[l], xc[l], nullptr, 0, 0, w[l], 16 << l, q.H[l],
-                             q.W[l], kDown, d[l], 1), kDown, s));
+    const Problem p = problem(x[l], xc[l], nullptr, 0, 0, w[l], bias[l], 16 << l,
+                              q.H[l], q.W[l], kDown, d[l], 1);
+    RS4_CHECK(convs(kDown, &p, 1, split, tickets, s));
     ++n;
   }
-  // gates of every level, with their GN partials
-  GnJobs gj;
-  for (int l = 0; l < 4; ++l) {
-    const int C = kHidden[l];
-    RS4_CHECK(conv(conv_args(x[l], xc[l], h[l], C, 0, w[3 + 2 * l], 2 * C,
-                             q.H[l], q.W[l], kSame, scratch + q.gp[l], 0,
-                             scratch + q.pg[l], C), kSame, s));
-    ++n;
-    const Tiling tl = tiling(2 * C, q.P[l]);
-    for (int part = 0; part < 2; ++part) {
-      gj.j[2 * l + part] = {scratch + q.pg[l], stats + 6 * l + 2 * part, tl.nbx,
-                            tl.T, C, part, (double)C * q.P[l]};
-    }
+  // gates of every level in one launch, deepest first, with GN partials
+  Problem gates[4], cands[4];
+  for (int i = 0; i < 4; ++i) {
+    const int l = 3 - i, C = kHidden[l];
+    gates[i] = problem(x[l], xc[l], h[l], C, 0, w[3 + 2 * l], bias[3 + 2 * l], 2 * C,
+                       q.H[l], q.W[l], kSame, scratch + q.gp[l], 0, scratch + q.pg[l], C);
   }
-  gn_finalize_kernel<<<8, 256, 0, s>>>(gj);
-  RS4_CHECK(cudaGetLastError());
+  RS4_CHECK(convs(kSame, gates, 4, split, tickets, s));
+  ++n;
 
-  Levels L;
+  GruLevels L;
   long long total = 0;
   for (int l = 0; l < 4; ++l) {
     const int C = kHidden[l];
-    L.l[l] = {scratch + q.gp[l], h[l], scratch + q.cp[l], gn, stats + 6 * l,
-              scratch + q.rh[l], C, (int)q.P[l]};
+    const Problem& gl = gates[3 - l];
+    L.l[l] = {scratch + q.gp[l], h[l], scratch + q.cp[l], gn, scratch + q.pg[l],
+              scratch + q.pc[l], scratch + q.rh[l], C, (int)q.P[l], gl.tiles,
+              gl.ntiles, 0, 1};
     gn += 6 * C;
     L.start[l] = total;
     total += (long long)C * q.P[l];
   }
   L.start[4] = total;
-  const unsigned pblocks = (unsigned)((total + kPointThreads - 1) / kPointThreads);
+  L.stats = scratch + q.stats;
+  const unsigned pblocks = point_blocks(total);
   gru_reset_kernel<<<pblocks, kPointThreads, 0, s>>>(L);
   RS4_CHECK(cudaGetLastError());
 
-  // candidates of every level on [x, r*h], with their GN partials
-  GnJobs cj;
-  for (int l = 0; l < 4; ++l) {
-    const int C = kHidden[l];
-    RS4_CHECK(conv(conv_args(x[l], xc[l], scratch + q.rh[l], C, 0, w[4 + 2 * l],
-                             C, q.H[l], q.W[l], kSame, scratch + q.cp[l], 0,
-                             scratch + q.pc[l], C), kSame, s));
-    ++n;
-    const Tiling tl = tiling(C, q.P[l]);
-    cj.j[l] = {scratch + q.pc[l], stats + 6 * l + 4, tl.nbx, tl.T, C, 0,
-               (double)C * q.P[l]};
+  // candidates of every level on [x, r*h], one launch, with GN partials
+  for (int i = 0; i < 4; ++i) {
+    const int l = 3 - i, C = kHidden[l];
+    cands[i] = problem(x[l], xc[l], scratch + q.rh[l], C, 0, w[4 + 2 * l], bias[4 + 2 * l],
+                       C, q.H[l], q.W[l], kSame, scratch + q.cp[l], 0, scratch + q.pc[l], C);
   }
-  gn_finalize_kernel<<<4, 256, 0, s>>>(cj);
-  RS4_CHECK(cudaGetLastError());
+  RS4_CHECK(convs(kSame, cands, 4, split, tickets, s));
+  ++n;
 
-  for (int l = 0; l < 4; ++l) L.l[l].out = hn[l];
+  for (int l = 0; l < 4; ++l) {
+    L.l[l].out = hn[l];
+    L.l[l].nbc = cands[3 - l].tiles;
+    L.l[l].ntc = cands[3 - l].ntiles;
+  }
   gru_update_kernel<<<pblocks, kPointThreads, 0, s>>>(L);
   RS4_CHECK(cudaGetLastError());
 
@@ -584,15 +1091,15 @@ extern "C" int red_step4_f32(const float* cost, int Cin, const float* s1,
   float* u1 = scratch + q.u[0];
   float* u2 = scratch + q.u[1];
   float* u3 = scratch + q.u[2];
-  RS4_CHECK(conv(conv_args(hn[3], 64, nullptr, 0, 0, w[11], 32, q.H[3], q.W[3],
-                           kUp, u3, 1), kUp, s));
-  RS4_CHECK(conv(conv_args(u3, 32, hn[2], 32, 1, w[12], 16, q.H[2], q.W[2],
-                           kUp, u2, 1), kUp, s));
-  RS4_CHECK(conv(conv_args(u2, 16, hn[1], 16, 1, w[13], 8, q.H[1], q.W[1],
-                           kUp, u1, 1), kUp, s));
-  RS4_CHECK(conv(conv_args(u1, 8, hn[0], 8, 1, w[14], 1, q.H[0], q.W[0],
-                           kSame, score, 0), kSame, s));
-  n += 4;
+  const Problem dec[4] = {
+      problem(hn[3], 64, nullptr, 0, 0, w[11], bias[11], 32, q.H[3], q.W[3], kUp, u3, 1),
+      problem(u3, 32, hn[2], 32, 1, w[12], bias[12], 16, q.H[2], q.W[2], kUp, u2, 1),
+      problem(u2, 16, hn[1], 16, 1, w[13], bias[13], 8, q.H[1], q.W[1], kUp, u1, 1),
+      problem(u1, 8, hn[0], 8, 1, w[14], bias[14], 1, q.H[0], q.W[0], kSame, score, 0)};
+  for (int i = 0; i < 4; ++i) {
+    RS4_CHECK(convs(i < 3 ? kUp : kSame, dec + i, 1, split, tickets, s));
+    ++n;
+  }
   *conv_launches = n;
   return 0;
 }

@@ -11,17 +11,19 @@ composes. x [Ci, H, W] ->
 'same'/'down', [in, out, 3, 3] flipped for 'up' (ops/conv.py). Exact shapes:
 none of the TPU kernel's row padding, row masks or column slabs.
 
-The kernel is the conv template of csrc/red_step4.cu (its design and bound
-are described there); the RedStep4 step (ops/red_step4.py) launches it
-from C. `cf_conv3x3` launches it for CUDA tensors and raises if the launch
-fails; it takes the plain version only for CPU tensors. It counts its
-launches in `cf_conv3x3.launches`, and red_step4 adds the launches its step
-makes.
+The kernel is the conv template of csrc/red_step4.cu, an implicit GEMM on
+the tensor cores in 3xTF32 (its design and bound are described there); its
+weights are packed once into TF32 hi/lo fragments (`pack_weight`). The
+RedStep4 step (ops/red_step4.py) launches it from C. `cf_conv3x3` launches
+it for CUDA tensors, with the scratch its input-channel splits need, and
+raises if the launch fails; it takes the plain version only for CPU
+tensors. It counts its launches in `cf_conv3x3.launches`, and red_step4
+adds the launches its step makes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,11 +44,46 @@ def cf_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     return torch.relu(y) if relu else y
 
 
+def split_tf32(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 w = hi + lo exactly: hi rounded to TF32 (10 mantissa bits,
+    nearest, ties away from zero, as the kernel's cvt.rna.tf32.f32), lo
+    the rest, which the tensor core reads to its top 10 bits (3xTF32)."""
+    bits = w.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, w.float() - hi
+
+
+def frag_floats(ci: int, co: int) -> int:
+    """Floats of one packed layer (channels rounded up to 8)."""
+    return -(-ci // 8) * 8 * (-(-co // 8) * 8) * 18
+
+
+def pack_frags(w: torch.Tensor) -> torch.Tensor:
+    """[Ci, 3, 3, Co] -> the kernel's B fragments, flat: per chunk of 8
+    input channels, tap (ky * 3 + kx) and n8 fragment of output channels,
+    32 lanes (g = lane // 4 the output channel, t = lane % 4) of
+    (b0 hi, b1 hi, b0 lo, b1 lo), b0 the input channel t and b1 t + 4 of
+    the chunk: mma.m16n8k8's TF32 B layout, one 16-byte load a lane.
+    Channels are zero-padded to multiples of 8."""
+    ci, co = w.shape[0], w.shape[3]
+    ci8, co8 = -(-ci // 8) * 8, -(-co // 8) * 8
+    w = torch.nn.functional.pad(w.float().reshape(ci, 9, co),
+                                (0, co8 - co, 0, 0, 0, ci8 - ci))
+
+    def frag(t):  # [ci8, 9, co8] -> [chunk, tap, nf, g, t, half]
+        t = t.reshape(ci8 // 8, 2, 4, 9, co8 // 8, 8)  # chunk, half, t, tap, nf, g
+        return t.permute(0, 3, 4, 5, 2, 1)
+
+    hi, lo = split_tf32(w)
+    return torch.stack([frag(hi), frag(lo)], dim=-2).reshape(-1).contiguous()
+
+
 def pack_weight(w: torch.Tensor, mode: str) -> torch.Tensor:
-    """The kernel's weight layout [Ci, 3, 3, Co], flat: convs OIHW ->
-    IHWO, transposed convs [in, out, 3, 3] -> [in, 3, 3, out]."""
+    """The kernel's packed weight (pack_frags) of a conv (OIHW) or of a
+    transposed conv ([in, out, 3, 3], flipped), split into TF32 hi + lo
+    once here rather than at every launch."""
     wp = w.permute(0, 2, 3, 1) if mode == "up" else w.permute(1, 2, 3, 0)
-    return wp.float().reshape(-1).contiguous()
+    return pack_frags(wp)
 
 
 def cf_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
@@ -56,7 +93,7 @@ def cf_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     repacking per call); cf_conv3x3_plain on CPU tensors."""
     if not x.is_cuda:
         return cf_conv3x3_plain(x, w, b, mode=mode, relu=relu)
-    from .cuda_build import check, load
+    from .cuda_build import check, load, tickets
 
     if mode not in MODES:
         raise ValueError(f"cf_conv3x3 mode {mode!r} ({', '.join(MODES)})")
@@ -73,16 +110,21 @@ def cf_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         if not t.is_cuda or t.dtype != torch.float32:
             raise ValueError(f"cf_conv3x3: {name} must be a float32 CUDA "
                              f"tensor, got {t.dtype} on {t.device}")
-    if packed.numel() != Ci * 9 * Co:
+    if packed.numel() != frag_floats(Ci, Co) or packed.data_ptr() % 16:
         raise ValueError(f"cf_conv3x3: packed weight of {packed.numel()} "
-                         f"floats for Ci {Ci}, Co {Co}")
+                         f"floats for Ci {Ci}, Co {Co} (want "
+                         f"{frag_floats(Ci, Co)}, 16-byte aligned)")
     shape = {"same": (Co, H, W), "down": (Co, (H + 1) // 2, (W + 1) // 2),
              "up": (Co, 2 * H, 2 * W)}[mode]
     out = torch.empty(shape, device=x.device, dtype=torch.float32)
     lib = load("red_step4")
+    m = MODES.index(mode)
+    scratch = torch.empty(lib.cf_conv3x3_scratch_floats(Ci, Co, H, W, m),
+                          device=x.device)
+    tick = tickets(x.device, lib.cf_conv3x3_tickets(Ci, Co, H, W, m))
     rc = lib.cf_conv3x3_f32(x.data_ptr(), packed.data_ptr(), b.data_ptr(), Ci,
-                            Co, H, W, MODES.index(mode), int(relu),
-                            out.data_ptr(),
+                            Co, H, W, m, int(relu), out.data_ptr(),
+                            scratch.data_ptr(), tick.data_ptr(),
                             torch.cuda.current_stream(x.device).cuda_stream)
     check(lib, rc, "cf_conv3x3")
     cf_conv3x3.launches += 1

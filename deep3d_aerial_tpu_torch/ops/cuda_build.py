@@ -27,6 +27,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_tickets: Dict[str, "torch.Tensor"] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,15 +43,20 @@ _ARGTYPES = {
                          + [_I, _I, _I, _P],
     },
     "red_step4": {
-        "cf_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+        "cf_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "cf_conv3x3_scratch_floats": [_I, _I, _I, _I, _I],
+        "cf_conv3x3_tickets": [_I, _I, _I, _I, _I],
         "red_step4_param_floats": [_I],
-        "red_step4_scratch_floats": [_I, _I],
+        "red_step4_scratch_floats": [_I, _I, _I],
+        "red_step4_tickets": [_I, _I, _I],
         "red_step4_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, ctypes.POINTER(_I), _P],
+                          _P, _I, _I, ctypes.POINTER(_I), _P],
     },
 }
 # entries that return a size instead of an error code
-_RESTYPES = {"red_step4_param_floats": _L, "red_step4_scratch_floats": _L}
+_RESTYPES = {"red_step4_param_floats": _L, "red_step4_scratch_floats": _L,
+             "red_step4_tickets": _L, "cf_conv3x3_scratch_floats": _L,
+             "cf_conv3x3_tickets": _L}
 
 
 def nvcc() -> str:
@@ -118,6 +124,22 @@ def load(name: str) -> ctypes.CDLL:
             lib.error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def tickets(device, n: int):
+    """At least n int32 zeros on `device`, kept per device: the conv
+    template's K splits count on them, and each tile's last split sets its
+    count back to 0, so the buffer is all zeros again when a launch ends.
+    Launches on one stream at a time share it."""
+    import torch
+
+    key = str(device)
+    with _lock:
+        t = _tickets.get(key)
+        if t is None or t.numel() < n:
+            t = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+            _tickets[key] = t
+        return t
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -26,7 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .cf_conv import cf_conv3x3
+from .cf_conv import cf_conv3x3, pack_frags
 from .conv import conv2d_same, conv_transpose2d_same
 
 Params = Dict[str, torch.Tensor]
@@ -95,7 +95,7 @@ def red_step4_plain(params: Params, cost: torch.Tensor, s1: torch.Tensor,
     return score, r1, r2, r3, r4
 
 
-# the C entry's layer order; each packed [ci][ky][kx][co] + bias
+# the C entry's layer order; each packed as K5's fragments + padded bias
 _LAYERS = ("conv1.conv", "conv2.conv", "conv3.conv",
            "gru1.gates", "gru1.cand", "gru2.gates", "gru2.cand",
            "gru3.gates", "gru3.cand", "gru4.gates", "gru4.cand",
@@ -106,18 +106,21 @@ _NEG = ("conv1.conv", "gru1.gates", "gru1.cand")
 
 @torch.no_grad()
 def pack_params(params: Params, cin: int) -> torch.Tensor:
-    """K4's one packed parameter buffer: the 15 layers in _LAYERS order
-    (convs OIHW -> [I, 3, 3, O], transposed convs [I, O, 3, 3] ->
-    [I, 3, 3, O], each followed by its bias), neg = -cost folded into the
-    cost's input channels of conv1 and of gru1's gates and candidate, then
-    per level the GroupNorm vectors rn, un, on (weight, bias)."""
+    """K4's one packed parameter buffer: the 15 layers in _LAYERS order,
+    each as K5's TF32 hi/lo fragments (ops/cf_conv.py:pack_frags of convs
+    OIHW -> [I, 3, 3, O], transposed convs [I, O, 3, 3] -> [I, 3, 3, O])
+    followed by its bias zero-padded to a multiple of 8, neg = -cost folded
+    into the cost's input channels of conv1 and of gru1's gates and
+    candidate; then per level the GroupNorm vectors rn, un, on (weight,
+    bias)."""
     out = []
     for name in _LAYERS:
         w = params[f"{name}.weight"].float()
         if name in _NEG:
             w = torch.cat([-w[:, :cin], w[:, cin:]], dim=1)
         wp = w.permute(0, 2, 3, 1) if name.startswith("upconv") else w.permute(1, 2, 3, 0)
-        out += [wp.reshape(-1), params[f"{name}.bias"].float()]
+        b = params[f"{name}.bias"].float()
+        out += [pack_frags(wp), torch.nn.functional.pad(b, (0, -len(b) % 8))]
     for l in range(4):
         for gn in ("rn", "un", "on"):
             out += [params[f"gru{l + 1}.{gn}.weight"].float(),
@@ -148,7 +151,7 @@ def red_step4(params: Params, cost: torch.Tensor, s1: torch.Tensor,
     repacking per plane); red_step4_plain on CPU tensors."""
     if not cost.is_cuda:
         return red_step4_plain(params, cost, s1, s2, s3, s4)
-    from .cuda_build import check, load
+    from .cuda_build import check, load, tickets
 
     states = (s1, s2, s3, s4)
     check_shapes(cost, states)
@@ -161,18 +164,21 @@ def red_step4(params: Params, cost: torch.Tensor, s1: torch.Tensor,
     if packed is None:
         packed = pack_params(params, Cin)
     if (not packed.is_cuda or packed.dtype != torch.float32
-            or packed.numel() != lib.red_step4_param_floats(Cin)):
+            or packed.numel() != lib.red_step4_param_floats(Cin)
+            or packed.data_ptr() % 16):
         raise ValueError(f"red_step4: packed parameters ({packed.numel()} "
                          f"floats) do not fit Cin {Cin}")
     dev = cost.device
     score = torch.empty((H, W), device=dev)
     outs = [torch.empty_like(s) for s in (s1, s2, s3, s4)]
-    scratch = torch.empty(lib.red_step4_scratch_floats(H, W), device=dev)
+    scratch = torch.empty(lib.red_step4_scratch_floats(Cin, H, W), device=dev)
+    tick = tickets(dev, lib.red_step4_tickets(Cin, H, W))
     convs = ctypes.c_int(0)
     rc = lib.red_step4_f32(cost.data_ptr(), Cin, s1.data_ptr(), s2.data_ptr(),
                            s3.data_ptr(), s4.data_ptr(), packed.data_ptr(),
                            score.data_ptr(), *(o.data_ptr() for o in outs),
-                           scratch.data_ptr(), H, W, ctypes.byref(convs),
+                           scratch.data_ptr(), tick.data_ptr(), H, W,
+                           ctypes.byref(convs),
                            torch.cuda.current_stream(dev).cuda_stream)
     check(lib, rc, "red_step4")
     red_step4.launches += 1

@@ -21,6 +21,10 @@ from deep3d_aerial_tpu_torch.weights import init_random_weights
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
+# one K4 step: conv1-3, gates (grouped), reset, candidates (grouped),
+# update, upconv3-1, score; 9 of them the conv template K5
+LAUNCHES_PER_STEP = 11
+CONV_LAUNCHES_PER_STEP = 9
 
 
 @pytest.fixture
@@ -114,8 +118,14 @@ def test_sweep_var_kernel_matches_plain(dev, C, H, W):
 
 
 @pytest.mark.parametrize("mode", ["same", "down", "up"])
-@pytest.mark.parametrize("ci,co,H,W", [(16, 16, 37, 50), (8, 1, 20, 33),
-                                       (128, 128, 12, 16), (24, 40, 9, 7)])
+@pytest.mark.parametrize("ci,co,H,W", [
+    (16, 16, 37, 50), (8, 1, 20, 33), (24, 40, 9, 7),
+    # the deep levels, where the warps split the input channels
+    (128, 128, 12, 16), (128, 64, 12, 16), (128, 128, 6, 8), (128, 64, 6, 8),
+    # input channels off the 8-channel stage, odd sizes
+    (40, 24, 23, 31), (20, 12, 17, 9), (3, 5, 11, 13),
+    # a grid of many blocks (no split)
+    (32, 32, 96, 128)])
 def test_cf_conv3x3_kernel_matches_plain(dev, mode, ci, co, H, W):
     g = torch.Generator(device=dev).manual_seed(ci + co)
     x = torch.randn((ci, H, W), generator=g, device=dev)
@@ -130,7 +140,8 @@ def test_cf_conv3x3_kernel_matches_plain(dev, mode, ci, co, H, W):
     assert cc.cf_conv3x3.launches == n + 2
 
 
-@pytest.mark.parametrize("cin,H,W", [(8, 16, 24), (16, 40, 64), (32, 96, 128)])
+@pytest.mark.parametrize("cin,H,W", [(8, 16, 24), (16, 40, 64), (32, 96, 128),
+                                     (16, 192, 256)])
 def test_red_step4_kernel_matches_plain(dev, cin, H, W):
     """Three planes chained, states carried across them."""
     g = torch.Generator(device=dev).manual_seed(cin)
@@ -148,7 +159,55 @@ def test_red_step4_kernel_matches_plain(dev, cin, H, W):
                 torch.testing.assert_close(a, b, rtol=0, atol=TOL)
             states = list(p[1:])
     assert rs4.red_step4.launches == n + 3
-    assert cc.cf_conv3x3.launches == nc + 3 * 15
+    assert cc.cf_conv3x3.launches == nc + 3 * CONV_LAUNCHES_PER_STEP
+
+
+def _red4_inputs(dev, cin, H, W, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mod = init_random_weights(RedStep4(cin), seed=cin).to(dev)
+    cost = torch.randn((cin, H, W), generator=g, device=dev)
+    states = [torch.randn((c, H >> l, W >> l), generator=g, device=dev) * 0.5
+              for l, c in enumerate(rs4.HIDDEN)]
+    return mod, cost, states
+
+
+@pytest.mark.parametrize("cin,H,W", [(32, 96, 128), (8, 384, 512)])
+def test_red_step4_same_bits_every_run(dev, cin, H, W):
+    """The same step twice gives identical bits: every sum (the warps'
+    split-K partials, the GroupNorm block partials) runs in a fixed order,
+    with no atomics."""
+    mod, cost, states = _red4_inputs(dev, cin, H, W, 7)
+    step = mod.plane_step(dev)
+    with torch.no_grad():
+        first = [t.clone() for t in step(cost, *states)]
+        for _ in range(2):
+            again = step(cost, *states)
+            for a, b in zip(first, again):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_red_step4_launches_per_step(dev):
+    """One step is 11 device launches (9 of them the conv template), as
+    the profiler sees them, and the counters agree."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mod, cost, states = _red4_inputs(dev, 32, 96, 128, 8)
+    step = mod.plane_step(dev)
+    n, nc = rs4.red_step4.launches, cc.cf_conv3x3.launches
+    with torch.no_grad():
+        step(cost, *states)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(cost, *states)
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "Memset" not in e.name and "Memcpy" not in e.name]
+    assert rs4.red_step4.launches == n + 2
+    assert cc.cf_conv3x3.launches == nc + 2 * CONV_LAUNCHES_PER_STEP
+    if kernels:  # a profiler session now and then sees no device events
+        assert len(kernels) == LAUNCHES_PER_STEP, kernels
+        assert sum("conv_mma_kernel" in k for k in kernels) == CONV_LAUNCHES_PER_STEP
 
 
 def test_red_step4_plane_step_launches_the_kernel(dev):

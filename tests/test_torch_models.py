@@ -57,13 +57,14 @@ def test_feature_net_branch():
     H, W = 32, 48
     imgs = rng.normal(size=(2, H, W, 3)).astype(np.float32)
     jmod = JFeatureNet(arch="branch")
-    flat, jparams = perturbed(jmod.init(jax.random.PRNGKey(1),
-                                        jnp.asarray(imgs[0])), rng)
+    flat, jparams = perturbed(jax.jit(jmod.init)(jax.random.PRNGKey(1),
+                                                 jnp.asarray(imgs[0])), rng)
     tmod = load_jax_weights(FeatureNet(arch="branch"), flat)
     with torch.no_grad():
         touts = tmod(nchw(imgs))
+    apply = jax.jit(jmod.apply)
     for v in range(2):
-        jouts = jax.jit(jmod.apply)(jparams, jnp.asarray(imgs[v]))
+        jouts = apply(jparams, jnp.asarray(imgs[v]))
         for j, t in zip(jouts, touts):
             np.testing.assert_allclose(t[v].numpy(),
                                        np.moveaxis(np.asarray(j), -1, 0),
@@ -75,13 +76,14 @@ def test_cost_reg_net_2d():
     H, W, D = 12, 20, 16
     x = rng.normal(size=(3, H, W, D)).astype(np.float32)
     jmod = JCostRegNet2D()
-    flat, jparams = perturbed(jmod.init(jax.random.PRNGKey(2),
-                                        jnp.asarray(x[0])), rng)
+    flat, jparams = perturbed(jax.jit(jmod.init)(jax.random.PRNGKey(2),
+                                                 jnp.asarray(x[0])), rng)
     tmod = load_jax_weights(CostRegNet2D(D), flat)
     with torch.no_grad():
         t = tmod(nchw(x)).numpy()
+    apply = jax.jit(jmod.apply)
     for v in range(3):
-        j = np.asarray(jmod.apply(jparams, jnp.asarray(x[v])))
+        j = np.asarray(apply(jparams, jnp.asarray(x[v])))
         np.testing.assert_allclose(t[v], np.moveaxis(j, -1, 0), rtol=0, atol=1e-4)
 
 
@@ -111,8 +113,8 @@ def test_streaming_sweep(up):
     args = (depths, ref, srcs, rels, weights)
     jmod = _JSweep(up=up)
     flat, jparams = perturbed(
-        jmod.init(jax.random.PRNGKey(3), *map(jnp.asarray, args)), rng, 0.2)
-    jd, jc = jmod.apply(jparams, *map(jnp.asarray, args))
+        jax.jit(jmod.init)(jax.random.PRNGKey(3), *map(jnp.asarray, args)), rng, 0.2)
+    jd, jc = jax.jit(jmod.apply)(jparams, *map(jnp.asarray, args))
 
     holder = tnn.Module()
     holder.red0 = RedStep2(C, up=up)

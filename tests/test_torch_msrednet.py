@@ -39,6 +39,9 @@ torch.set_num_threads(1)
 
 DMIN, DMAX = 80.0, 120.0
 NDEPTHS = (8, 8, 4)
+# planes per chunk of the forward's sweeps: 2 scan steps or more per stage,
+# and JAX traces a RedStep4 body per plane of a chunk
+CHUNK = 2
 
 
 def test_feature_net_unet():
@@ -46,14 +49,15 @@ def test_feature_net_unet():
     H, W = 32, 48
     imgs = rng.normal(size=(2, H, W, 3)).astype(np.float32)
     jmod = JFeatureNet(arch="unet")
-    flat, jparams = perturbed(jmod.init(jax.random.PRNGKey(8),
-                                        jnp.asarray(imgs[0])), rng)
+    flat, jparams = perturbed(jax.jit(jmod.init)(jax.random.PRNGKey(8),
+                                                 jnp.asarray(imgs[0])), rng)
     tmod = load_jax_weights(FeatureNet(arch="unet"), flat)
     assert tmod.out_channels == (32, 16, 8)
     with torch.no_grad():
         touts = tmod(nchw(imgs))
+    apply = jax.jit(jmod.apply)
     for v in range(2):
-        jouts = jax.jit(jmod.apply)(jparams, jnp.asarray(imgs[v]))
+        jouts = apply(jparams, jnp.asarray(imgs[v]))
         for j, t in zip(jouts, touts):
             np.testing.assert_allclose(t[v].numpy(),
                                        np.moveaxis(np.asarray(j), -1, 0),
@@ -66,13 +70,13 @@ class _JSweep(fnn.Module):
         return jstreaming_sweep(
             reg=JRedStep4(name="red0"), cost_mode="variance", up=False,
             depths=depths, ref_feat=ref, src_feats=srcs, rel_projs=rels,
-            weights=None, plane_chunk=4)
+            weights=None, plane_chunk=2)
 
 
 def test_streaming_sweep_variance_red_step4():
-    """Two chunks of 4 planes with per-pixel depths through the variance
-    cost and RedStep4; depth within 1e-3 x the 30 m hypothesis spread,
-    confidence within 1e-4."""
+    """Four chunks of 2 planes with per-pixel depths through the variance
+    cost and RedStep4 (the states carried across chunks); depth within
+    1e-3 x the 30 m hypothesis spread, confidence within 1e-4."""
     rng = np.random.default_rng(82)
     H, W, C, V = 16, 24, 16, 3
     cam = toy_camera(width=W, height=H, f=1.2 * W)
@@ -84,8 +88,8 @@ def test_streaming_sweep_variance_red_step4():
     args = (depths, ref, srcs, rels)
     jmod = _JSweep()
     flat, jparams = perturbed(
-        jmod.init(jax.random.PRNGKey(9), *map(jnp.asarray, args)), rng, 0.1)
-    jd, jc = jmod.apply(jparams, *map(jnp.asarray, args))
+        jax.jit(jmod.init)(jax.random.PRNGKey(9), *map(jnp.asarray, args)), rng, 0.1)
+    jd, jc = jax.jit(jmod.apply)(jparams, *map(jnp.asarray, args))
 
     holder = tnn.Module()
     holder.red0 = RedStep4(C)
@@ -93,7 +97,7 @@ def test_streaming_sweep_variance_red_step4():
     with torch.no_grad():
         td, tc = streaming_sweep(holder.red0, False,
                                  *(torch.from_numpy(a) for a in args), None,
-                                 plane_chunk=4, cost_mode="variance")
+                                 plane_chunk=2, cost_mode="variance")
     assert td.shape == (H, W)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=3e-2)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0, atol=1e-4)
@@ -145,8 +149,9 @@ def test_streaming_sweep_gathers_the_step_once(cost_mode, monkeypatch):
 
 @pytest.fixture(scope="module")
 def jax_forward():
-    """One JAX MSREDNet forward at 64x96, ndepths (8, 8, 4), 3 views, on
-    seeded perturbed parameters: (flat tree, inputs, outputs)."""
+    """One JAX MSREDNet forward at 64x96, ndepths (8, 8, 4) in chunks of
+    2 planes, 3 views, on seeded perturbed parameters: (flat tree, inputs,
+    outputs)."""
     rng = np.random.default_rng(83)
     V, H, W = 3, 64, 96
     cam = toy_camera(width=W, height=H, f=1.25 * W)
@@ -154,7 +159,7 @@ def jax_forward():
     rel = stage_relative_projections(projs, 3).astype(np.float32)
     imgs = rng.normal(size=(V, H, W, 3)).astype(np.float32)
     jmod = JMSREDNet(ndepths=NDEPTHS, num_depth=64, warp_impl="xla",
-                     red_impl="flax")
+                     red_impl="flax", plane_chunk=CHUNK)
     inputs = (jnp.asarray(imgs), jnp.asarray(rel), DMIN, DMAX)
     flat, jparams = perturbed(jax.jit(jmod.init)(jax.random.PRNGKey(10),
                                                  *inputs), rng)
@@ -164,7 +169,8 @@ def jax_forward():
 
 def test_msrednet_forward(jax_forward):
     flat, (imgs, rel), jout = jax_forward
-    tmod = load_jax_weights(MSREDNet(ndepths=NDEPTHS, num_depth=64), flat).eval()
+    tmod = load_jax_weights(MSREDNet(ndepths=NDEPTHS, num_depth=64,
+                                     plane_chunk=CHUNK), flat).eval()
     assert len(flat) == len(tree_to_state_dict(tmod, flat))
     with torch.no_grad():
         tout = tmod(torch.from_numpy(imgs), torch.from_numpy(rel), DMIN, DMAX)
@@ -184,9 +190,9 @@ def test_msrednet_plain_impls_and_registry(jax_forward):
     the same numbers on the CPU (where the kernel switches run the plain
     versions too)."""
     flat, (imgs, rel), _ = jax_forward
-    mk = load_jax_weights(build_model("msrednet", ndepths=NDEPTHS,
-                                      num_depth=64), flat).eval()
-    mp = load_jax_weights(MSREDNet(ndepths=NDEPTHS, num_depth=64,
+    mk = load_jax_weights(build_model("msrednet", ndepths=NDEPTHS, num_depth=64,
+                                      plane_chunk=CHUNK), flat).eval()
+    mp = load_jax_weights(MSREDNet(ndepths=NDEPTHS, num_depth=64, plane_chunk=CHUNK,
                                    warp_impl="plain", red_impl="plain"),
                           flat).eval()
     args = (torch.from_numpy(imgs), torch.from_numpy(rel), DMIN, DMAX)

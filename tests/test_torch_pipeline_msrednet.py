@@ -31,7 +31,7 @@ from tests.test_torch_pipeline import CFG, _names
 
 torch.set_num_threads(1)
 
-MCFG = {**CFG, "model_type": "msrednet", "ndepths": [8, 8, 4]}
+MCFG = {**CFG, "model_type": "msrednet", "ndepths": [4, 4, 4]}
 
 
 @pytest.fixture(scope="module")
