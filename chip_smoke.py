@@ -24,16 +24,21 @@ launches is not in them (the `[kernel]` lines also print the CUDA-event
 time of a host-issued loop of calls, which is). `launches` is the count
 over that model's main-path run; `max_abs_err` is the largest
 kernel-vs-plain difference over all checked shapes (full-res included).
-K5, the channel-first conv template, runs inside K4's step (9 of its 11
-launches, two of them grouped over the four levels): its per-map numbers
-come from the step's 15 conv shapes per stage, each launched on its own as
-often as a map runs it, and are part of K4's. Bounds: conv work (K3, K4,
-K5) at the tensor cores' fp32-exact rate, the sweeps' arithmetic at the
-fp32 CUDA-core rate; a conv `[kernel]` line prints the CUDA-core bound
-beside it. Only K5 has a
-single PyTorch call that computes the same function (one cuDNN
-convolution), so `library_ms` is null for the others (projection +
-bilinear taps + channel reduction, or a whole GRU step).
+K3 is checked by both its entries, the score-writing one and the main
+path's, which folds the score into the sweep's online-softmax state (3
+launches a step: `[profile:red_step2]`); its per-map numbers are the
+fold's, and `[host:red_step2]` times stage 1's sweep with the fold against
+K3 plus the eager softmax update. K5, the channel-first conv template, runs
+inside K4's step (9 of its 11 launches, two of them grouped over the four
+levels): its per-map numbers come from the step's 15 conv shapes per stage,
+each launched on its own as often as a map runs it, and are part of K4's.
+Bounds: conv work (K3, K4, K5) at the tensor cores' fp32-exact rate, the
+sweeps' arithmetic at the fp32 CUDA-core rate; a conv `[kernel]` line
+prints the CUDA-core bound beside it. Only K5 has a single PyTorch call
+that computes the same function (one cuDNN convolution), so `library_ms`
+is null for the others (projection + bilinear taps + channel reduction, or
+a whole GRU step); K3's entry carries `convs_cudnn_ms`, a yardstick of its
+8 convs alone, each as one cuDNN call.
 """
 
 from __future__ import annotations
@@ -66,6 +71,8 @@ FULL_H, FULL_W = 1856, 2752
 # MSREDNet at its published widths: base 8, 'unet' features 32/16/8,
 # RedStep4 hidden 8/16/32/64, the same planes per stage
 MSRED_CHANNELS = (32, 16, 8)
+# one RedStep2 step (csrc/red_step2.cu): 3 launches, one per level
+RED2_LAUNCHES = 3
 # one RedStep4 step (csrc/red_step4.cu): 11 launches, 9 of them the conv
 # template (conv1-3, the grouped gates and candidates, upconv3-1, score)
 # over the step's 15 convolutions
@@ -77,6 +84,10 @@ RED4_CONVS = 9
 # feature products and the sums run in another order (and cuDNN sums the
 # convolutions in its own order): unit-scale values agree to ~1e-6
 TOL_SWEEP = 1e-4
+# K3 (3xTF32 tensor-core convs, fp32 sums in another order than cuDNN):
+# ~1e-6 on unit-scale states and scores; its softmax fold repeats
+# OnlineSoftmaxState.update's operations in order (expf, no contraction),
+# its depth sum acc compared relative to the depth scale
 TOL_RED = 1e-4
 # K2v sums the same warps in another order (the ref first) and squares
 # them: ~1e-6 on unit-scale features, as for K2. K5 sums its 9*Ci products
@@ -316,6 +327,33 @@ def red_step4_convs(cin, H, W):
             ("score", 8, 1, h[0], w[0], "same")]
 
 
+def cudnn_conv(x, w, b, mode):
+    """One cuDNN call computing a K5-shaped conv ('down': the input padded
+    once beforehand, outside the timed call)."""
+    from deep3d_aerial_tpu_torch.ops.conv import same_pads
+
+    F = torch.nn.functional
+    if mode == "same":
+        return lambda: F.conv2d(x[None], w, b, padding=1)
+    if mode == "down":
+        (yl, yh), (xl, xh) = (same_pads(n, 3, 2) for n in x.shape[1:])
+        xp = F.pad(x[None], (xl, xh, yl, yh))
+        return lambda: F.conv2d(xp, w, b, stride=2)
+    H, W = x.shape[1:]
+    return lambda: F.conv_transpose2d(x[None], w, b, stride=2)[..., :2 * H, :2 * W]
+
+
+def red_step2_convs(cin, H, W, up):
+    """The 8 convolutions of one RedStep2 step at H x W, in order: (name,
+    Ci, Co, input H, input W, mode)."""
+    H2, W2 = (H + 1) // 2, (W + 1) // 2
+    return [("conv1", cin, 8, H, W, "same"), ("gates1", 16, 16, H, W, "same"),
+            ("cand1", 16, 8, H, W, "same"), ("conv2", 8, 16, H, W, "down"),
+            ("gates2", 32, 32, H2, W2, "same"), ("cand2", 32, 16, H2, W2, "same"),
+            ("upconv1", 16, 8, H2, W2, "up"),
+            ("score", 8, 1, H, W, "up" if up else "same")]
+
+
 def conv_work(ci, co, H, W, mode):
     """One 3x3 conv: input, output and weights once; multiply-adds x 2
     (a transposed conv: 9 taps per input pixel)."""
@@ -334,29 +372,32 @@ def red_step4_work(cin, H, W, n_weights):
     return 4 * (cin * H * W + 2 * states + H * W + n_weights), flops
 
 
-def red_step2_work(cin, H, W, up, n_weights):
-    """Convolution multiply-adds x 2 (the pointwise GRU math is ~1% of it
-    and left out); bytes: cost and both states in, states and score out,
-    and the weights."""
+def red_step2_work(cin, H, W, up, n_weights, fold=False):
+    """Convolution multiply-adds x 2 (the pointwise GRU and softmax math is
+    ~1% of it and left out); bytes: cost and both states in, states out,
+    the weights, and the score out, or with `fold` the online-softmax state
+    (4 maps) in and out and the plane's depth in, at the score's shape."""
     H2, W2 = (H + 1) // 2, (W + 1) // 2
     macs = (H * W * 9 * (cin * 8 + 16 * 16 + 16 * 8)
             + H2 * W2 * 9 * (8 * 16 + 32 * 32 + 32 * 16 + 16 * 8)
             + H * W * 9 * 8)
     score = 4 * H * W if up else H * W
-    nbytes = 4 * (cin * H * W + 2 * 8 * H * W + 2 * 16 * H2 * W2 + score
-                  + n_weights)
+    nbytes = 4 * (cin * H * W + 2 * 8 * H * W + 2 * 16 * H2 * W2 + n_weights
+                  + (9 * score if fold else score))
     return nbytes, 2 * macs
 
 
 def compare_kernel(records, name, shape_tag, kernel_fn, plain_fn, tol, work,
-                   per_map, iters, n_calls=1, library_fn=None, conv=False):
+                   per_map, iters, n_calls=1, library_fn=None, conv=False,
+                   time_fns=None):
     """Kernel against its plain version on the same inputs: max abs error
     (raises above `tol`), device ms of both (and of `library_fn`, one
     PyTorch call computing the same function), the bound from `work`
     (bytes, flops; `conv`: the flops at the tensor cores' fp32-exact rate,
     the CUDA-core bound printed beside it). Raises if a time is below its
     bound. Times are per call of the kernel's function, which is
-    `kernel_fn` over `n_calls`."""
+    `kernel_fn` over `n_calls`; `time_fns` (kernel, plain) are timed
+    instead where the checked functions do set-up work of their own."""
     out_k = kernel_fn()
     out_p = plain_fn()
     torch.cuda.synchronize()
@@ -366,9 +407,10 @@ def compare_kernel(records, name, shape_tag, kernel_fn, plain_fn, tol, work,
     rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-3)).max())
               for a, b in zip(outs_k, outs_p))
     finite = all(bool(torch.isfinite(a).all()) for a in outs_k)
-    ms = device_ms(kernel_fn, iters) / n_calls
-    loop = loop_ms(kernel_fn, iters) / n_calls
-    plain_ms = device_ms(plain_fn, max(1, iters // 4)) / n_calls
+    time_k, time_p = time_fns or (kernel_fn, plain_fn)
+    ms = device_ms(time_k, iters) / n_calls
+    loop = loop_ms(time_k, iters) / n_calls
+    plain_ms = device_ms(time_p, max(1, iters // 4)) / n_calls
     lib_ms = device_ms(library_fn, iters) if library_fn is not None else None
     b_ms, b_by = bound_ms(*work, PEAK_TF32X3 if conv else PEAK_FP32)
     old = f" (fp32 CUDA cores: {bound_ms(*work)[0]:.4f})" if conv else ""
@@ -428,7 +470,10 @@ def stage_planes(cam, poses, stage, H, W, dev):
 
 def phase_kernels(dev, cam0, poses0, camF, posesF):
     """Each AdaMVS kernel against its plain version at the main path's
-    shapes (+ 1856x2752 stage 3 for K2 and K3). Returns per-shape records."""
+    shapes (+ 1856x2752 stage 3 for K2 and K3); K3 by both entries, with
+    its convs' cuDNN yardstick and per-launch profile. Returns (per-shape
+    records, K3's conv yardstick in device ms per map)."""
+    from deep3d_aerial_tpu_torch.models.cascade import OnlineSoftmaxState
     from deep3d_aerial_tpu_torch.models.cost_reg import RedStep2
     from deep3d_aerial_tpu_torch.ops.red_step2 import red_step2, red_step2_plain
     from deep3d_aerial_tpu_torch.ops.sweep import (
@@ -448,7 +493,96 @@ def phase_kernels(dev, cam0, poses0, camF, posesF):
     def compare(*args, **kw):
         compare_kernel(records, *args, **kw)
 
+    def red2_case(C, H, W, up, seed, per_map, iters, tag):
+        """K3 at one shape: the score-writing entry (one step), then the
+        main path's entry, the softmax fold, over 3 chained planes from
+        OnlineSoftmaxState.init; then the step's 8 convs as cuDNN calls
+        (the convs' yardstick) and its per-launch profile. Returns the
+        yardstick's device ms."""
+        mod = init_random_weights(RedStep2(C, up=up), seed=seed).to(dev)
+        params = dict(mod.named_parameters())
+        packed = mod._packed_params()
+        cost, s1 = rnd(C, H, W), rnd(8, H, W, scale=0.5)
+        s2 = rnd(16, (H + 1) // 2, (W + 1) // 2, scale=0.5)
+        n_w = sum(p.numel() for p in params.values())
+        shape = (2 * H, 2 * W) if up else (H, W)
+        costs = [rnd(C, H, W) for _ in range(3)]
+        dvs = [d + torch.rand(shape, generator=g, device=dev) for d in (95.0, 100.0, 105.0)]
+        dscale = max(float(dv.max()) for dv in dvs)
+
+        def planes(fold, osm):
+            a, b = s1, s2
+            for c, dv in zip(costs, dvs):
+                if fold:
+                    _, a, b = red_step2(params, c, a, b, up=up, packed=packed, osm=osm, dv=dv)
+                else:
+                    sc, a, b = red_step2_plain(params, c, a, b, up=up)
+                    osm = OnlineSoftmaxState.update(osm, sc, dv)
+            return osm, a, b
+
+        def checked(fold):
+            # acc sums e * depth: compared relative to the depth scale
+            (m, s, acc, pmax), a, b = planes(fold, OnlineSoftmaxState.init(shape, device=dev))
+            return m, s, acc / dscale, pmax, a, b
+
+        osm_t = OnlineSoftmaxState.init(shape, device=dev)
+        with torch.no_grad():
+            compare("red_step2", tag + (" up" if up else "") + " score entry",
+                    lambda: red_step2(params, cost, s1, s2, up=up, packed=packed),
+                    lambda: red_step2_plain(params, cost, s1, s2, up=up),
+                    TOL_RED, red_step2_work(C, H, W, up, n_w), 0, iters, conv=True)
+            compare("red_step2", tag + (" up" if up else "") + " softmax fold",
+                    lambda: checked(True), lambda: checked(False), TOL_RED,
+                    red_step2_work(C, H, W, up, n_w, fold=True), per_map, iters,
+                    n_calls=3, conv=True,
+                    time_fns=(lambda: planes(True, osm_t), lambda: planes(False, osm_t)))
+            convs = []
+            for _, ci, co, h, w, mode in red_step2_convs(C, H, W, up):
+                wt = rnd(*((ci, co, 3, 3) if mode == "up" else (co, ci, 3, 3)),
+                         scale=(9 * ci) ** -0.5)
+                convs.append(cudnn_conv(rnd(ci, h, w), wt, rnd(co, scale=0.1), mode))
+
+            def run_convs():
+                for f in convs:
+                    f()
+            yard = device_ms(run_convs, iters)
+            log(f"[kernel] red_step2  {tag}: yardstick of the convs alone (the step's 8 "
+                f"convs, one cuDNN fp32 call each, TF32 off, summed): {yard:.4f} device ms")
+            red2_breakdown(params, packed, cost, s1, s2, up, dvs[0], tag)
+        return yard
+
+    def red2_breakdown(params, packed, cost, s1, s2, up, dv, tag):
+        """Device microseconds of each launch of one fused step (the second
+        of two profiled steps), labelled by level; raises unless a step is
+        exactly RED2_LAUNCHES launches."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        osm = OnlineSoftmaxState.init(dv.shape, device=dev)
+        red_step2(params, cost, s1, s2, up=up, packed=packed, osm=osm, dv=dv)
+        torch.cuda.synchronize()
+        for _ in range(2):  # a profiler session now and then sees no device events
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    red_step2(params, cost, s1, s2, up=up, packed=packed, osm=osm, dv=dv)
+                torch.cuda.synchronize()
+            evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+            if evs:
+                break
+        evs = evs[len(evs) // 2:]
+        want = [("L1 x1+gates1+cand1", "red2_level1"), ("L2 x2+gates2+cand2", "red2_level2"),
+                ("L3 upconv1+score+softmax", "red2_level3")]
+        if len(evs) != RED2_LAUNCHES or any(k not in e.name for (_, k), e in zip(want, evs)):
+            raise AssertionError(f"one RedStep2 step launched {len(evs)} kernels, "
+                                 f"expected {RED2_LAUNCHES}: "
+                                 + ", ".join(e.name[:40] for e in evs))
+        us = [[lab, round(e.time_range.elapsed_us(), 1)] for (lab, _), e in zip(want, evs)]
+        log(f"[profile:red_step2] {tag}: one step, {len(evs)} launches, "
+            f"{sum(u for _, u in us):.1f} us of device time: " + json.dumps(us))
+
     V1 = VIEWS - 1
+    yard = 0.0
     for stage, (C, D) in enumerate(zip(CHANNELS, NDEPTHS)):
         s = 2 ** (2 - stage)
         H, W = H0 // s, W0 // s
@@ -467,18 +601,7 @@ def phase_kernels(dev, cam0, poses0, camF, posesF):
                 lambda: sweep_cost(ref, srcs, rel, d, wts),
                 lambda: sweep_cost_plain(ref, srcs, rel, d, wts),
                 TOL_SWEEP, sweep_cost_work(V1, CHUNK, H, W, C), D // CHUNK, 50)
-        up = stage < 2
-        mod = init_random_weights(RedStep2(C, up=up), seed=stage).to(dev)
-        params = dict(mod.named_parameters())
-        packed = mod._packed_params()
-        cost, s1 = rnd(C, H, W), rnd(8, H, W, scale=0.5)
-        s2 = rnd(16, (H + 1) // 2, (W + 1) // 2, scale=0.5)
-        n_w = sum(p.numel() for p in params.values())
-        with torch.no_grad():
-            compare("red_step2", tag + (" up" if up else ""),
-                    lambda: red_step2(params, cost, s1, s2, up=up, packed=packed),
-                    lambda: red_step2_plain(params, cost, s1, s2, up=up),
-                    TOL_RED, red_step2_work(C, H, W, up, n_w), D, 50, conv=True)
+        yard += D * red2_case(C, H, W, stage < 2, stage, D, 50, tag)
 
     # production frame, stage 3 (1856x2752, C=8): K2 and K3
     H, W, C = FULL_H, FULL_W, CHANNELS[2]
@@ -492,19 +615,11 @@ def phase_kernels(dev, cam0, poses0, camF, posesF):
             lambda: sweep_cost_plain(ref, srcs, rel, d, wts),
             TOL_SWEEP, sweep_cost_work(V1, CHUNK, H, W, C), 1, 5)
     del ref, srcs, wts
-    mod = init_random_weights(RedStep2(C, up=False), seed=3).to(dev)
-    params = dict(mod.named_parameters())
-    packed = mod._packed_params()
-    cost, s1 = rnd(C, H, W), rnd(8, H, W, scale=0.5)
-    s2 = rnd(16, (H + 1) // 2, (W + 1) // 2, scale=0.5)
-    n_w = sum(p.numel() for p in params.values())
-    with torch.no_grad():
-        compare("red_step2", tag,
-                lambda: red_step2(params, cost, s1, s2, up=False, packed=packed),
-                lambda: red_step2_plain(params, cost, s1, s2, up=False),
-                TOL_RED, red_step2_work(C, H, W, False, n_w), 8, 5, conv=True)
+    red2_case(C, H, W, False, 3, 8, 5, tag)
     torch.cuda.empty_cache()
-    return records
+    log(f"[kernel] red_step2 per AdaMVS {H0}x{W0} map: yardstick of the convs alone "
+        f"(8 cuDNN calls a step x {sum(NDEPTHS)} steps) {yard:.4f} device ms")
+    return records, yard
 
 
 def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
@@ -520,12 +635,10 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
         cf_conv3x3_plain,
         pack_weight,
     )
-    from deep3d_aerial_tpu_torch.ops.conv import same_pads
     from deep3d_aerial_tpu_torch.ops.red_step4 import red_step4, red_step4_plain
     from deep3d_aerial_tpu_torch.ops.sweep import sweep_var, sweep_var_plain
     from deep3d_aerial_tpu_torch.weights import init_random_weights
 
-    F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(1)
     records = []
     V1 = VIEWS - 1
@@ -541,18 +654,6 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
         w = rnd(*((ci, co, 3, 3) if mode == "up" else (co, ci, 3, 3)),
                 scale=(9 * ci) ** -0.5)
         return x, w, rnd(co, scale=0.1), pack_weight(w, mode)
-
-    def library(x, w, b, mode):
-        """One cuDNN call computing the same function ('down': the input
-        padded once beforehand, outside the timed call)."""
-        if mode == "same":
-            return lambda: F.conv2d(x[None], w, b, padding=1)
-        if mode == "down":
-            (yl, yh), (xl, xh) = (same_pads(n, 3, 2) for n in x.shape[1:])
-            xp = F.pad(x[None], (xl, xh, yl, yh))
-            return lambda: F.conv2d(xp, w, b, stride=2)
-        H, W = x.shape[1:]
-        return lambda: F.conv_transpose2d(x[None], w, b, stride=2)[..., :2 * H, :2 * W]
 
     def var_case(cam, poses, stage, H, W, C, per_map, iters, tag):
         rel = stage_rel(cam, poses, stage, dev)
@@ -639,7 +740,7 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
                 lambda: cf_conv3x3(x, w, b, mode=mode, relu=False, packed=pk),
                 lambda: cf_conv3x3_plain(x, w, b, mode=mode, relu=False),
                 TOL_CONV, conv_work(ci, co, H, W, mode), n, 50,
-                library_fn=library(x, w, b, mode), conv=True)
+                library_fn=cudnn_conv(x, w, b, mode), conv=True)
     # production frame, stage 3 (1856x2752, C=8): K2v and K4
     tag = f"full-res stage3 {FULL_H}x{FULL_W} C8"
     var_case(camF, posesF, 2, FULL_H, FULL_W, 8, 1, 5, tag)
@@ -677,7 +778,7 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
             x, w, b, mode=m, relu=False, packed=pk)),
         "plain_ms": per_map(lambda x, w, b, pk, m: lambda: cf_conv3x3_plain(
             x, w, b, mode=m, relu=False)),
-        "library_ms": per_map(lambda x, w, b, pk, m: library(x, w, b, m)),
+        "library_ms": per_map(lambda x, w, b, pk, m: cudnn_conv(x, w, b, m)),
         "bound_ms": sum(b_by.values()), "bound_by": max(b_by, key=b_by.get),
         "max_abs_err": max([err] + [r["max_abs_err"] for r in records
                                     if r["name"] == "cf_conv3x3"]),
@@ -779,6 +880,67 @@ def phase_host_per_plane(dev, cam0, poses0):
     return med
 
 
+class _Unfused:
+    """RedStep2 whose step returns the score (K3's score-writing entry), so
+    the sweep runs OnlineSoftmaxState.update eagerly after each plane, as
+    before the fold."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def init_states(self, *args, **kw):
+        return self.module.init_states(*args, **kw)
+
+    def plane_step(self, device):
+        step = self.module.plane_step(device)
+        return lambda *a: step(*a)
+
+
+def phase_host_red_step2(dev, cam0, poses0):
+    """Stage 1's 48-plane AdaMVS sweep (96x128, Cin 32, scores at 192x256,
+    where the main path waits most on the host), wall ms with a synchronize:
+    K3 with the softmax fold (the main path) against K3's score entry plus
+    the eager OnlineSoftmaxState.update (12 PyTorch ops a plane), in
+    alternating rounds; the two sweeps' depth and confidence must agree."""
+    from deep3d_aerial_tpu_torch.models.cascade import streaming_sweep
+    from deep3d_aerial_tpu_torch.models.cost_reg import RedStep2
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    C, H, W, D = CHANNELS[0], H0 // 4, W0 // 4, NDEPTHS[0]
+    g = torch.Generator(device=dev).manual_seed(4)
+    mod = init_random_weights(RedStep2(C, up=True), seed=0).to(dev)
+    rel = stage_rel(cam0, poses0, 0, dev)
+    ref = torch.randn((H, W, C), generator=g, device=dev)
+    srcs = torch.randn((VIEWS - 1, H, W, C), generator=g, device=dev)
+    wts = torch.rand((VIEWS - 1, H, W), generator=g, device=dev) * 0.9 + 0.1
+    depths = torch.linspace(90.0, 110.0, D, device=dev)   # the survey's ~100 m
+
+    def sweep_ms(reg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = streaming_sweep(reg, True, depths, ref, srcs, rel, wts, plane_chunk=CHUNK)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    res = {"fold": [], "eager": []}
+    with torch.no_grad():
+        _, (df, cf) = sweep_ms(mod)
+        _, (de, ce) = sweep_ms(_Unfused(mod))
+        dd, dc = float((df - de).abs().max()), float((cf - ce).abs().max())
+        if not (dd <= TOL_DEPTH_FRAC * 20.0 and dc <= TOL_CONF):
+            raise AssertionError(f"stage-1 sweep, fold vs eager update: depth {dd}, conf {dc}")
+        for i in range(6):
+            for way in (("fold", "eager") if i % 2 == 0 else ("eager", "fold")):
+                reg = mod if way == "fold" else _Unfused(mod)
+                res[way].append(round(sweep_ms(reg)[0], 3))
+    med = {k: float(np.median(v)) for k, v in res.items()}
+    log(f"[host:red_step2] stage-1 sweep ({D} planes, {H}x{W} Cin{C}, up) wall ms per "
+        f"round: softmax fold {res['fold']}, K3 + eager update {res['eager']}; medians "
+        f"{med['eager']:.3f} -> {med['fold']:.3f} ms ({med['eager'] / med['fold']:.2f}x); "
+        f"fold vs eager depth {dd:.2e} m, confidence {dc:.2e}")
+    return med
+
+
 class _Marked(torch.nn.Module):
     """The pipeline's model with CUDA events at its phase boundaries."""
 
@@ -801,11 +963,15 @@ class _Marked(torch.nn.Module):
         return out
 
 
-def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs"):
+def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
+                    eager_updates=0):
     """AerialPipeline(...).run_dense() on a synthetic workspace: dense
     matching + fusion at 384x512, the model's default configuration, seeded
-    random weights. `per_map`: the exact launches of each counter per map."""
+    random weights. `per_map`: the exact launches of each counter per map;
+    `eager_updates`: the OnlineSoftmaxState.update calls per map (0 where
+    the regularizer's step folds the softmax)."""
     from deep3d_aerial_tpu_torch.io.pfm import read_pfm
+    from deep3d_aerial_tpu_torch.models import cascade
     from deep3d_aerial_tpu_torch.io.ply import read_ply
     from deep3d_aerial_tpu_torch.pipeline.config import PipelineConfig
     from deep3d_aerial_tpu_torch.pipeline.orchestrator import AerialPipeline
@@ -823,13 +989,24 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs"):
         )
         pipe = AerialPipeline(str(ws), cfg, device=dev)
         model = _Marked(pipe.build_model())
-        for c in counters:
-            c.launches = 0
-        t0 = time.perf_counter()
-        pipe.run_dense(model=model)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in counters}
+        update = cascade.OnlineSoftmaxState.update
+        updates = [0]
+
+        def counted(*args):
+            updates[0] += 1
+            return update(*args)
+
+        cascade.OnlineSoftmaxState.update = staticmethod(counted)
+        try:
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            pipe.run_dense(model=model)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in counters}
+        finally:
+            cascade.OnlineSoftmaxState.update = staticmethod(update)
 
         maps = sorted((ws / "dense" / "MVS").glob("*_init.pfm"))
         n = len(maps)
@@ -852,6 +1029,9 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs"):
         if launches[name] != k * n:
             raise AssertionError(f"{name}: {launches[name]} launches on the "
                                  f"main path, expected {k} x {n} maps")
+    if updates[0] != eager_updates * n:
+        raise AssertionError(f"{updates[0]} eager online-softmax updates on the "
+                             f"main path, expected {eager_updates} x {n} maps")
     stage_ms = {}
     for marks in model.events[1:]:  # the first map warms up
         for (_, a), (label, b) in zip(marks, marks[1:]):
@@ -863,7 +1043,8 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs"):
         f"median after {steady * 1e3:.2f} ms = {1.0 / steady:.2f} maps/s; "
         f"fused points {points}")
     log(f"[{tag}] launches " + json.dumps(launches) + " per map "
-        + json.dumps(per_map))
+        + json.dumps(per_map) + f"; eager online-softmax updates {updates[0]} "
+        f"({eager_updates} per map)")
     log(f"[{tag}] per-stage ms between CUDA events, idle gaps included "
         "(median over maps 2..n): " + json.dumps(
         {k: round(float(np.median(v)), 4) for k, v in stage_ms.items()}))
@@ -900,7 +1081,7 @@ def phase_end_to_end(dev, cam0, poses0):
         raise AssertionError(f"end to end pair depth {dp}")
     profile_forward(mk, (imgs, rel, dmin, dmax),
                     {"sweep_pair": "K1 sweep_corr", "sweep_cost": "K2 sweep_cost",
-                     "conv3x3_kernel": "K3 red_step2"})
+                     "red2_level": "K3 red_step2"})
     return res
 
 
@@ -1052,7 +1233,7 @@ def main() -> int:
 
     # AdaMVS: K1, K2, K3
     t = time.perf_counter()
-    records = phase_kernels(dev, cam0, poses0, camF, posesF)
+    records, red2_yard = phase_kernels(dev, cam0, poses0, camF, posesF)
     log(f"[phase] kernels {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     launches, _ = phase_main_path(
@@ -1061,6 +1242,9 @@ def main() -> int:
          "sweep_cost": sum(d // CHUNK for d in NDEPTHS),
          "red_step2": sum(NDEPTHS)})
     log(f"[phase] main path {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_host_red_step2(dev, cam0, poses0)
+    log(f"[phase] host red_step2 {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_end_to_end(dev, cam0, poses0)
     log(f"[phase] end to end {time.perf_counter() - t:.1f} s")
@@ -1078,7 +1262,8 @@ def main() -> int:
         dev, cam0, poses0, (sweep_var, red_step4, cf_conv3x3),
         {"sweep_var": sum(d // CHUNK for d in NDEPTHS),
          "red_step4": sum(NDEPTHS),
-         "cf_conv3x3": RED4_CONVS * sum(NDEPTHS)}, model_type="msrednet")
+         "cf_conv3x3": RED4_CONVS * sum(NDEPTHS)}, model_type="msrednet",
+        eager_updates=sum(NDEPTHS))
     launches.update(msred_launches)
     log(f"[phase] main path:msrednet {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -1118,6 +1303,8 @@ def main() -> int:
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "per_map_of": path,
         })
+        if name == "red_step2":  # not a library call: the convs alone
+            kernels[-1]["convs_cudnn_ms"] = red2_yard
     kernels.append({
         "name": "cf_conv3x3", "route": "cuda",
         "source": "deep3d_aerial_tpu_torch/csrc/red_step4.cu",

@@ -1,9 +1,12 @@
-// One RedStep2 recurrent-regularizer step for Hopper (sm_90a).
+// One RedStep2 recurrent-regularizer step (K3) for Hopper (sm_90a), with
+// the online-softmax update of the streaming sweep folded into its score
+// pass.
 //
 // Replaces deep3d_aerial_tpu/ops/pallas_red.py:_red_kernel (entries
 // red_step2_fused and red_step2_tiled; caller models/cost_reg.py
-// RedStep2._pallas_path): one depth plane of the AdaMVS 2-level ConvGRU
-// regularizer,
+// RedStep2._pallas_path), and the OnlineSoftmaxState.update that the JAX
+// package's scan body (models/cascade.py) fuses after it: one depth plane of
+// the AdaMVS 2-level ConvGRU regularizer,
 //   x1 = relu(conv3x3(cost) + b)                       [8, H, W]
 //   s1' = ConvGRU8(x1, s1)                             [8, H, W]
 //   x2 = relu(conv3x3 stride 2 (s1') + b)              [16, H2, W2]
@@ -11,137 +14,607 @@
 //   f  = relu(convT3x3 stride 2 (s2') + b + s1')       [8, H, W]
 //   score = convT3x3 stride 2 (f) + b    if up         [2H, 2W]
 //           conv3x3(f) + b               otherwise     [H, W]
-// with ConvGRU(x, h): r, u = sigmoid(conv([x, h])), c = tanh(conv([x, r*h])),
-// h' = u*h + (1-u)*c, and the JAX package's 'SAME' geometry: a stride-2 conv pads
-// (pad_lo, rest) with pad_lo = total // 2 (0 on an even side), and the
-// stride-2 transposed conv is PyTorch's conv_transpose2d (stride 2, no
-// padding) on the bridge's flipped kernel, cropped to 2n.
+// then, per score pixel, m' = max(m, score), scale = exp(m - m'),
+// e = exp(score - m'), s' = s*scale + e, acc' = acc*scale + e*dv,
+// pmax' = max(pmax*scale, e) (OnlineSoftmaxState.update's order, expf, no
+// contraction). ConvGRU(x, h): r, u = sigmoid(conv([x, h])),
+// c = tanh(conv([x, r*h])), h' = u*h + (1-u)*c. H2 = ceil(H/2); the JAX
+// package's 'SAME' geometry: a stride-2 conv pads (total // 2) on the low
+// side (0 on an even side); the stride-2 transposed conv is PyTorch's
+// conv_transpose2d (stride 2, no padding) on the flipped kernel, cropped.
 //
-// Launches: 8 per step (conv1, gates1, cand1, conv2, gates2, cand2, upconv1,
-// score), all of one templated direct-convolution kernel with a fused
-// epilogue: bias+ReLU, GRU gates (writes r*h and u), GRU update
-// (tanh + blend), or skip-add+ReLU.
-//
-// What bounds it on an H100: operations. A step is ~16 kflop per full-res
-// pixel (Cin=8; 18 kflop at Cin=32) against ~130 B of state, cost and score
-// traffic per pixel, so on fp32 CUDA cores (67 TFLOP/s) it sits well above
-// the 3.35 TB/s memory line. Design for that in this first version: the
-// layer's weights (at most 32*9*32 floats, 37 KB) sit in shared memory and
-// are read as broadcasts, each thread owns one output pixel and keeps all
-// its output channels in registers, so every input value loaded feeds CO
-// FMAs; intermediates between the 8 launches stay in L2 at the main path's
-// sizes. Tensor cores (TF32/bf16 wgmma) and fusing launches are later work.
+// What bounds it on an H100: operations. A step is ~16-18 kflop per
+// full-res pixel against ~160 B of cost, state and softmax traffic; done
+// fp32-exact on the tensor cores (3xTF32: 495 / 3 TFLOP/s) the 384x512
+// Cin 8 step's 3.2 GFLOP take 0.019 ms, above its ~0.010 ms of memory
+// traffic. What holds it back in practice is instruction issue and
+// latency, not the tensor cores: with the MMAs compiled out a launch keeps
+// 70-99% of its time (scripts/red_step2_probe.py). The design:
+//   - Three launches a step, one per level, each owning spatial tiles and
+//     keeping every intermediate in shared memory; only s1' and s2' reach
+//     device memory (the score too, when the caller asks for it):
+//       L1 (full res):  x1, the gates (r*h1, u1) and the candidate -> s1'
+//       L2 (half res):  x2 from s1', the gates, the candidate -> s2'
+//       L3 (full res):  f from s2' and s1', the score on the CUDA cores
+//                       (one output channel cannot feed an n8 fragment),
+//                       the softmax update in place
+//   - Tile and halo: a tile of T output pixels recomputes its inputs over
+//     a ring: L1 stages cost and s1 over a 3-px ring, x1 is computed over
+//     2 px, the gates over 1 px; L2 stages s2 over 2 half-res px and s1'
+//     over the matching full-res window (2 * rows + 1); L3 stages s1' over
+//     1 px and s2' over the half-res rows the transposed conv reads. A 32 x
+//     32 tile recomputes x1 1.27x and the gates 1.13x.
+//   - Convs on the tensor cores: an implicit GEMM per conv, M = the
+//     region's pixels (flattened, 16 per m16 fragment, read from shared
+//     memory at each tap's offset), N = output channels (n8 fragments),
+//     K = 8 input channels x 9 taps a chunk; mma.sync m16n8k8 TF32 with
+//     every operand split hi + lo (3xTF32, the TPU kernel's 'f32x3'). The
+//     weights are split once, at pack time, in B-fragment order
+//     (ops/red_step2.py:pack_params) and stay resident in shared memory:
+//     each block loads its level's weights once (L2's are 120 KB, so the
+//     kernels take dynamic shared memory above 48 KB) and then walks over
+//     tiles (persistent blocks, min(tiles, SMs x resident blocks)). The
+//     transposed conv runs by output phase: each parity reads its own
+//     1, 2, 2 or 4 taps.
+//   - Filling the card: each level takes the largest of its tile sizes
+//     whose tiles give every SM a block (L1 also wants its last wave of
+//     blocks at least half full): 96x128 stage 1 runs 132 tiles of 8 x 12
+//     at full res and of 4 x 6 at half res, its decoder 192 of 8 x 8;
+//     384x512 runs 16 x 32 and 16 x 16; the 1856x2752 frame's L1 32 x 32.
+//     A conv's work is dealt to the warps (16 a block, or 8 where two
+//     blocks an SM take every tile at once) in items of 16 or 32 pixels x
+//     8 to 32 output channels: the fewest instructions per MMA that still
+//     give every warp an item.
+//   - Channel planes in shared memory are padded to 8 mod 32 words, so the
+//     4 channels of an A fragment land 8 banks apart.
+// No float atomics; every sum runs in an order fixed by the layer shapes
+// and the device's SM count (chunk, then tap, then the fragment's K), so a
+// plane gives the same bits from run to run.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kFrag = 128;           // floats of one packed (chunk, tap, n8) fragment
+constexpr int kSmemMax = 232448;     // bytes of shared memory a block may use
 constexpr int kUnsupported = 10000;  // cost channel count without an instance
+constexpr int kBadArgs = 10001;
+// threads a block: 16 warps for the two GRU levels (one block an SM, held
+// there by its registers and shared memory) unless 8-warp blocks, two to
+// an SM, take all the tiles in one wave; 8 for the decoder, whose smaller
+// blocks share an SM two at a time and hide each other's copies
+constexpr int kGruThreads = 512;
+constexpr int kDecThreads = 256;
 
-enum Geom { kS1 = 0, kS2 = 1, kT2 = 2 };
-enum Epi { kBias = 0, kBiasRelu = 1, kGates = 2, kGru = 3, kSkipRelu = 4 };
+// Packed weights (ops/red_step2.py:pack_params), three sections, each
+// layer as its fragments then its bias (padded to 8):
+//   L1: conv1 [Cin -> 8], gates1 [16 -> 16], cand1 [16 -> 8]
+//   L2: conv2 [8 -> 16], gates2 [32 -> 32], cand2 [32 -> 16]
+//   L3: upconv1 [16 -> 8], then the score conv [8][3][3] and its bias
+//       (padded to 8), read on the CUDA cores
+__host__ __device__ constexpr int frag_floats(int ci, int co) { return ci * co * 18; }
+__host__ __device__ constexpr int w1_floats(int cin) {
+  return frag_floats(cin, 8) + 8 + frag_floats(16, 16) + 16 + frag_floats(16, 8) + 8;
+}
+constexpr int kW2 = frag_floats(8, 16) + 16 + frag_floats(32, 32) + 32 + frag_floats(32, 16) + 16;
+constexpr int kW3 = frag_floats(16, 8) + 8 + 72 + 8;
 
-struct ConvArgs {
-  const float* a;     // [CA, Hi, Wi]
-  const float* b;     // [CB, Hi, Wi] (second half of the concatenated input)
-  const float* w;     // [CA+CB][3][3][CO] then bias [CO]
-  const float* aux0;  // epilogue input: h (gates), u (gru), skip (skip_relu)
-  const float* aux1;  // epilogue input: h (gru)
-  float* out0;
-  float* out1;
-  int Hi, Wi, Ho, Wo, pad_y, pad_x;
+// Tile sizes (rows, columns), largest first: L1 and L3 at full res, L2 at
+// half res (a size whose shared memory exceeds a block's is passed over).
+// Widths of 24, 12 and 6 make 132 tiles (one per SM of an H100) of the
+// stage shapes 96x128 and 192x256 and of their half-res levels, so the GRU
+// levels run there in one wave; the decoder, two blocks an SM, takes 192.
+// L3's tiles are even-sized, so they start on even rows and columns.
+constexpr int kMaxOpts = 7;
+struct TileOpts {
+  int n;
+  int hw[kMaxOpts][2];
+};
+constexpr TileOpts kL1Tiles = {7, {{32, 32}, {16, 32}, {16, 24}, {16, 16}, {8, 16}, {8, 12},
+                                   {8, 8}}};
+constexpr TileOpts kL2Tiles = {7, {{16, 16}, {8, 16}, {8, 12}, {8, 8}, {4, 8}, {4, 6}, {4, 4}}};
+constexpr TileOpts kL3Tiles = {4, {{16, 32}, {16, 16}, {8, 16}, {8, 8}}};
+
+// a channel plane of n floats, padded to 8 mod 32 words
+__host__ __device__ constexpr int plane(int n) { return ((n - 8 + 31) / 32) * 32 + 8; }
+
+// copy slots per thread of a window of n floats (at the fewest threads)
+constexpr int slots(int n) { return (n + kDecThreads - 1) / kDecThreads; }
+constexpr int kSlots1 = slots((32 + 6) * (32 + 6));                 // L1 frame
+constexpr int kSlotsH = slots((16 + 4) * (16 + 4));                 // L2 half frame
+constexpr int kSlotsS = slots((2 * (16 + 4) + 1) * (2 * (16 + 4) + 1));  // L2 s1' window
+constexpr int kSlotsF = slots((16 + 2) * (32 + 2));                 // L3 f window
+constexpr int kSlotsG = slots((16 / 2 + 3) * (32 / 2 + 3));         // L3 s2' window
+
+// shared-memory floats of each level at a tile size
+__host__ __device__ constexpr int l1_floats(int th, int tw, int cin) {
+  return w1_floats(cin) + ((cin > 16 ? cin : 16) + 16) * plane((th + 6) * (tw + 6));
+}
+__host__ __device__ constexpr int l2_floats(int th, int tw) {
+  return kW2 + 32 * plane((th + 4) * (tw + 4)) +
+         (8 * plane((2 * th + 9) * (2 * tw + 9)) > 32 * plane((th + 4) * (tw + 4))
+              ? 8 * plane((2 * th + 9) * (2 * tw + 9))
+              : 32 * plane((th + 4) * (tw + 4)));
+}
+__host__ __device__ constexpr int l3_floats(int th, int tw) {
+  return kW3 + 8 * plane((th + 2) * (tw + 2)) + 16 * plane((th / 2 + 3) * (tw / 2 + 3));
+}
+static_assert(l1_floats(16, 32, 32) * 4 <= kSmemMax, "L1 tile too large at Cin 32");
+static_assert(l1_floats(32, 32, 16) * 4 <= kSmemMax, "L1 tile too large at Cin 16");
+static_assert(l2_floats(16, 16) * 4 <= kSmemMax, "L2 tile too large");
+
+struct Step {
+  const float* cost;  // [Cin, H, W]
+  const float* s1;    // [8, H, W]
+  const float* s2;    // [16, H2, W2]
+  const float* w1;    // packed sections
+  const float* w2;
+  const float* w3;
+  float* s1o;         // [8, H, W]
+  float* s2o;         // [16, H2, W2]
+  float* score;       // [2H, 2W] if up else [H, W], or null
+  float* m;           // softmax state at the score's shape, or null
+  float* s;
+  float* acc;
+  float* pmax;
+  const float* dv;    // the plane's depth at the score's shape
+  int Cin, H, W, H2, W2, pad_y, pad_x, up;
+};
+
+struct Tiling {
+  int th, tw, tiles_x, ntiles;
+};
+
+// Where an output pixel of a conv lies: `a` its input's shared-memory
+// offset at the tap origin (clamped inside for a pixel past the region),
+// `o` its frame position, (y, x) its image row and column, `ok` whether it
+// is one of the region's pixels.
+struct Loc {
+  int a, o, y, x;
+  bool ok;
 };
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
-template <int GEOM>
-__device__ __forceinline__ bool tap_index(int o, int k, int pad, int n, int& i) {
-  if (GEOM == kS1) {
-    i = o + k - 1;
-  } else if (GEOM == kS2) {
-    i = 2 * o + k - pad;
-  } else {  // output o = 2 i + k
-    const int t = o - k;
-    if (t < 0 || (t & 1)) return false;
-    i = t >> 1;
-  }
-  return i >= 0 && i < n;
+// The weights of a level into shared memory (n floats, a multiple of 4).
+__device__ __forceinline__ void load_weights(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4) cp_async16(dst + i, src + i, 16);
 }
 
-template <int CA, int CB, int CO, int GEOM, int EPI>
-__global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs p) {
-  constexpr int CI = CA + CB;
-  constexpr int NW = CI * 9 * CO + CO;
-  extern __shared__ float ws[];
-  for (int i = threadIdx.x; i < NW; i += kThreads) ws[i] = p.w[i];
-  __syncthreads();
+// Channels [0, nch) of a [nch, H, W] tensor, window rows [y0, y0 + R) x
+// columns [x0, x0 + C), into planes of `cs` floats (row pitch C); zeros
+// outside the image. Each thread's window positions are worked out once.
+template <int S>
+__device__ __forceinline__ void load_window(float* dst, int cs, const float* src, int H, int W,
+                                            int nch, int y0, int x0, int R, int C) {
+  const long long HW = (long long)H * W;
+  int spos[S], goff[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int idx = threadIdx.x + k * blockDim.x;
+    const int r = idx / C, c = idx - r * C;
+    const int iy = y0 + r, ix = x0 + c;
+    spos[k] = idx < R * C ? idx : -1;
+    goff[k] = iy >= 0 && iy < H && ix >= 0 && ix < W ? iy * W + ix : -1;
+  }
+#pragma unroll 1
+  for (int ch = 0; ch < nch; ++ch) {
+    const float* sc = src + ch * HW;
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      if (spos[k] >= 0)
+        cp_async4(dst + ch * cs + spos[k], goff[k] >= 0 ? sc + goff[k] : src, goff[k] >= 0);
+  }
+}
 
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= p.Ho * p.Wo) return;
-  const int oy = idx / p.Wo, ox = idx - oy * p.Wo;
-  const long long HWi = (long long)p.Hi * p.Wi;
-
-  float acc[CO];
+// One 3x3 conv on the tensor cores in 3xTF32. The output pixels are
+// flattened into m16 fragments; the work is dealt to the block's warps in
+// items of MI fragments x NFI n8 fragments of output channels (of the
+// layer's nfr), the MI fragments' MMAs interleaved. loc(p) places output
+// pixel p (any p: Loc); tap(mf, j, d) says whether tap j (ky * 3 + kx)
+// applies to fragment mf (the same for the MI fragments of an item) and
+// sets its offset d; chunk(k) is the plane of the first of input chunk k's
+// 8 channels (planes `cs` apart); w the layer's packed fragments
+// ([chunk][tap][nfr][128]); epi(loc, co, v) gets every output element of
+// the mfrags fragments. The three products of 3xTF32 go to three sums (no
+// MMA waits on another's result within a tap), each run chunk by chunk,
+// tap by tap, whatever MI and NFI are, and added as hi*hi + (lo*hi +
+// hi*lo).
+template <int MI, int NFI, class Place, class Tap, class Chunk, class Epi>
+__device__ __forceinline__ void conv_items(int mfrags, int nfr, int nchunks, int cs,
+                                           const float* w, Place loc, Tap tap, Chunk chunk,
+                                           Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mgroups = (mfrags + MI - 1) / MI, ngroups = nfr / NFI;
+#pragma unroll 1
+  for (int it = warp; it < mgroups * ngroups; it += nwarps) {
+    const int mg = it / ngroups, nf0 = (it - mg * ngroups) * NFI, mf0 = mg * MI;
+    int oa[MI], ob[MI];  // the pixels' input offsets (placed again for the epilogue)
 #pragma unroll
-  for (int co = 0; co < CO; ++co) acc[co] = 0.f;
-
+    for (int i = 0; i < MI; ++i) {
+      oa[i] = loc((mf0 + i) * 16 + g).a;
+      ob[i] = loc((mf0 + i) * 16 + g + 8).a;
+    }
+    // three independent sums: hi*hi, lo*hi and hi*lo
+    float acc[MI][NFI][4], alh[MI][NFI][4], ahl[MI][NFI][4];
 #pragma unroll
-  for (int ky = 0; ky < 3; ++ky) {
-    int iy;
-    if (!tap_index<GEOM>(oy, ky, p.pad_y, p.Hi, iy)) continue;
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int kx = 0; kx < 3; ++kx) {
-      int ix;
-      if (!tap_index<GEOM>(ox, kx, p.pad_x, p.Wi, ix)) continue;
-      const long long off = (long long)iy * p.Wi + ix;
+      for (int n = 0; n < NFI; ++n)
 #pragma unroll
-      for (int ci = 0; ci < CI; ++ci) {
-        const float xv = ci < CA ? __ldg(p.a + ci * HWi + off)
-                                 : __ldg(p.b + (ci - CA) * HWi + off);
-        const float* wr = ws + ((ci * 3 + ky) * 3 + kx) * CO;
+        for (int q = 0; q < 4; ++q) acc[i][n][q] = alh[i][n][q] = ahl[i][n][q] = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < nchunks; ++k) {
+      const float* in = chunk(k) + t * cs;
+      const float* wk = w + ((long long)k * 9 * nfr + nf0) * kFrag + lane * 4;
 #pragma unroll
-        for (int co = 0; co < CO; ++co) acc[co] = fmaf(xv, wr[co], acc[co]);
+      for (int j = 0; j < 9; ++j) {
+        int d = 0;
+        if (!tap(mf0, j, d)) continue;
+        float4 b[NFI];
+#pragma unroll
+        for (int n = 0; n < NFI; ++n)
+          b[n] = *reinterpret_cast<const float4*>(wk + (j * nfr + n) * kFrag);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          // A: (pixel g, channel t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+          const float* pa = in + oa[i] + d;
+          const float* pb = in + ob[i] + d;
+          const float x[4] = {pa[0], pb[0], pa[4 * cs], pb[4 * cs]};
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) split_tf32(x[q], ah[q], al[q]);
+#pragma unroll
+          for (int n = 0; n < NFI; ++n) {
+            const uint32_t bh0 = __float_as_uint(b[n].x), bh1 = __float_as_uint(b[n].y);
+            const uint32_t bl0 = __float_as_uint(b[n].z), bl1 = __float_as_uint(b[n].w);
+            mma_tf32(alh[i][n], al, bh0, bh1);
+            mma_tf32(ahl[i][n], ah, bl0, bl1);
+            mma_tf32(acc[i][n], ah, bh0, bh1);
+          }
+        }
+      }
+    }
+    // C: (pixel g, channel 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const Loc la = loc((mf0 + i) * 16 + g), lb = loc((mf0 + i) * 16 + g + 8);
+#pragma unroll
+      for (int n = 0; n < NFI; ++n) {
+        const int co = (nf0 + n) * 8 + 2 * t;
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = acc[i][n][q] + (alh[i][n][q] + ahl[i][n][q]);
+        if (la.ok) {
+          epi(la, co, v[0]);
+          epi(la, co + 1, v[1]);
+        }
+        if (lb.ok) {
+          epi(lb, co, v[2]);
+          epi(lb, co + 1, v[3]);
+        }
       }
     }
   }
+}
 
-  const float* bias = ws + CI * 9 * CO;
-  const long long HWo = (long long)p.Ho * p.Wo;
+// conv_items with the item shape picked for the work at hand: the
+// cheapest in instructions per MMA that still gives every warp an item,
+// else one fragment by one n8 fragment (the most items). An A fragment
+// (4 loads, 4 splits) costs ~7x a B fragment (one 16-byte load), so the
+// order is 1 x 4, 2 x 2, 1 x 2, 2 x 1.
+template <class Place, class Tap, class Chunk, class Epi>
+__device__ __forceinline__ void conv_mma(int mfrags, int nfr, int nchunks, int cs,
+                                         const float* w, Place loc, Tap tap, Chunk chunk,
+                                         Epi epi) {
+  const int pairs = (mfrags + 1) / 2, nwarps = blockDim.x >> 5;
+  if (nfr % 4 == 0 && mfrags * (nfr / 4) >= nwarps)
+    conv_items<1, 4>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
+  else if (nfr % 2 == 0 && pairs * (nfr / 2) >= nwarps)
+    conv_items<2, 2>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
+  else if (nfr % 2 == 0 && mfrags * (nfr / 2) >= nwarps)
+    conv_items<1, 2>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
+  else if (pairs * nfr >= nwarps)
+    conv_items<2, 1>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
+  else
+    conv_items<1, 1>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
+}
+
+// The output region of a stride-1 conv over a frame of FR x FC (row
+// pitch FC) at image origin (fy, fx): the frame less a ring of k.
+struct Ring {
+  int rw, k, pitch, m, fy, fx;
+  __device__ Ring(int FR, int FC, int k_, int fy_, int fx_)
+      : rw(FC - 2 * k_), k(k_), pitch(FC), m((FR - 2 * k_) * (FC - 2 * k_)), fy(fy_), fx(fx_) {}
+  __device__ int frags() const { return (m + 15) / 16; }
+  __device__ Loc loc(int p) const {
+    Loc l;
+    l.ok = p < m;
+    const int q = l.ok ? p : m - 1;
+    const int r = q / rw, c = q - r * rw;
+    l.o = l.a = (r + k) * pitch + c + k;
+    l.y = fy + r + k;
+    l.x = fx + c + k;
+    return l;
+  }
+};
+
+// L1: x1, the gates and the candidate of the full-res GRU over a tile of
+// s1'. Frame: the tile + a 3-px ring, origin (y0 - 3, x0 - 3).
+__global__ void __launch_bounds__(kGruThreads) red2_level1_kernel(const __grid_constant__ Step p,
+                                                                  const Tiling t) {
+  extern __shared__ __align__(16) float smem[];
+  const int Cin = p.Cin;
+  const int nw = w1_floats(Cin);
+  const int FR = t.th + 6, FC = t.tw + 6, CS = plane(FR * FC);
+  float* wts = smem;
+  float* cst = smem + nw;                    // cost; then r*h1 | u1
+  float* x1 = cst + (Cin > 16 ? Cin : 16) * CS;
+  float* h1 = x1 + 8 * CS;
+  float* rh = cst;
+  float* u1 = cst + 8 * CS;
+  const float* wc = wts;
+  const float* bc = wc + frag_floats(Cin, 8);
+  const float* wg = bc + 8;
+  const float* bg = wg + frag_floats(16, 16);
+  const float* wd = bg + 16;
+  const float* bd = wd + frag_floats(16, 8);
+  load_weights(wts, p.w1, nw);
+  cp_async_commit();
+
+  auto tap = [FC](int, int j, int& d) {
+    d = (j / 3 - 1) * FC + (j % 3 - 1);
+    return true;
+  };
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < t.ntiles; tile += gridDim.x) {
+    const int fy = (tile / t.tiles_x) * t.th - 3, fx = (tile % t.tiles_x) * t.tw - 3;
+    const Ring r1(FR, FC, 1, fy, fx), r2(FR, FC, 2, fy, fx), r3(FR, FC, 3, fy, fx);
+    load_window<kSlots1>(cst, CS, p.cost, p.H, p.W, Cin, fy, fx, FR, FC);
+    load_window<kSlots1>(h1, CS, p.s1, p.H, p.W, 8, fy, fx, FR, FC);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // x1 = relu(conv1(cost) + b) over the 2-px ring (0 outside the image:
+    // the GRU convs pad x1 with zeros)
+    conv_mma(r1.frags(), 1, Cin / 8, CS, wc, [&](int q) { return r1.loc(q); }, tap,
+             [&](int k) { return cst + k * 8 * CS; },
+             [&](const Loc& l, int co, float v) {
+               const bool in = l.y >= 0 && l.y < p.H && l.x >= 0 && l.x < p.W;
+               x1[co * CS + l.o] = in ? fmaxf(v + bc[co], 0.f) : 0.f;
+             });
+    __syncthreads();
+
+    // gates over the 1-px ring: r*h1 (0 outside the image, where h1 is 0)
+    // and u1; the cost planes are free now
+    conv_mma(r2.frags(), 2, 2, CS, wg, [&](int q) { return r2.loc(q); }, tap,
+             [&](int k) { return k == 0 ? x1 : h1; },
+             [&](const Loc& l, int co, float v) {
+               const float gv = sigmoidf(v + bg[co]);
+               if (co < 8) rh[co * CS + l.o] = gv * h1[co * CS + l.o];
+               else u1[(co - 8) * CS + l.o] = gv;
+             });
+    __syncthreads();
+
+    // candidate over the tile -> s1' = u1*h1 + (1-u1)*tanh(.)
+    conv_mma(r3.frags(), 1, 2, CS, wd, [&](int q) { return r3.loc(q); }, tap,
+             [&](int k) { return k == 0 ? x1 : rh; },
+             [&](const Loc& l, int co, float v) {
+               if (l.y >= p.H || l.x >= p.W) return;
+               const int o = co * CS + l.o;
+               const float u = u1[o], h = h1[o];
+               p.s1o[(long long)co * p.H * p.W + l.y * p.W + l.x] =
+                   u * h + (1.f - u) * tanhf(v + bd[co]);
+             });
+    __syncthreads();  // the next tile's copies overwrite the planes
+  }
+}
+
+// L2: x2, the gates and the candidate of the half-res GRU over a tile of
+// s2'. Frame: the tile + a 2-px ring at half res, origin (q0y - 2, q0x - 2);
+// s1' over the full-res window that frame's x2 reads (2 * rows + 1).
+__global__ void __launch_bounds__(kGruThreads) red2_level2_kernel(const __grid_constant__ Step p,
+                                                                  const Tiling t) {
+  extern __shared__ __align__(16) float smem[];
+  const int FR = t.th + 4, FC = t.tw + 4, CS = plane(FR * FC);
+  const int SR = 2 * FR + 1, SC = 2 * FC + 1, CSS = plane(SR * SC);
+  float* wts = smem;
+  float* x2 = smem + kW2;
+  float* h2 = x2 + 16 * CS;
+  float* un = h2 + 16 * CS;  // s1' window; then r*h2 | u2
+  float* rh = un;
+  float* u2 = un + 16 * CS;
+  const float* wc = wts;
+  const float* bc = wc + frag_floats(8, 16);
+  const float* wg = bc + 16;
+  const float* bg = wg + frag_floats(32, 32);
+  const float* wd = bg + 32;
+  const float* bd = wd + frag_floats(32, 16);
+  load_weights(wts, p.w2, kW2);
+  cp_async_commit();
+
+  auto tap = [FC](int, int j, int& d) {
+    d = (j / 3 - 1) * FC + (j % 3 - 1);
+    return true;
+  };
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < t.ntiles; tile += gridDim.x) {
+    const int fy = (tile / t.tiles_x) * t.th - 2, fx = (tile % t.tiles_x) * t.tw - 2;
+    const Ring r0(FR, FC, 0, fy, fx), r1(FR, FC, 1, fy, fx), r2(FR, FC, 2, fy, fx);
+    load_window<kSlotsS>(un, CSS, p.s1o, p.H, p.W, 8, 2 * fy - p.pad_y, 2 * fx - p.pad_x,
+                         SR, SC);
+    load_window<kSlotsH>(h2, CS, p.s2, p.H2, p.W2, 16, fy, fx, FR, FC);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // x2 = relu(conv2 stride 2 (s1') + b) over the whole frame: frame
+    // pixel (r, c) reads window (2r + ky, 2c + kx)
+    conv_mma(r0.frags(), 2, 1, CSS, wc,
+             [&](int q) {
+               Loc l = r0.loc(q);
+               const int r = l.y - fy, c = l.x - fx;
+               l.a = 2 * r * SC + 2 * c;
+               return l;
+             },
+             [SC](int, int j, int& d) {
+               d = (j / 3) * SC + j % 3;
+               return true;
+             },
+             [&](int) { return un; },
+             [&](const Loc& l, int co, float v) {
+               const bool in = l.y >= 0 && l.y < p.H2 && l.x >= 0 && l.x < p.W2;
+               x2[co * CS + l.o] = in ? fmaxf(v + bc[co], 0.f) : 0.f;
+             });
+    __syncthreads();
+
+    // gates over the 1-px ring: r*h2 and u2 (the s1' window is free now)
+    conv_mma(r1.frags(), 4, 4, CS, wg, [&](int q) { return r1.loc(q); }, tap,
+             [&](int k) { return k < 2 ? x2 + k * 8 * CS : h2 + (k - 2) * 8 * CS; },
+             [&](const Loc& l, int co, float v) {
+               const float gv = sigmoidf(v + bg[co]);
+               if (co < 16) rh[co * CS + l.o] = gv * h2[co * CS + l.o];
+               else u2[(co - 16) * CS + l.o] = gv;
+             });
+    __syncthreads();
+
+    // candidate over the tile -> s2'
+    conv_mma(r2.frags(), 2, 4, CS, wd, [&](int q) { return r2.loc(q); }, tap,
+             [&](int k) { return k < 2 ? x2 + k * 8 * CS : rh + (k - 2) * 8 * CS; },
+             [&](const Loc& l, int co, float v) {
+               if (l.y >= p.H2 || l.x >= p.W2) return;
+               const int o = co * CS + l.o;
+               const float u = u2[o], h = h2[o];
+               p.s2o[(long long)co * p.H2 * p.W2 + l.y * p.W2 + l.x] =
+                   u * h + (1.f - u) * tanhf(v + bd[co]);
+             });
+    __syncthreads();
+  }
+}
+
+// L3: f = relu(upconv1(s2') + b + s1') over a full-res tile + 1-px ring
+// (origin (y0 - 1, x0 - 1)), the score over the tile, the softmax update.
+// s2' window: half-res rows from y0/2 - 2, th/2 + 3 of them (the rows the
+// transposed conv reads for f's rows y0 - 1 .. y0 + th).
+__global__ void __launch_bounds__(kDecThreads, 2) red2_level3_kernel(const __grid_constant__ Step p,
+                                                                     const Tiling t) {
+  extern __shared__ __align__(16) float smem[];
+  const int FR = t.th + 2, FC = t.tw + 2, CS = plane(FR * FC);
+  const int HR = t.th / 2 + 3, HC = t.tw / 2 + 3, CSH = plane(HR * HC);
+  float* wts = smem;
+  float* f = smem + kW3;  // s1', then f in place
+  float* g2 = f + 8 * CS;
+  const float* wu = wts;
+  const float* bu = wu + frag_floats(16, 8);
+  const float* ws = bu + 8;  // [8][3][3], then the bias
+  load_weights(wts, p.w3, kW3);
+  cp_async_commit();
+
+  // upconv1 by output phase: frame pixel (r, c) = (2a + ry, 2b + rx); the
+  // phase grids are PA x PB, each padded to an even count of m16
+  // fragments, so no item of two fragments spans two phases
+  const int PA = FR / 2, PB = FC / 2, MP = PA * PB, fpp = 2 * ((MP + 31) / 32);
+  const int SH = p.up ? 2 * p.H : p.H, SW = p.up ? 2 * p.W : p.W;
+  const int sth = p.up ? 2 * t.th : t.th, stw = p.up ? 2 * t.tw : t.tw;
+  bool first = true;
+  float wr[72];  // the score weights, in registers once they have arrived
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < t.ntiles; tile += gridDim.x) {
+    const int y0 = (tile / t.tiles_x) * t.th, x0 = (tile % t.tiles_x) * t.tw;
+    load_window<kSlotsF>(f, CS, p.s1o, p.H, p.W, 8, y0 - 1, x0 - 1, FR, FC);
+    load_window<kSlotsG>(g2, CSH, p.s2o, p.H2, p.W2, 16, y0 / 2 - 2, x0 / 2 - 2, HR, HC);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (first) {
 #pragma unroll
-  for (int co = 0; co < CO; ++co) {
-    const float v = acc[co] + bias[co];
-    if (EPI == kBias) {
-      p.out0[co * HWo + idx] = v;
-    } else if (EPI == kBiasRelu) {
-      p.out0[co * HWo + idx] = fmaxf(v, 0.f);
-    } else if (EPI == kGates) {
-      constexpr int HID = CO / 2;
-      const float g = sigmoidf(v);
-      if (co < HID) {
-        p.out0[co * HWo + idx] = g * p.aux0[co * HWo + idx];  // r * h
+      for (int i = 0; i < 72; ++i) wr[i] = ws[i];
+      first = false;
+    }
+
+    // Y = y0 - 1 + r with y0 even: Y is even where r is odd. Output Y takes
+    // the taps ky = Y (mod 2), input row (Y - ky) / 2, window row
+    // a + (ry + 3 - ky) / 2; columns alike.
+    conv_mma(4 * fpp, 1, 2, CSH, wu,
+             [&](int q) {
+               const int ph = q / (16 * fpp);
+               const int e = q - ph * 16 * fpp;
+               Loc l;
+               l.ok = e < MP;
+               const int ee = l.ok ? e : MP - 1;
+               const int a = ee / PB, b = ee - a * PB;
+               const int r = 2 * a + (ph >> 1), c = 2 * b + (ph & 1);
+               l.a = a * HC + b;
+               l.o = r * FC + c;
+               l.y = y0 - 1 + r;
+               l.x = x0 - 1 + c;
+               return l;
+             },
+             [&](int mf, int j, int& d) {
+               const int ph = mf / fpp, ry = ph >> 1, rx = ph & 1;
+               const int ky = j / 3, kx = j % 3;
+               if ((ky & 1) != 1 - ry || (kx & 1) != 1 - rx) return false;
+               d = ((ry + 3 - ky) >> 1) * HC + ((rx + 3 - kx) >> 1);
+               return true;
+             },
+             [&](int k) { return g2 + k * 8 * CSH; },
+             [&](const Loc& l, int co, float v) {
+               const bool in = l.y >= 0 && l.y < p.H && l.x >= 0 && l.x < p.W;
+               const int o = co * CS + l.o;
+               f[o] = in ? fmaxf(v + bu[co] + f[o], 0.f) : 0.f;
+             });
+    __syncthreads();
+
+    // the score on the CUDA cores, then the softmax update in place
+    const int sy0 = p.up ? 2 * y0 : y0, sx0 = p.up ? 2 * x0 : x0;
+#pragma unroll 1
+    for (int idx = threadIdx.x; idx < sth * stw; idx += blockDim.x) {
+      const int ys = sy0 + idx / stw, xs = sx0 + idx % stw;
+      if (ys >= SH || xs >= SW) continue;
+      float v = 0.f;
+      if (p.up) {  // score (ys, xs) = 2 * f(i, j) + (ky, kx)
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          if ((ys - ky) & 1) continue;
+          const int r = ((ys - ky) >> 1) - y0 + 1;
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx) {
+            if ((xs - kx) & 1) continue;
+            const float* fo = f + r * FC + ((xs - kx) >> 1) - x0 + 1;
+#pragma unroll
+            for (int ci = 0; ci < 8; ++ci) v = fmaf(wr[(ci * 3 + ky) * 3 + kx], fo[ci * CS], v);
+          }
+        }
       } else {
-        p.out1[(co - HID) * HWo + idx] = g;                   // u
+        const float* fo = f + (ys - y0) * FC + xs - x0;
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+            for (int ci = 0; ci < 8; ++ci)
+              v = fmaf(wr[(ci * 3 + ky) * 3 + kx], fo[ci * CS + ky * FC + kx], v);
       }
-    } else if (EPI == kGru) {
-      const float c = tanhf(v);
-      const float u = p.aux0[co * HWo + idx];
-      const float h = p.aux1[co * HWo + idx];
-      p.out0[co * HWo + idx] = u * h + (1.f - u) * c;
-    } else {  // kSkipRelu
-      p.out0[co * HWo + idx] = fmaxf(v + p.aux0[co * HWo + idx], 0.f);
+      v += ws[72];
+      const long long o = (long long)ys * SW + xs;
+      if (p.score) p.score[o] = v;
+      if (p.m) {
+        const float m = p.m[o], mn = fmaxf(m, v);
+        const float scale = expf(m - mn), e = expf(v - mn);
+        p.m[o] = mn;
+        p.s[o] = __fadd_rn(__fmul_rn(p.s[o], scale), e);
+        p.acc[o] = __fadd_rn(__fmul_rn(p.acc[o], scale), __fmul_rn(e, p.dv[o]));
+        p.pmax[o] = fmaxf(__fmul_rn(p.pmax[o], scale), e);
+      }
     }
+    __syncthreads();
   }
-}
-
-template <int CA, int CB, int CO, int GEOM, int EPI>
-cudaError_t launch(const ConvArgs& p, cudaStream_t s) {
-  constexpr int NW = (CA + CB) * 9 * CO + CO;
-  const int n = p.Ho * p.Wo;
-  if (n == 0) return cudaSuccess;
-  conv3x3_kernel<CA, CB, CO, GEOM, EPI>
-      <<<(n + kThreads - 1) / kThreads, kThreads, NW * sizeof(float), s>>>(p);
-  return cudaGetLastError();
 }
 
 // 'SAME' low-side padding (TensorFlow's rule) of a stride-2 3x3 conv over n -> ceil(n/2)
@@ -151,15 +624,71 @@ inline int same_pad_lo(int n) {
   return total > 0 ? total / 2 : 0;
 }
 
-ConvArgs args(const float* a, const float* b, const float* w, int Hi, int Wi,
-              int Ho, int Wo, float* out0, float* out1 = nullptr,
-              const float* aux0 = nullptr, const float* aux1 = nullptr) {
-  ConvArgs p;
-  p.a = a; p.b = b; p.w = w; p.aux0 = aux0; p.aux1 = aux1;
-  p.out0 = out0; p.out1 = out1;
-  p.Hi = Hi; p.Wi = Wi; p.Ho = Ho; p.Wo = Wo;
-  p.pad_y = same_pad_lo(Hi); p.pad_x = same_pad_lo(Wi);
-  return p;
+using Kernel = void (*)(Step, Tiling);
+
+// Blocks of a level one SM holds at once at a tile size, read once per
+// device (the kernels' dynamic shared-memory limit is raised first).
+int resident(Kernel k, int level, int threads, int opt, int cin, int bytes) {
+  static int cached[64][3][2][kMaxOpts][3] = {};
+  static bool raised[64][3] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  int& n = cached[dev][level][threads == kDecThreads][opt][cin == 8 ? 0 : cin == 16 ? 1 : 2];
+  if (n == 0) {
+    if (!raised[dev][level]) {
+      if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax) !=
+          cudaSuccess)
+        return 1;
+      raised[dev][level] = true;
+    }
+    int got = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got, k, threads, bytes);
+    n = got > 0 ? got : 1;
+  }
+  return n;
+}
+
+// Per level, whether a tiling's last wave of blocks must be at least half
+// full: L1 at 384x512 takes 79 us in 384 tiles of 16 x 32 against 88 in
+// 192 of 32 x 32 (1.45 waves); L2 and L3 run faster in their larger tiles
+// all the same (69 against 78 us, 38 against 45: scripts/red_step2_probe.py).
+constexpr bool kFullWaves[3] = {true, false, false};
+
+// Launch a level over an h x w output: the largest tile size whose tiles
+// give every SM a block (and, where the level asks, leave the last wave
+// of blocks at least half full), else the smallest; persistent blocks of
+// `threads`, or of kDecThreads where only those take every tile at once.
+template <class Bytes>
+cudaError_t launch(Kernel k, int level, int threads, const TileOpts& opts, int h, int w,
+                   int cin, Bytes bytes, const Step& p, cudaStream_t s) {
+  const int sms = sm_count() > 0 ? sm_count() : 132;
+  int opt = 0;
+  Tiling t{};
+  long long cap = 0;
+  for (opt = 0; opt < opts.n; ++opt) {
+    t.th = opts.hw[opt][0];
+    t.tw = opts.hw[opt][1];
+    if (bytes(t.th, t.tw) * (int)sizeof(float) > kSmemMax) continue;
+    t.tiles_x = (w + t.tw - 1) / t.tw;
+    t.ntiles = ((h + t.th - 1) / t.th) * t.tiles_x;
+    cap = (long long)sms *
+          resident(k, level, threads, opt, cin, bytes(t.th, t.tw) * (int)sizeof(float));
+    const long long last = t.ntiles % cap;
+    if ((t.ntiles >= sms && (!kFullWaves[level] || last == 0 || 2 * last >= cap)) ||
+        opt == opts.n - 1)
+      break;
+  }
+  const int nbytes = bytes(t.th, t.tw) * (int)sizeof(float);
+  if (threads != kDecThreads && t.ntiles > cap) {
+    const long long half = (long long)sms * resident(k, level, kDecThreads, opt, cin, nbytes);
+    if (t.ntiles <= half) {
+      threads = kDecThreads;
+      cap = half;
+    }
+  }
+  const int grid = (int)(t.ntiles < cap ? t.ntiles : cap);
+  k<<<grid, threads, nbytes, s>>>(p, t);
+  return cudaGetLastError();
 }
 
 #define RS2_CHECK(expr)                    \
@@ -172,57 +701,39 @@ ConvArgs args(const float* a, const float* b, const float* w, int Hi, int Wi,
 
 extern "C" const char* error_string(int code) {
   if (code == kUnsupported) return "unsupported cost channel count (take 8, 16 or 32)";
+  if (code == kBadArgs) return "bad arguments (sizes, or neither a score nor a softmax state)";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// One RedStep2 step. cost [Cin,H,W], s1 [8,H,W], s2 [16,H2,W2] with
-// H2 = ceil(H/2), W2 = ceil(W/2). Weights are packed [ci][ky][kx][co] + bias.
-// scratch holds 32*H*W + 48*H2*W2 floats. Writes score ([2H,2W] if up else
-// [H,W]), s1_out and s2_out; the inputs are not modified.
-extern "C" int red_step2_f32(const float* cost, int Cin, const float* s1,
-                             const float* s2, const float* w_conv1,
-                             const float* w_gates1, const float* w_cand1,
-                             const float* w_conv2, const float* w_gates2,
-                             const float* w_cand2, const float* w_up1,
-                             const float* w_score, float* score, float* s1_out,
-                             float* s2_out, float* scratch, int H, int W,
-                             int up, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int H2 = (H + 1) / 2, W2 = (W + 1) / 2;
-  const long long HW = (long long)H * W, HW2 = (long long)H2 * W2;
-  float* x1 = scratch;
-  float* rh1 = x1 + 8 * HW;
-  float* u1 = rh1 + 8 * HW;
-  float* fused = u1 + 8 * HW;
-  float* x2 = fused + 8 * HW;
-  float* rh2 = x2 + 16 * HW2;
-  float* u2 = rh2 + 16 * HW2;
+// Floats of the packed weights (ops/red_step2.py:pack_params) at Cin.
+extern "C" long long red_step2_param_floats(int Cin) { return w1_floats(Cin) + kW2 + kW3; }
 
-  const ConvArgs c1 = args(cost, nullptr, w_conv1, H, W, H, W, x1);
-  switch (Cin) {
-    case 8: RS2_CHECK((launch<8, 0, 8, kS1, kBiasRelu>(c1, s))); break;
-    case 16: RS2_CHECK((launch<16, 0, 8, kS1, kBiasRelu>(c1, s))); break;
-    case 32: RS2_CHECK((launch<32, 0, 8, kS1, kBiasRelu>(c1, s))); break;
-    default: return kUnsupported;
-  }
-  RS2_CHECK((launch<8, 8, 16, kS1, kGates>(
-      args(x1, s1, w_gates1, H, W, H, W, rh1, u1, s1), s)));
-  RS2_CHECK((launch<8, 8, 8, kS1, kGru>(
-      args(x1, rh1, w_cand1, H, W, H, W, s1_out, nullptr, u1, s1), s)));
-  RS2_CHECK((launch<8, 0, 16, kS2, kBiasRelu>(
-      args(s1_out, nullptr, w_conv2, H, W, H2, W2, x2), s)));
-  RS2_CHECK((launch<16, 16, 32, kS1, kGates>(
-      args(x2, s2, w_gates2, H2, W2, H2, W2, rh2, u2, s2), s)));
-  RS2_CHECK((launch<16, 16, 16, kS1, kGru>(
-      args(x2, rh2, w_cand2, H2, W2, H2, W2, s2_out, nullptr, u2, s2), s)));
-  RS2_CHECK((launch<16, 0, 8, kT2, kSkipRelu>(
-      args(s2_out, nullptr, w_up1, H2, W2, H, W, fused, nullptr, s1_out), s)));
-  if (up) {
-    RS2_CHECK((launch<8, 0, 1, kT2, kBias>(
-        args(fused, nullptr, w_score, H, W, 2 * H, 2 * W, score), s)));
-  } else {
-    RS2_CHECK((launch<8, 0, 1, kS1, kBias>(
-        args(fused, nullptr, w_score, H, W, H, W, score), s)));
-  }
+// One RedStep2 step in 3 launches. cost [Cin,H,W], s1 [8,H,W], s2
+// [16,H2,W2] with H2 = ceil(H/2), W2 = ceil(W/2); w the packed weights
+// (16-byte aligned). Writes s1_out and s2_out; then, at the score's shape
+// ([2H,2W] if up else [H,W]), the score when `score` is given, and the
+// online-softmax update of (m, s, acc, pmax) in place with the plane's
+// depth dv when `m` is given. The inputs are not modified.
+extern "C" int red_step2_f32(const float* cost, int Cin, const float* s1, const float* s2,
+                             const float* w, float* s1_out, float* s2_out, float* score,
+                             float* m, float* s, float* acc, float* pmax, const float* dv,
+                             int H, int W, int up, void* stream) {
+  if (Cin != 8 && Cin != 16 && Cin != 32) return kUnsupported;
+  if (H <= 0 || W <= 0 || (!score && !m) || (m && (!s || !acc || !pmax || !dv)))
+    return kBadArgs;
+  cudaStream_t st = (cudaStream_t)stream;
+  Step p;
+  p.cost = cost; p.s1 = s1; p.s2 = s2;
+  p.w1 = w; p.w2 = w + w1_floats(Cin); p.w3 = p.w2 + kW2;
+  p.s1o = s1_out; p.s2o = s2_out; p.score = score;
+  p.m = m; p.s = s; p.acc = acc; p.pmax = pmax; p.dv = dv;
+  p.Cin = Cin; p.H = H; p.W = W; p.H2 = (H + 1) / 2; p.W2 = (W + 1) / 2;
+  p.pad_y = same_pad_lo(H); p.pad_x = same_pad_lo(W); p.up = up ? 1 : 0;
+  RS2_CHECK(launch(red2_level1_kernel, 0, kGruThreads, kL1Tiles, H, W, Cin,
+                   [Cin](int th, int tw) { return l1_floats(th, tw, Cin); }, p, st));
+  RS2_CHECK(launch(red2_level2_kernel, 1, kGruThreads, kL2Tiles, p.H2, p.W2, Cin,
+                   [](int th, int tw) { return l2_floats(th, tw); }, p, st));
+  RS2_CHECK(launch(red2_level3_kernel, 2, kDecThreads, kL3Tiles, H, W, Cin,
+                   [](int th, int tw) { return l3_floats(th, tw); }, p, st));
   return 0;
 }

@@ -89,6 +89,8 @@
 
 #include <cstdint>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -158,43 +160,6 @@ struct Problems {
   int n;
   int sum;            // any problem sums a second input: a second halo per stage
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(src), "r"(ok ? 4 : 0));
-}
-
-// 16 bytes to shared memory: the first `bytes` from src, zeros after
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// x = hi + lo: hi rounded to TF32 (nearest, ties away), lo the exact rest
-// (the tensor core reads its top 10 mantissa bits)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // K5. Block -> (problem, K split, n tile, phase, tile row, tile column),
 // the K splits of a tile side by side, then its n tiles, so that blocks
@@ -535,21 +500,6 @@ __global__ void __launch_bounds__(kThreads) conv_mma_kernel(const __grid_constan
     for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
     p.partial[(long long)tile * 4 + threadIdx.x] = s;
   }
-}
-
-// Streaming multiprocessors of the current device (132 on an H100 SXM),
-// read once per device; 0 if the query fails (no split then).
-inline int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cached[dev] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 0;
-    cached[dev] = n;
-  }
-  return cached[dev];
 }
 
 // Dynamic shared memory above 48 KB needs the attribute, set once per

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops.red_step2 import online_softmax_update
 from ..ops.resize import upsample_axis_lerp
 from ..ops.sweep import sweep_cost, sweep_cost_plain, sweep_var, sweep_var_plain
 from ..ops.warp import plane_sweep_warp_single
@@ -70,12 +71,7 @@ class OnlineSoftmaxState:
     @staticmethod
     def update(state: State, score: torch.Tensor,
                depth_value: torch.Tensor) -> State:
-        m, s, acc, pmax = state
-        m_new = torch.maximum(m, score)
-        scale = torch.exp(m - m_new)
-        e = torch.exp(score - m_new)
-        return (m_new, s * scale + e, acc * scale + e * depth_value,
-                torch.maximum(pmax * scale, e))
+        return online_softmax_update(state, score, depth_value)
 
     @staticmethod
     def finalize(state: State) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,7 +95,10 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
     (RedStep2, RedStep4): reg.plane_step(device) gives its step,
     step(cost [C, H, W], *states) -> (score, *states), with the parameters
     gathered once for the sweep; its states come from reg.init_states(H, W);
-    with `up` its scores and the plane depths are at 2H x 2W.
+    with `up` its scores and the plane depths are at 2H x 2W. A step that
+    carries `folds_softmax` (RedStep2's on CUDA: kernel K3) takes the
+    online-softmax state and the plane's depth and updates the state in
+    place, so no score and no eager update leave the step.
     warp_impl 'kernel' builds each chunk's
     cost with the CUDA kernel (K2, K2v) on CUDA tensors, 'plain' always with
     its plain version.
@@ -130,6 +129,7 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
     osm = OnlineSoftmaxState.init(out_shape, device=dev)
     states = reg.init_states(H, W, device=dev)
     step = reg.plane_step(dev)
+    fold = getattr(step, "folds_softmax", False)
     # largest divisor of D not exceeding plane_chunk
     K = max(1, min(int(plane_chunk), D))
     while D % K:
@@ -141,6 +141,9 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
         dvs = upsample_axis_lerp(upsample_axis_lerp(chunk, 2, -2), 2, -1) \
             if up else chunk
         for k in range(K):
-            score, *states = step(costs[k], *states)
-            osm = OnlineSoftmaxState.update(osm, score, dvs[k])
+            if fold:
+                _, *states = step(costs[k], *states, osm=osm, dv=dvs[k])
+            else:
+                score, *states = step(costs[k], *states)
+                osm = OnlineSoftmaxState.update(osm, score, dvs[k])
     return OnlineSoftmaxState.finalize(osm)

@@ -16,7 +16,7 @@ CostRegNet3D (CasMVSNet, UCSNet) is not ported yet (ROADMAP, section A).
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn as nn
@@ -105,19 +105,26 @@ class RedStep2(nn.Module):
             self.out2d = Conv2d(b, 1)
         self._packed = _PackedCache(lambda p: pack_params(p, up))
 
-    def _packed_params(self) -> List[torch.Tensor]:
+    def _packed_params(self) -> torch.Tensor:
         """K3's packed weights, rebuilt only when a parameter changed."""
         return self._packed.get(self)
 
     def plane_step(self, device: torch.device) -> Callable:
         """The step as a function of (cost, s1, s2) on `device`, its
         parameters (and K3's packed weights) gathered once: the streaming
-        sweep calls it for every plane."""
+        sweep calls it for every plane. On CUDA with impl 'kernel' the step
+        also folds the score into the sweep's online-softmax state,
+        step(cost, s1, s2, osm=state, dv=depth) -> (None, s1', s2') with
+        `state` updated in place, and carries `folds_softmax`."""
         params = dict(self.named_parameters())
         if self.impl == "plain":
             return functools.partial(red_step2_plain, params, up=self.up)
-        packed = self._packed_params() if device.type == "cuda" else None
-        return functools.partial(red_step2, params, up=self.up, packed=packed)
+        if device.type != "cuda":
+            return functools.partial(red_step2, params, up=self.up)
+        step = functools.partial(red_step2, params, up=self.up,
+                                 packed=self._packed_params())
+        step.folds_softmax = True
+        return step
 
     def forward(self, cost, s1, s2) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return self.plane_step(cost.device)(cost, s1, s2)

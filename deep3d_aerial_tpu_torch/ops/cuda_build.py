@@ -3,8 +3,9 @@
 Every source in `deep3d_aerial_tpu_torch/csrc/` is compiled at first use by
 `nvcc` for `sm_90a` into a shared library with a plain C interface, named by
 a hash of its source and flags, under `<checkout>/build/torch_kernels/`, and
-loaded with `ctypes`. A library that exists is reused; a changed source
-builds anew. Nothing here runs when a module is imported.
+loaded with `ctypes`. A library that exists is reused; a changed source,
+or a changed header of `csrc/` that it includes, builds anew. Nothing here
+runs when a module is imported.
 """
 
 from __future__ import annotations
@@ -12,12 +13,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 SOURCES = ("sweep", "red_step2", "red_step4")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -25,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _tickets: Dict[str, "torch.Tensor"] = {}
@@ -39,8 +42,8 @@ _ARGTYPES = {
         "sweep_var_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "red_step2": {
-        "red_step2_f32": [_P, _I, _P, _P] + [_P] * 8 + [_P] * 4
-                         + [_I, _I, _I, _P],
+        "red_step2_f32": [_P, _I, _P, _P, _P] + [_P] * 8 + [_I, _I, _I, _P],
+        "red_step2_param_floats": [_I],
     },
     "red_step4": {
         "cf_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -54,9 +57,9 @@ _ARGTYPES = {
     },
 }
 # entries that return a size instead of an error code
-_RESTYPES = {"red_step4_param_floats": _L, "red_step4_scratch_floats": _L,
-             "red_step4_tickets": _L, "cf_conv3x3_scratch_floats": _L,
-             "cf_conv3x3_tickets": _L}
+_RESTYPES = {"red_step2_param_floats": _L, "red_step4_param_floats": _L,
+             "red_step4_scratch_floats": _L, "red_step4_tickets": _L,
+             "cf_conv3x3_scratch_floats": _L, "cf_conv3x3_tickets": _L}
 
 
 def nvcc() -> str:
@@ -70,10 +73,28 @@ def nvcc() -> str:
     return found
 
 
+def _sources(name: str) -> List[Path]:
+    """csrc/<name>.cu and every header of csrc/ it includes (by
+    `#include "..."`, followed into the headers)."""
+    out, todo = [], [_CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in out:
+            continue
+        out.append(path)
+        todo += [_CSRC / m.group(1) for m in
+                 _INCLUDE.finditer(path.read_text())]
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD / f"{name}_{key}.so"
+    """The library of csrc/<name>.cu, named by a hash of the source, the
+    headers it includes and the flags: a changed header builds anew."""
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD / f"{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:

@@ -2,7 +2,8 @@
 PyTorch version.
 
 Replaces deep3d_aerial_tpu/ops/pallas_red.py:_red_kernel (entries
-red_step2_fused / red_step2_tiled). Channel-first tensors: cost [Cin, H, W]
+red_step2_fused / red_step2_tiled), and the online-softmax update that the
+JAX package's sweep fuses after it. Channel-first tensors: cost [Cin, H, W]
 (Cin in 8, 16, 32; the sweep_cost output planes, read as they are), states
 s1 [8, H, W] and s2 [16, ceil(H/2), ceil(W/2)] -> (score, s1', s2') with
 score [2H, 2W] when `up` else [H, W]. `params` maps the names of
@@ -10,21 +11,42 @@ models.cost_reg.RedStep2's parameters (conv1.conv.weight, gru1.gates.weight,
 ..., upconv2d.weight or out2d.weight) to tensors; transposed-conv weights
 are in PyTorch's [in, out, 3, 3] layout, flipped (ops/conv.py).
 
+Given the streaming sweep's online-softmax state (m, s, acc, pmax) at the
+score's shape and the plane's depth, the step folds the score into it in
+place (`online_softmax_update`'s arithmetic) and returns (None, s1', s2'):
+on the card the score never reaches device memory.
+
 The kernel source, with its design, launches per step and bound, is
-csrc/red_step2.cu. `red_step2` launches it for CUDA tensors and raises if the
-launch fails; it takes the plain version only for CPU tensors. It counts one
-launch per step in `red_step2.launches`.
+csrc/red_step2.cu (3 launches a step); its weights are packed once into
+TF32 hi/lo fragments (`pack_params`). `red_step2` launches it for CUDA
+tensors and raises if the launch fails; it takes the plain version only for
+CPU tensors. It counts one call (one step) in `red_step2.launches`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from .cf_conv import pack_frags
 from .conv import conv2d_same, conv_transpose2d_same
 
 Params = Dict[str, torch.Tensor]
+State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def online_softmax_update(state: State, score: torch.Tensor,
+                          depth_value: torch.Tensor) -> State:
+    """One plane of the online softmax over depth planes: the running max
+    m, the scaled exp sum s, the scaled depth sum acc and the scaled max
+    probability pmax (models.cascade.OnlineSoftmaxState)."""
+    m, s, acc, pmax = state
+    m_new = torch.maximum(m, score)
+    scale = torch.exp(m - m_new)
+    e = torch.exp(score - m_new)
+    return (m_new, s * scale + e, acc * scale + e * depth_value,
+            torch.maximum(pmax * scale, e))
 
 
 def _gru_plain(p: Params, name: str, x: torch.Tensor, h: torch.Tensor):
@@ -61,34 +83,53 @@ def red_step2_plain(params: Params, cost: torch.Tensor, s1: torch.Tensor,
     return score, r1, r2
 
 
-# kernel weight order of the C entry, each packed [ci][ky][kx][co] + bias
+# the tensor-core layers in the kernel's order (transposed: upconv1), each
+# packed as TF32 hi/lo fragments (ops/cf_conv.py:pack_frags) then its bias:
+# level 1 (conv1, gru1), level 2 (conv2, gru2), level 3 (upconv1)
 _LAYERS = ("conv1.conv", "gru1.gates", "gru1.cand", "conv2.conv",
            "gru2.gates", "gru2.cand", "upconv1")
 
 
-def pack_params(params: Params, up: bool) -> List[torch.Tensor]:
-    """The 8 packed weight buffers K3 reads: convs OIHW -> [I, 3, 3, O],
-    transposed convs [I, O, 3, 3] -> [I, 3, 3, O], each followed by its
-    bias."""
-    score = "upconv2d" if up else "out2d"
+def pack_params(params: Params, up: bool) -> torch.Tensor:
+    """K3's weights, one flat float32 buffer: the 7 tensor-core layers in
+    `_LAYERS` order, each as pack_frags(w) of w [Ci, 3, 3, Co] (a conv's
+    OIHW permuted, a transposed conv's [in, out, 3, 3] permuted) followed
+    by its bias; then the score conv (upconv2d if `up`, else out2d) as
+    [8][3][3] and its bias padded to 8 floats. Every section is a multiple
+    of 4 floats, so each starts 16-byte aligned."""
     out = []
-    for name in _LAYERS + (score,):
-        w = params[f"{name}.weight"].float()
-        transposed = name.startswith("upconv")
-        wp = w.permute(0, 2, 3, 1) if transposed else w.permute(1, 2, 3, 0)
-        out.append(torch.cat([wp.reshape(-1),
-                              params[f"{name}.bias"].float()]).contiguous())
-    return out
+    for name in _LAYERS:
+        w = params[f"{name}.weight"].detach().float()
+        wp = w.permute(0, 2, 3, 1) if name == "upconv1" else w.permute(1, 2, 3, 0)
+        out += [pack_frags(wp), params[f"{name}.bias"].detach().float()]
+    score = "upconv2d" if up else "out2d"
+    w = params[f"{score}.weight"].detach().float()
+    out.append((w[:, 0] if up else w[0]).reshape(-1))
+    b = params[f"{score}.bias"].detach().float()
+    out.append(torch.nn.functional.pad(b, (0, 8 - b.numel())))
+    return torch.cat(out).contiguous()
 
 
 def red_step2(params: Params, cost: torch.Tensor, s1: torch.Tensor,
               s2: torch.Tensor, *, up: bool,
-              packed: Optional[List[torch.Tensor]] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              packed: Optional[torch.Tensor] = None,
+              osm: Optional[State] = None,
+              dv: Optional[torch.Tensor] = None
+              ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """K3 on CUDA tensors (`packed` = pack_params(params, up), to skip
-    repacking per plane); red_step2_plain on CPU tensors."""
+    repacking per plane); red_step2_plain on CPU tensors. With `osm` (the
+    online-softmax state, four float32 tensors at the score's shape) and
+    `dv` (the plane's depth at that shape) the score is folded into `osm`
+    in place and (None, s1', s2') is returned."""
+    if (osm is None) != (dv is None):
+        raise ValueError("red_step2: give both osm and dv, or neither")
     if not cost.is_cuda:
-        return red_step2_plain(params, cost, s1, s2, up=up)
+        score, r1, r2 = red_step2_plain(params, cost, s1, s2, up=up)
+        if osm is None:
+            return score, r1, r2
+        for t, new in zip(osm, online_softmax_update(osm, score, dv)):
+            t.copy_(new)
+        return None, r1, r2
     from .cuda_build import check, load
 
     Cin, H, W = cost.shape
@@ -102,16 +143,34 @@ def red_step2(params: Params, cost: torch.Tensor, s1: torch.Tensor,
     cost, s1, s2 = (t.contiguous() for t in tensors)
     if packed is None:
         packed = pack_params(params, up)
+    lib = load("red_step2")
+    want = lib.red_step2_param_floats(Cin)
+    if (packed.numel() != want or not packed.is_cuda
+            or packed.dtype != torch.float32 or packed.data_ptr() % 16):
+        raise ValueError(f"red_step2: packed weights of {packed.numel()} "
+                         f"floats for Cin {Cin} (want {want} float32 on the "
+                         "card, 16-byte aligned)")
     dev = cost.device
-    score = torch.empty((2 * H, 2 * W) if up else (H, W), device=dev)
+    shape = (2 * H, 2 * W) if up else (H, W)
+    if osm is None:
+        score = torch.empty(shape, device=dev)
+        state = (None,) * 4
+    else:
+        score = None
+        dv = dv.contiguous()
+        for t in (*osm, dv):
+            if (tuple(t.shape) != shape or t.dtype != torch.float32
+                    or t.device != dev or not t.is_contiguous()):
+                raise ValueError(f"red_step2: softmax state and depth must be "
+                                 f"contiguous float32 {shape} on {dev}")
+        state = tuple(t.data_ptr() for t in osm)
     s1n = torch.empty_like(s1)
     s2n = torch.empty_like(s2)
-    scratch = torch.empty(32 * H * W + 48 * H2 * W2, device=dev)
-    lib = load("red_step2")
     rc = lib.red_step2_f32(cost.data_ptr(), Cin, s1.data_ptr(), s2.data_ptr(),
-                           *(w.data_ptr() for w in packed),
-                           score.data_ptr(), s1n.data_ptr(), s2n.data_ptr(),
-                           scratch.data_ptr(), H, W, int(up),
+                           packed.data_ptr(), s1n.data_ptr(), s2n.data_ptr(),
+                           None if score is None else score.data_ptr(),
+                           *state, None if dv is None else dv.data_ptr(),
+                           H, W, int(up),
                            torch.cuda.current_stream(dev).cuda_stream)
     check(lib, rc, "red_step2")
     red_step2.launches += 1

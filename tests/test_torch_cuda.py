@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from deep3d_aerial_tpu_torch.models.cascade import OnlineSoftmaxState
 from deep3d_aerial_tpu_torch.models.cost_reg import RedStep2, RedStep4
 from deep3d_aerial_tpu_torch.ops import cf_conv as cc
 from deep3d_aerial_tpu_torch.ops import red_step2 as rs
@@ -21,6 +22,9 @@ from deep3d_aerial_tpu_torch.weights import init_random_weights
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
+# one K3 step: the full-res GRU level, the half-res GRU level, the decoder
+# with the score and the softmax fold
+RED2_LAUNCHES_PER_STEP = 3
 # one K4 step: conv1-3, gates (grouped), reset, candidates (grouped),
 # update, upconv3-1, score; 9 of them the conv template K5
 LAUNCHES_PER_STEP = 11
@@ -69,15 +73,22 @@ def test_sweep_kernels_match_plain(dev, C, H, W):
     assert sw.sweep_corr.launches == n1 + V and sw.sweep_cost.launches == n2 + 1
 
 
-@pytest.mark.parametrize("cin,H,W,up", [(8, 11, 15, True), (16, 24, 40, False),
-                                        (32, 17, 64, True)])
-def test_red_step2_kernel_matches_plain(dev, cin, H, W, up):
-    g = torch.Generator(device=dev).manual_seed(cin)
-    mod = init_random_weights(RedStep2(cin, up=up), seed=cin).to(dev)
-    params = dict(mod.named_parameters())
+def _red2_inputs(dev, cin, H, W, up, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mod = init_random_weights(RedStep2(cin, up=up), seed=seed).to(dev)
     cost = torch.randn((cin, H, W), generator=g, device=dev)
     s1 = torch.randn((8, H, W), generator=g, device=dev) * 0.5
     s2 = torch.randn((16, (H + 1) // 2, (W + 1) // 2), generator=g, device=dev) * 0.5
+    return mod, cost, s1, s2
+
+
+# odd and mixed sizes, then the main path's stage 1 and stage 3 shapes
+@pytest.mark.parametrize("cin,H,W,up", [(8, 11, 15, True), (16, 24, 40, False),
+                                        (32, 17, 64, True), (32, 96, 128, True),
+                                        (8, 384, 512, False)])
+def test_red_step2_kernel_matches_plain(dev, cin, H, W, up):
+    mod, cost, s1, s2 = _red2_inputs(dev, cin, H, W, up, cin)
+    params = dict(mod.named_parameters())
     n = rs.red_step2.launches
     with torch.no_grad():
         for _ in range(3):  # chained: states carried across planes
@@ -87,6 +98,107 @@ def test_red_step2_kernel_matches_plain(dev, cin, H, W, up):
                 torch.testing.assert_close(a, b, rtol=0, atol=TOL)
             _, s1, s2 = p
     assert rs.red_step2.launches == n + 3
+
+
+@pytest.mark.parametrize("cin,H,W,up", [(16, 13, 22, True), (32, 96, 128, True),
+                                        (8, 97, 130, False)])
+def test_red_step2_folds_the_online_softmax(dev, cin, H, W, up):
+    """The step given the sweep's softmax state, over 3 chained planes from
+    OnlineSoftmaxState.init (the first plane sees m = -inf), against
+    red_step2_plain followed by OnlineSoftmaxState.update. acc sums
+    e * depth, so its tolerance is TOL x the depth (~100 m): the score's
+    ~1e-6 difference times the depth."""
+    mod, _, s1, s2 = _red2_inputs(dev, cin, H, W, up, cin + 1)
+    step = mod.plane_step(dev)
+    assert step.folds_softmax
+    params = dict(mod.named_parameters())
+    g = torch.Generator(device=dev).manual_seed(H)
+    shape = (2 * H, 2 * W) if up else (H, W)
+    osm_k = OnlineSoftmaxState.init(shape, device=dev)
+    osm_p = OnlineSoftmaxState.init(shape, device=dev)
+    k1, k2, p1, p2 = s1, s2, s1, s2
+    with torch.no_grad():
+        for d in (95.0, 100.0, 105.0):
+            cost = torch.randn((cin, H, W), generator=g, device=dev)
+            dv = d + torch.rand(shape, generator=g, device=dev)
+            score, k1, k2 = step(cost, k1, k2, osm=osm_k, dv=dv)
+            assert score is None
+            sp, p1, p2 = rs.red_step2_plain(params, cost, p1, p2, up=up)
+            osm_p = OnlineSoftmaxState.update(osm_p, sp, dv)
+            for a, b, scale in zip((*osm_k, k1, k2), (*osm_p, p1, p2),
+                                   (1, 1, float(dv.max()), 1, 1, 1)):
+                torch.testing.assert_close(a, b, rtol=0, atol=TOL * scale)
+    depth, conf = OnlineSoftmaxState.finalize(osm_k)
+    assert bool(torch.isfinite(depth).all()) and bool(torch.isfinite(conf).all())
+
+
+@pytest.mark.parametrize("cin,H,W,up", [(32, 96, 128, True), (8, 384, 512, False)])
+def test_red_step2_same_bits_every_run(dev, cin, H, W, up):
+    """The same step twice gives identical bits, the score-writing entry and
+    the softmax fold alike: every sum runs in a fixed order, no atomics."""
+    mod, cost, s1, s2 = _red2_inputs(dev, cin, H, W, up, 3)
+    step = mod.plane_step(dev)
+    shape = (2 * H, 2 * W) if up else (H, W)
+    dv = torch.full(shape, 100.0, device=dev)
+    with torch.no_grad():
+        first = [t.clone() for t in step(cost, s1, s2)]
+        osm0 = OnlineSoftmaxState.update(OnlineSoftmaxState.init(shape, device=dev),
+                                         first[0] * 0.5, dv)
+        osm1 = tuple(t.clone() for t in osm0)
+        _, a1, a2 = step(cost, s1, s2, osm=osm0, dv=dv)
+        again = step(cost, s1, s2)
+        _, b1, b2 = step(cost, s1, s2, osm=osm1, dv=dv)
+    for a, b in zip(first, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip((*osm0, a1, a2), (*osm1, b1, b2)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_red_step2_launches_per_step(dev):
+    """One step is 3 device launches (the three levels), as the profiler
+    sees them, with and without the softmax fold; the counter counts
+    steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mod, cost, s1, s2 = _red2_inputs(dev, 32, 96, 128, True, 4)
+    step = mod.plane_step(dev)
+    osm = OnlineSoftmaxState.init((192, 256), device=dev)
+    dv = torch.full((192, 256), 100.0, device=dev)
+    n = rs.red_step2.launches
+    with torch.no_grad():
+        step(cost, s1, s2, osm=osm, dv=dv)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(cost, s1, s2)
+            step(cost, s1, s2, osm=osm, dv=dv)
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "Memset" not in e.name and "Memcpy" not in e.name]
+    if kernels:  # a profiler session now and then sees no device events
+        assert len(kernels) == 2 * RED2_LAUNCHES_PER_STEP, kernels
+        assert all("red2_level" in k for k in kernels), kernels
+    assert rs.red_step2.launches == n + 3
+
+
+def test_red_step2_wrapper_refuses(dev):
+    from deep3d_aerial_tpu_torch.ops.cuda_build import load
+
+    mod, cost, s1, s2 = _red2_inputs(dev, 16, 12, 18, True, 5)
+    params = dict(mod.named_parameters())
+    osm = OnlineSoftmaxState.init((24, 36), device=dev)
+    with pytest.raises(ValueError, match="both"):
+        rs.red_step2(params, cost, s1, s2, up=True, osm=osm)
+    with pytest.raises(ValueError, match="softmax"):
+        rs.red_step2(params, cost, s1, s2, up=True, osm=osm[:3] + (osm[3][:12],),
+                     dv=torch.zeros((24, 36), device=dev))
+    with pytest.raises(ValueError, match="packed"):
+        rs.red_step2(params, cost, s1, s2, up=True,
+                     packed=rs.pack_params(params, True)[:-4])
+    n12 = load("red_step2").red_step2_param_floats(12)  # a size the C entry accepts
+    with pytest.raises(RuntimeError, match="channel"):
+        rs.red_step2(params, torch.zeros((12, 12, 18), device=dev), s1, s2, up=True,
+                     packed=torch.zeros(n12, device=dev))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

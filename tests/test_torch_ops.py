@@ -131,3 +131,20 @@ def test_upsample_axis_lerp(p, axis):
     j = jresize.upsample_axis_lerp(jnp.asarray(x), p, axis)
     t = tresize.upsample_axis_lerp(torch.from_numpy(x), p, axis)
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-6)
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """A kernel library is named by its source and every csrc/ header the
+    source includes, headers included by headers too: a changed header
+    builds anew instead of loading a stale library."""
+    from deep3d_aerial_tpu_torch.ops import cuda_build
+
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b, first version\n")
+    monkeypatch.setattr(cuda_build, "_CSRC", tmp_path)
+    assert [p.name for p in cuda_build._sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = cuda_build.library_path("k")
+    assert cuda_build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, second version\n")
+    assert cuda_build.library_path("k") != first

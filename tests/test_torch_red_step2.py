@@ -110,3 +110,99 @@ def test_red_step2_chained_over_four_planes():
                                        atol=2e-5)
     np.testing.assert_allclose(t1.numpy(), np.asarray(j1), rtol=0, atol=2e-5)
     np.testing.assert_allclose(t2.numpy(), np.asarray(j2), rtol=0, atol=2e-5)
+
+
+def test_red_step2_softmax_fold_plain_route_matches_jax():
+    """The step with the sweep's online-softmax state (the fold K3 makes on
+    the card) takes, on CPU tensors, red_step2_plain and then the update in
+    place: held against the JAX package's RedStep2 followed by its
+    OnlineSoftmaxState.update over 3 chained planes from init (the first
+    plane sees m = -inf), at an odd size. States and unit-scale softmax
+    sums within 2e-5 by the third plane (each step's 1e-5 feeds the next);
+    acc sums e * depth, so it is held at 2e-5 x the depth."""
+    from deep3d_aerial_tpu.models.cascade import OnlineSoftmaxState as JOSM
+    from deep3d_aerial_tpu_torch.models.cascade import OnlineSoftmaxState
+
+    rng = np.random.default_rng(40)
+    H, W, cin = 11, 15, 16
+    cost, s1, s2, jmod, jparams, tmod = _setup(rng, cin, H, W, True)
+    costs = rng.normal(size=(3, H, W, cin)).astype(np.float32)
+    dvs = rng.uniform(90.0, 110.0, size=(3, 2 * H, 2 * W)).astype(np.float32)
+
+    @jax.jit
+    def jstep(c, a, b, osm, dv):
+        score, a, b = jmod.apply(jparams, c, a, b)
+        return JOSM.update(osm, score, dv), a, b
+
+    josm, ja, jb = JOSM.init((2 * H, 2 * W)), jnp.asarray(s1), jnp.asarray(s2)
+    osm = OnlineSoftmaxState.init((2 * H, 2 * W))
+    ta, tb = (torch.from_numpy(np.transpose(a, (2, 0, 1)).copy()) for a in (s1, s2))
+    step = tmod.plane_step(torch.device("cpu"))
+    with torch.no_grad():
+        for k in range(3):
+            josm, ja, jb = jstep(jnp.asarray(costs[k]), ja, jb, josm, jnp.asarray(dvs[k]))
+            score, ta, tb = step(torch.from_numpy(np.transpose(costs[k], (2, 0, 1)).copy()),
+                                 ta, tb, osm=osm, dv=torch.from_numpy(dvs[k]))
+            assert score is None
+    for t, j, scale in zip(osm, josm, (1.0, 1.0, 110.0, 1.0)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=2e-5 * scale)
+    np.testing.assert_allclose(ta.numpy(), np.transpose(np.asarray(ja), (2, 0, 1)),
+                               rtol=0, atol=2e-5)
+    np.testing.assert_allclose(tb.numpy(), np.transpose(np.asarray(jb), (2, 0, 1)),
+                               rtol=0, atol=2e-5)
+    depth, conf = OnlineSoftmaxState.finalize(osm)
+    jdepth, jconf = JOSM.finalize(josm)
+    np.testing.assert_allclose(depth.numpy(), np.asarray(jdepth), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(conf.numpy(), np.asarray(jconf), rtol=0, atol=1e-4)
+
+
+def _unpack_frags(packed, ci, co):
+    """Packed TF32 fragments (ops/cf_conv.py:pack_frags) -> ([ci, 3, 3, co]
+    as hi + lo, hi): per (8-channel chunk, tap, n8 fragment) 32 lanes of
+    (b0 hi, b1 hi, b0 lo, b1 lo), lane = 4 g + t, b0 the chunk's input
+    channel t and b1 t + 4, g the fragment's output channel."""
+    t = np.asarray(packed, np.float32).reshape(ci // 8, 9, co // 8, 8, 4, 2, 2)
+    out = []
+    for x in (t[..., 0, :] + t[..., 1, :], t[..., 0, :]):
+        # chunk, tap, nf, g, t, half -> (chunk, half, t), tap, (nf, g)
+        out.append(x.transpose(0, 5, 4, 1, 2, 3).reshape(ci, 3, 3, co))
+    return out
+
+
+@pytest.mark.parametrize("cin,up", [(8, False), (32, True)])
+def test_pack_params_layout(cin, up):
+    """K3's packed buffer (the C entry's layout): the seven tensor-core
+    layers in order, each as TF32 hi/lo fragments (hi with TF32's 10
+    mantissa bits, hi + lo the weight exactly) then its bias; convs OIHW
+    as [I, 3, 3, O], upconv1 [in, out, 3, 3] as [in, 3, 3, out]; then the
+    score conv as [8][3][3] and its bias padded to 8. Every section starts
+    16-byte aligned."""
+    from deep3d_aerial_tpu_torch.ops.red_step2 import pack_params
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    mod = init_random_weights(RedStep2(cin, up=up), seed=cin)
+    p = {k: v.detach() for k, v in mod.named_parameters()}
+    packed = pack_params(p, up).numpy()
+    layers = [("conv1.conv", cin, 8), ("gru1.gates", 16, 16), ("gru1.cand", 16, 8),
+              ("conv2.conv", 8, 16), ("gru2.gates", 32, 32), ("gru2.cand", 32, 16),
+              ("upconv1", 16, 8)]
+    off = 0
+    for name, ci, co in layers:
+        assert off % 4 == 0
+        n = ci * co * 18
+        whole, hi = _unpack_frags(packed[off:off + n], ci, co)
+        w = p[f"{name}.weight"]
+        want = w.permute(0, 2, 3, 1) if name == "upconv1" else w.permute(1, 2, 3, 0)
+        np.testing.assert_array_equal(whole, want.numpy())
+        assert not (hi.view(np.int32) & 0x1FFF).any()
+        assert np.abs(whole - hi).max() <= np.abs(whole).max() * 2.0 ** -11
+        np.testing.assert_array_equal(packed[off + n:off + n + co],
+                                      p[f"{name}.bias"].numpy())
+        off += n + co
+    assert packed.size - off == 80  # the score section
+    score = "upconv2d" if up else "out2d"
+    ws = p[f"{score}.weight"]
+    np.testing.assert_array_equal(packed[off:off + 72],
+                                  (ws[:, 0] if up else ws[0]).reshape(-1).numpy())
+    np.testing.assert_array_equal(packed[off + 72:],
+                                  np.r_[p[f"{score}.bias"].numpy(), np.zeros(7, np.float32)])
