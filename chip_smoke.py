@@ -44,6 +44,7 @@ a whole GRU step); K3's entry carries `convs_cudnn_ms`, a yardstick of its
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -249,29 +250,89 @@ def loop_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def own_launches():
+    """Device launches of the port's kernels so far, from the wrappers'
+    counters: a sweep call is one launch, a RedStep2 step RED2_LAUNCHES, a
+    RedStep4 step its two GRU passes beside the conv-template launches it
+    adds to cf_conv3x3's count."""
+    from deep3d_aerial_tpu_torch.ops.cf_conv import cf_conv3x3
+    from deep3d_aerial_tpu_torch.ops.red_step2 import red_step2
+    from deep3d_aerial_tpu_torch.ops.red_step4 import red_step4
+    from deep3d_aerial_tpu_torch.ops.sweep import sweep_corr, sweep_cost, sweep_var
+
+    return (sweep_corr.launches + sweep_cost.launches + sweep_var.launches
+            + RED2_LAUNCHES * red_step2.launches
+            + (RED4_LAUNCHES - RED4_CONVS) * red_step4.launches + cf_conv3x3.launches)
+
+
+# the names of the port's kernels (csrc/*.cu), as the profiler lists them
+OWN_KERNEL = re.compile(r"\b(sweep_\w+_kernel|red2_level\d_kernel|gru_(reset|update)_kernel"
+                        r"|conv_mma_kernel)\b")
+
+
 def device_ms(fn, iters):
     """Mean device milliseconds per call, after one warm call: the summed
     durations of the device work (kernels, copies, fills) that `iters` calls
-    launch, from torch.profiler (CUPTI). The host's issue time and the gaps
-    between launches are not in it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    launch, from torch.profiler (CUPTI, `device_events`); the larger of two
+    sessions. The host's issue time and the gaps between launches are not
+    in it. Each session must list one event of the port's kernels for each
+    launch that the wrappers' counters add (`own_launches`) over the warm
+    call, times `iters`; a session that does not is measured again, and
+    five in a row raise. A lost event of a PyTorch or cuDNN kernel, which no
+    counter sees, would only lower a plain version's or a yardstick's sum."""
+    from deep3d_aerial_tpu_torch.utils.profiling import device_events
 
+    before = own_launches()
     fn()
     torch.cuda.synchronize()
-    # a profiler session now and then returns no device events at all
-    # (seen on torch 2.11 right after another session): measure once more
-    for attempt in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-        log("[profile] a profiler session saw no device events; measuring again")
-    raise RuntimeError("torch.profiler saw no device work: device time not measured")
+    want = (own_launches() - before) * iters
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    def whole(evs):
+        return sum(1 for e in evs if OWN_KERNEL.search(e.name)) == want
+    us = max(sum(e.time_range.elapsed_us() for e in device_events(run, whole))
+             for _ in range(2))
+    if us <= 0:
+        raise RuntimeError("torch.profiler saw no device work: device time not measured")
+    return us / 1e3 / iters
+
+
+def kernels_of(evs):
+    """The kernel events of `evs` (memsets and copies left out)."""
+    return [e for e in evs if "Memset" not in e.name and "Memcpy" not in e.name]
+
+
+def kernel_events(fn, per_call, what):
+    """The kernel events of three profiled calls of `fn` (`device_events`),
+    in start order, holding exactly `per_call` launches a call: a session
+    that lists another count (a lost event) is measured again, and five in
+    a row raise, with the events listed."""
+    from deep3d_aerial_tpu_torch.utils.profiling import device_events
+
+    calls = 3
+
+    def run():
+        for _ in range(calls):
+            fn()
+    try:
+        return kernels_of(device_events(
+            run, lambda evs: len(kernels_of(evs)) == calls * per_call))
+    except AssertionError as e:
+        raise AssertionError(f"{what}: not {per_call} launches a call: {e}") from None
+
+
+def one_call(evs, kernels, what):
+    """The last run of len(kernels) consecutive events whose names hold
+    `kernels` in order (one whole call of a multi-launch step)."""
+    n = len(kernels)
+    for i in range(len(evs) - n, -1, -1):
+        if all(k in e.name for k, e in zip(kernels, evs[i:i + n])):
+            return evs[i:i + n]
+    raise AssertionError(f"{what}: no call launched {', '.join(kernels)} in order: "
+                         + ", ".join(e.name[:40] for e in evs))
 
 
 def bound_ms(nbytes, flops, peak=PEAK_FP32):
@@ -287,9 +348,9 @@ def bound_ms(nbytes, flops, peak=PEAK_FP32):
 GEOM_FLOPS = 30
 
 
-def sweep_corr_work(K, H, W, C):
-    nbytes = 4 * (2 * H * W * C + 2 * K * H * W + 12)
-    flops = K * H * W * (GEOM_FLOPS + 8 * C + 2 * C)  # 4 taps, dot, mean
+def sweep_corr_work(V, K, H, W, C):
+    nbytes = 4 * ((V + 1) * H * W * C + K * H * W + V * K * H * W + 12 * V)
+    flops = V * K * H * W * (GEOM_FLOPS + 8 * C + 2 * C)  # 4 taps, dot, mean
     return nbytes, flops
 
 
@@ -450,10 +511,10 @@ def stage_rel(cam, poses, stage, dev):
     return torch.from_numpy(rel).to(dev)
 
 
-def stage_planes(cam, poses, stage, H, W, dev):
-    """One chunk of CHUNK depth planes [CHUNK, H, W] as the main path's
-    stage gives them: uniform over the range at stage 1, a window around
-    the rendered depth after."""
+def stage_planes(cam, poses, stage, H, W, dev, n=CHUNK):
+    """n depth planes [n, H, W] (a chunk of CHUNK by default) as the main
+    path's stage gives them: the first n of stage 1's uniform planes over
+    the range, a window around the rendered depth after."""
     from deep3d_aerial_tpu_torch.ops.depth_samplers import window_depth_samples
 
     _, depth = render(cam, poses[0], dev)
@@ -462,10 +523,26 @@ def stage_planes(cam, poses, stage, H, W, dev):
         align_corners=False)[0, 0]
     if stage == 0:
         lo, hi = float(depth.min()) - 10, float(depth.max()) + 10
-        d = torch.linspace(lo, hi, NDEPTHS[0], device=dev)[:CHUNK]
-        return d[:, None, None].expand(CHUNK, H, W).contiguous()
+        d = torch.linspace(lo, hi, NDEPTHS[0], device=dev)[:n]
+        return d[:, None, None].expand(n, H, W).contiguous()
     interval = (2.0 if stage == 1 else 1.0) * 0.1
-    return window_depth_samples(center, CHUNK, interval).contiguous()
+    return window_depth_samples(center, n, interval).contiguous()
+
+
+def sweep_breakdown(fn, kernel, what):
+    """Device microseconds of one launch of a sweep wrapper (median over
+    three profiled calls); raises unless each call is exactly one launch of
+    `kernel` (no copy of the projections, no other work)."""
+    fn()
+    torch.cuda.synchronize()
+    evs = kernel_events(fn, 1, what)
+    if any(kernel not in e.name for e in evs):
+        raise AssertionError(f"{what} launched " + ", ".join(e.name[:60] for e in evs)
+                             + f", not only {kernel}")
+    us = float(np.median([e.time_range.elapsed_us() for e in evs]))
+    log(f"[profile:sweep] {what}: one launch, {us:.1f} us of device time (median of "
+        f"{len(evs)}; {evs[0].name[:40]})")
+    return us
 
 
 def phase_kernels(dev, cam0, poses0, camF, posesF):
@@ -552,31 +629,21 @@ def phase_kernels(dev, cam0, poses0, camF, posesF):
         return yard
 
     def red2_breakdown(params, packed, cost, s1, s2, up, dv, tag):
-        """Device microseconds of each launch of one fused step (the second
-        of two profiled steps), labelled by level; raises unless a step is
-        exactly RED2_LAUNCHES launches."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
+        """Device microseconds of each launch of one fused step (the last
+        whole step of three profiled), labelled by level; raises unless a
+        step is exactly RED2_LAUNCHES launches."""
         osm = OnlineSoftmaxState.init(dv.shape, device=dev)
-        red_step2(params, cost, s1, s2, up=up, packed=packed, osm=osm, dv=dv)
+
+        def step():
+            red_step2(params, cost, s1, s2, up=up, packed=packed, osm=osm, dv=dv)
+
+        step()
         torch.cuda.synchronize()
-        for _ in range(2):  # a profiler session now and then sees no device events
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(2):
-                    red_step2(params, cost, s1, s2, up=up, packed=packed, osm=osm, dv=dv)
-                torch.cuda.synchronize()
-            evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                         key=lambda e: e.time_range.start)
-            if evs:
-                break
-        evs = evs[len(evs) // 2:]
         want = [("L1 x1+gates1+cand1", "red2_level1"), ("L2 x2+gates2+cand2", "red2_level2"),
                 ("L3 upconv1+score+softmax", "red2_level3")]
-        if len(evs) != RED2_LAUNCHES or any(k not in e.name for (_, k), e in zip(want, evs)):
-            raise AssertionError(f"one RedStep2 step launched {len(evs)} kernels, "
-                                 f"expected {RED2_LAUNCHES}: "
-                                 + ", ".join(e.name[:40] for e in evs))
+        what = f"RedStep2 steps at {tag}"
+        evs = one_call(kernel_events(step, RED2_LAUNCHES, what),
+                       [k for _, k in want], what)
         us = [[lab, round(e.time_range.elapsed_us(), 1)] for (lab, _), e in zip(want, evs)]
         log(f"[profile:red_step2] {tag}: one step, {len(evs)} launches, "
             f"{sum(u for _, u in us):.1f} us of device time: " + json.dumps(us))
@@ -590,19 +657,40 @@ def phase_kernels(dev, cam0, poses0, camF, posesF):
         ref, srcs = rnd(H, W, C), rnd(V1, H, W, C)
         d = stage_planes(cam0, poses0, stage, H, W, dev)
         tag = f"stage{stage + 1} {H}x{W} C{C}"
-        if stage == 0:
-            compare("sweep_corr", tag + f" K{CHUNK}",
-                    lambda: sweep_corr(ref, srcs[0], rel[0], d),
-                    lambda: sweep_corr_plain(ref, srcs[0], rel[0], d),
-                    TOL_SWEEP, sweep_corr_work(CHUNK, H, W, C),
-                    V1 * D // CHUNK, 50)
+        if stage != 1:
+            # K1: every view's volume over stage 1's planes, one launch a
+            # map (at stage 3's shape only profiled, for comparison)
+            dpair = stage_planes(cam0, poses0, 0, H, W, dev, n=NDEPTHS[0])
+            if stage == 0:
+                compare("sweep_corr", tag + f" V{V1} D{NDEPTHS[0]}",
+                        lambda: sweep_corr(ref, srcs, rel, dpair),
+                        lambda: sweep_corr_plain(ref, srcs, rel, dpair),
+                        TOL_SWEEP, sweep_corr_work(V1, NDEPTHS[0], H, W, C), 1, 50)
+            sweep_breakdown(lambda: sweep_corr(ref, srcs, rel, dpair), "sweep_pair",
+                            f"sweep_corr {tag} V{V1} D{NDEPTHS[0]}"
+                            + ("" if stage == 0 else " (not a main-path shape)"))
+            del dpair
         wts = torch.rand((V1, H, W), generator=g, device=dev) * 0.9 + 0.1
         compare("sweep_cost", tag + f" V{V1} K{CHUNK}",
                 lambda: sweep_cost(ref, srcs, rel, d, wts),
                 lambda: sweep_cost_plain(ref, srcs, rel, d, wts),
                 TOL_SWEEP, sweep_cost_work(V1, CHUNK, H, W, C), D // CHUNK, 50)
+        if stage != 1:
+            sweep_breakdown(lambda: sweep_cost(ref, srcs, rel, d, wts), "sweep_cost",
+                            f"sweep_cost {tag} V{V1} K{CHUNK}")
         yard += D * red2_case(C, H, W, stage < 2, stage, D, 50, tag)
 
+    # production frame, stages 1-2 (464x688 C32, 928x1376 C16): K2
+    for stage in (0, 1):
+        H, W, C = FULL_H >> (2 - stage), FULL_W >> (2 - stage), CHANNELS[stage]
+        rel = stage_rel(camF, posesF, stage, dev)
+        ref, srcs = rnd(H, W, C), rnd(V1, H, W, C)
+        d = stage_planes(camF, posesF, stage, H, W, dev)
+        wts = torch.rand((V1, H, W), generator=g, device=dev) * 0.9 + 0.1
+        compare("sweep_cost", f"full-res stage{stage + 1} {H}x{W} C{C} V{V1} K{CHUNK}",
+                lambda: sweep_cost(ref, srcs, rel, d, wts),
+                lambda: sweep_cost_plain(ref, srcs, rel, d, wts),
+                TOL_SWEEP, sweep_cost_work(V1, CHUNK, H, W, C), 0, 5)
     # production frame, stage 3 (1856x2752, C=8): K2 and K3
     H, W, C = FULL_H, FULL_W, CHANNELS[2]
     rel = stage_rel(camF, posesF, 2, dev)
@@ -663,6 +751,9 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
                 lambda: sweep_var(ref, srcs, rel, d),
                 lambda: sweep_var_plain(ref, srcs, rel, d),
                 TOL_VAR, sweep_var_work(V1, CHUNK, H, W, C), per_map, iters)
+        if stage != 1:
+            sweep_breakdown(lambda: sweep_var(ref, srcs, rel, d), "sweep_var",
+                            f"sweep_var {tag} V{V1} K{CHUNK}")
 
     def red4_case(C, H, W, per_map, iters, tag):
         mod = init_random_weights(RedStep4(C), seed=C).to(dev)
@@ -687,35 +778,27 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
                     n_calls=3, conv=True)
 
     def step_breakdown(C, H, W, tag):
-        """Device microseconds of each launch of one step (the second of
-        two profiled steps), labelled by layer in launch order."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
+        """Device microseconds of each launch of one step (the last whole
+        step of three profiled), labelled by layer in launch order; raises
+        unless a step is exactly RED4_LAUNCHES launches."""
         mod = init_random_weights(RedStep4(C), seed=C).to(dev)
         params, packed = dict(mod.named_parameters()), mod._packed.get(mod)
         cost, states = rnd(C, H, W), mod.init_states(H, W, device=dev)
-        with torch.no_grad():
+
+        def step():
             red_step4(params, cost, *states, packed=packed)
+
+        what = f"RedStep4 steps at {tag}"
+        with torch.no_grad():
+            step()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(2):
-                    red_step4(params, cost, *states, packed=packed)
-                torch.cuda.synchronize()
-        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        n_step = len(evs) // 2
-        evs = evs[n_step:]
+            evs = kernel_events(step, RED4_LAUNCHES, what)
         want = [("conv1", "conv_mma"), ("conv2", "conv_mma"), ("conv3", "conv_mma"),
                 ("gates1-4", "conv_mma"), ("reset", "gru_reset"),
                 ("cand1-4", "conv_mma"), ("update", "gru_update"),
                 ("upconv3", "conv_mma"), ("upconv2", "conv_mma"),
                 ("upconv1", "conv_mma"), ("score", "conv_mma")]
-        if len(evs) != RED4_LAUNCHES or any(
-                k not in e.name for (_, k), e in zip(want, evs)):
-            raise AssertionError(f"one RedStep4 step launched {len(evs)} kernels, "
-                                 f"expected {RED4_LAUNCHES}: "
-                                 + ", ".join(e.name[:40] for e in evs))
+        evs = one_call(evs, [k for _, k in want], what)
         us = [[lab, round(e.time_range.elapsed_us(), 1)] for (lab, _), e in zip(want, evs)]
         log(f"[profile:red_step4] {tag}: one step, {len(evs)} launches, "
             f"{sum(u for _, u in us):.1f} us of device time: " + json.dumps(us))
@@ -741,7 +824,11 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
                 lambda: cf_conv3x3_plain(x, w, b, mode=mode, relu=False),
                 TOL_CONV, conv_work(ci, co, H, W, mode), n, 50,
                 library_fn=cudnn_conv(x, w, b, mode), conv=True)
-    # production frame, stage 3 (1856x2752, C=8): K2v and K4
+    # production frame (1856x2752): K2v at each stage, K4 at stage 3
+    for stage in (0, 1):
+        H, W, C = FULL_H >> (2 - stage), FULL_W >> (2 - stage), MSRED_CHANNELS[stage]
+        var_case(camF, posesF, stage, H, W, C, 0, 5,
+                 f"full-res stage{stage + 1} {H}x{W} C{C}")
     tag = f"full-res stage3 {FULL_H}x{FULL_W} C8"
     var_case(camF, posesF, 2, FULL_H, FULL_W, 8, 1, 5, tag)
     red4_case(8, FULL_H, FULL_W, NDEPTHS[2], 2, tag)
@@ -1108,48 +1195,50 @@ def phase_end_to_end_msrednet(dev, cam0, poses0):
             f"(tol {dtol:.3e}), confidence {dc:.3e} (tol {TOL_CONF:g})")
         if not (dd <= dtol and dc <= TOL_CONF):
             raise AssertionError(f"MSREDNet end to end {s}: depth {dd}, conf {dc}")
+    # two forwards profiled: exactly their conv-template launches
+    want = 2 * RED4_CONVS * sum(NDEPTHS)
     busy, counts = profile_forward(
         mk, (imgs, rel, dmin, dmax),
         {"sweep_var": "K2v sweep_var", "conv_mma_kernel": "K5 cf_conv3x3 (in K4)",
          "gru_": "K4 GroupNorm + GRU passes"},
-        "profile:msrednet")
-    want = RED4_CONVS * sum(NDEPTHS)
+        "profile:msrednet", calls=2)
     got = counts.get("K5 cf_conv3x3 (in K4)", 0)
-    log(f"[profile:msrednet] conv-template launches in the forward's device "
-        f"events: {got} (expected {RED4_CONVS} x {sum(NDEPTHS)} planes)")
-    if busy and got != want:
-        raise AssertionError(f"{got} conv-template launches in one MSREDNet "
-                             f"forward, expected {want}")
+    log(f"[profile:msrednet] conv-template launches in two forwards' device "
+        f"events: {got} (expected 2 x {RED4_CONVS} x {sum(NDEPTHS)} planes)")
+    if got != want:
+        raise AssertionError(f"{got} conv-template launches in two MSREDNet "
+                             f"forwards, expected {want}")
     return busy, counts
 
 
-def profile_forward(model, inputs, fams, tag="profile"):
-    """Device busy time of one 384x512 forward (torch.profiler, CUPTI),
-    by kernel family (`fams`: name substring -> family), against the
-    unprofiled forward's wall time: the device's idle share of a map.
-    Returns (busy ms, device launches) by family, empty if the profiler saw
-    no device events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_forward(model, inputs, fams, tag="profile", calls=1):
+    """Device busy time of a 384x512 forward (torch.profiler, CUPTI; the
+    mean over `calls` profiled forwards), by kernel family (`fams`: name
+    substring -> family), against the unprofiled forward's wall time: the
+    device's idle share of a map. Returns (busy ms per forward, device
+    launches over the `calls` forwards) by family, empty if the profiler
+    saw no device events. The session must list one event of the port's
+    kernels for each launch the wrappers count (as in `device_ms`)."""
+    from deep3d_aerial_tpu_torch.utils.profiling import device_events
 
     walls = []
     with torch.no_grad():
+        before = own_launches()
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             model(*inputs)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model(*inputs)
-            torch.cuda.synchronize()
+        want = (own_launches() - before) // 3 * calls
+        evs = device_events(lambda: [model(*inputs) for _ in range(calls)],
+                            lambda evs: sum(1 for e in evs
+                                            if OWN_KERNEL.search(e.name)) == want)
     wall = float(np.median(walls))
     busy, counts = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in evs:
         fam = next((v for k, v in fams.items() if k in e.name), "other (PyTorch ops, cuDNN)")
-        busy[fam] = busy.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+        busy[fam] = busy.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
         counts[fam] = counts.get(fam, 0) + 1
     total = sum(busy.values())
     if total == 0:
@@ -1160,7 +1249,8 @@ def profile_forward(model, inputs, fams, tag="profile"):
         f"unprofiled), device busy {total:.2f} ms, idle share "
         f"{1 - total / wall:.3f}; busy ms by family " + json.dumps(
             {k: round(v, 3) for k, v in sorted(busy.items())})
-        + "; device launches by family " + json.dumps(dict(sorted(counts.items()))))
+        + f"; device launches by family over {calls} forward(s) "
+        + json.dumps(dict(sorted(counts.items()))))
     return busy, counts
 
 
@@ -1238,7 +1328,7 @@ def main() -> int:
     t = time.perf_counter()
     launches, _ = phase_main_path(
         dev, cam0, poses0, (sweep_corr, sweep_cost, red_step2),
-        {"sweep_corr": (VIEWS - 1) * NDEPTHS[0] // CHUNK,
+        {"sweep_corr": 1,
          "sweep_cost": sum(d // CHUNK for d in NDEPTHS),
          "red_step2": sum(NDEPTHS)})
     log(f"[phase] main path {time.perf_counter() - t:.1f} s")

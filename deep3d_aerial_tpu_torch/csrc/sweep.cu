@@ -3,44 +3,72 @@
 //
 // Replaces:
 //   pair mode     -> deep3d_aerial_tpu/ops/pallas_sweep.py:_sweep_corr_kernel
-//                    (entry sweep_corr_chunk_pallas; the AdaMVS stage-1 pair
-//                    volumes, models/adamvs.py:_pair_volumes_pallas)
+//                    (entry sweep_corr_chunk_pallas, which the AdaMVS pair
+//                    branch, models/adamvs.py:_pair_volumes_pallas, maps over
+//                    views and chunks of 8 planes; here one launch builds
+//                    every view's whole volume)
 //   cost mode     -> deep3d_aerial_tpu/ops/pallas_sweep.py:_sweep_cost_kernel,
 //                    mode='corr' (entry sweep_cost_chunk_prepared; every
 //                    AdaMVS stage's cost chunk, models/cascade.py:_pallas_chunk_costs)
 //   variance mode -> the same TPU kernel, mode='variance' (every MSREDNet
 //                    stage's cost chunk; oracle models/cascade.py:variance_cost_plane)
 //
-// pair:     out[k,y,x]   = mean_c ref[y,x,c] * warp(src, k)[y,x,c]
+// pair:     out[v,k,y,x] = mean_c ref[y,x,c] * warp(src_v, k)[y,x,c]
 // cost:     out[k,c,y,x] = sum_v w_v[y,x] * ref[y,x,c] * warp(src_v, k)[y,x,c]
 //                          / (sum_v w_v[y,x] + 1e-5)
 // variance: out[k,c,y,x] = E[f^2] - E[f]^2 over f in {ref[y,x,c]} and the
 //                          V values warp(src_v, k)[y,x,c] (n = V + 1, no weights)
 // warp(src, k)[y,x] is the bilinear sample of src [H,W,C] at the projection
-// of ref pixel (x, y) at depth depths[k,y,x] through the view's 12 rel
-// scalars (rows 0-2 of src_P @ inv(ref_P)); each of the 4 taps is zeroed on
-// its own when it falls outside the image, and a point at or behind the
-// source camera (z <= 1e-6) samples nothing.
+// of ref pixel (x, y) at depth depths[k,y,x] through rows 0-2 of the view's
+// [4, 4] rel (src_P @ inv(ref_P)); each of the 4 taps is zeroed on its own
+// when it falls outside the image, and a point at or behind the source
+// camera (z <= 1e-6) samples nothing.
 //
-// What bounds it on an H100: bytes. Per (plane, pixel, view) the kernel does
-// ~12 flops of geometry and 8 per channel, against 4 taps of C contiguous
-// floats (32-128 B each) -- far below the card's ~20 flop/byte balance point.
-// The unique bytes are the inputs read once plus the output written once;
-// the tap reads themselves repeat across planes and neighbouring pixels and
-// are served by L1/L2 (a stage's source features are at most 4 x 5.1 Mpx x
-// 8 ch x 4 B = 653 MB at 1856x2752, and 6.3 MB at 384x512 stage 1).
+// What bounds it on an H100. The unique bytes (the inputs read once, the
+// output written once) set the bound, but the taps repeat them: per
+// (plane, pixel, view) 4 taps of C contiguous floats (32-128 B), which
+// neighbouring planes and pixels share, served by L1 and L2. On the card
+// the limit is instruction issue and latency: the projection of one
+// (plane, pixel, view) -- the p = ray * d + t chain, two IEEE divisions,
+// floors, tap validity -- costs ~60 instructions, as much as gathering 8
+// channels, and with the projection compiled out a stage-3 cost chunk takes
+// about half its time (scripts/sweep_probe.py, variant nodesc).
 //
-// Design: one thread per (plane k, ref pixel), 256 threads a block, x the
-// fastest index so a warp covers 32 neighbouring ref pixels whose taps land
-// on neighbouring source pixels. Features are channels-last, so one tap is
-// C/4 16-byte loads of one contiguous run. The sums over C and over views
-// stay in registers; no [V,K,H,W,C] warp buffer exists and only the output
-// reaches device memory (the variance mode keeps its sum and sum of
-// squares per channel the same way). No source windows: a tap may land anywhere in the
-// source image (the TPU kernel's windows and coverage flag are what made it
-// miss at 1856x2752). The projection uses round-to-nearest intrinsics so no
-// product and sum is fused into an FMA: the coordinates round exactly as the
-// plain PyTorch chain's (ops/warp.py) do.
+// Design:
+// - Each (plane, pixel, view) is projected once, into a tap descriptor:
+//   the offset of an in-image 2x2 block of source pixels and its 4 weights.
+//   The plain version's taps (x0, y0) .. (x1, y1), each zeroed on its own
+//   outside the image, map onto the block at (x0, y0) clamped to
+//   [0, W-2] x [0, H-2]: an outside tap gets weight 0, an in-image tap
+//   keeps its own weight (the same product) at its own position. So no tap
+//   load has a branch, and every load reads the image. No source windows:
+//   a tap may land anywhere in the source.
+// - From C = 16 on (the lane-per-quad kernels), a block owns a row segment
+//   of NPIX = 256 / G ref pixels and KT planes (8 in pair and cost modes,
+//   4 in variance mode); G = C/4 neighbouring lanes
+//   per pixel each hold one float4 channel quad, so one tap of one pixel is
+//   one contiguous C x 4-byte run read by G lanes. Views are the outer
+//   loop: lane q of a pixel describes planes q, q+G, ... of the view into
+//   shared memory, then every lane gathers its quad of the KT planes (their
+//   taps issued back to back, neighbouring planes' footprints overlapping
+//   in L1). Each plane's [C, NPIX] tile is staged through shared memory so
+//   a warp writes 128-byte runs along x of the [K, C, H, W] output. The
+//   pair mode sums its lanes' products over the pixel's G lanes with a
+//   shuffle reduce-scatter (each lane ends with KT/G planes' totals).
+// - At C = 8 (the *_wide kernels; 2 lanes a pixel would project twice or
+//   exchange descriptors for little), one thread takes a pixel: it projects
+//   each (plane, view) and gathers both quads of each tap; consecutive
+//   threads are consecutive pixels, so each channel's stores are 128-byte
+//   runs.
+// - One-thread-per-pixel blocks take 8 planes (a sweep chunk), fewer where
+//   that would leave the grid under kMinBlocks blocks (the small stages).
+//   Lane-per-quad blocks take a fixed number of planes a mode (see
+//   kCostPlanes).
+// - The projection uses round-to-nearest intrinsics, so no product and sum
+//   is fused into an FMA: the coordinates round exactly as the plain PyTorch
+//   chain's (ops/warp.py) do. Sums over views stay in view order, and
+//   there are no atomics: the same bits on every run.
+// - Offsets are 64-bit (the 1856x2752 frame); ragged edges are masked.
 
 #include <cuda_runtime.h>
 
@@ -48,24 +76,81 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kUnsupported = 10000;  // channel count without an instance
+constexpr int kBadSize = 10001;      // H or W below 2, or H*W*C >= 2^31
+// Cost and variance take one lane per channel quad from C = kQuadLanesFrom
+// on, one thread per pixel below it (the *_wide kernels).
+constexpr int kQuadLanesFrom = 16;
+// Planes a lane-per-quad cost or variance block takes. On an H100
+// (scripts/sweep_probe.py, variant swap) 8 cost planes were 5-8% faster
+// than 4 at 96x128 C32 and at the 1856x2752 frame's 464x688 C32 and
+// 928x1376 C16 stages (3% slower at 192x256 C16); variance keeps two sums
+// a plane and was 19-44% slower at 8 than at 4.
+constexpr int kCostPlanes = 8;
+constexpr int kVarPlanes = 4;
+// Blocks per grid below which a one-thread-per-pixel block takes fewer
+// planes (more threads in flight on a small stage).
+constexpr long long kMinBlocks = 1024;
+// Blocks per SM the register budget must allow (at most 85 registers a
+// thread on the lane-per-quad kernels, 64 on the one-thread-per-pixel ones).
+constexpr int kBlocksPerSM = 3;
+constexpr int kBlocksPerSMWide = 4;
 
-struct Taps {
-  const float* p[4];   // tap rows (nullptr: outside the image)
-  float w[4];          // bilinear weights, order (x0,y0) (x1,y0) (x0,y1) (x1,y1)
+// The block's row segment and this lane's pixel and channel quad.
+template <int C>
+struct Tile {
+  static constexpr int G = C / 4;
+  static constexpr int NPIX = kThreads / G;
+  // shared-memory row stride of a [C, NPIX] plane tile: the pad makes the
+  // lanes' quad writes (rows 4q..4q+3, column p) hit distinct banks
+  static constexpr int S = NPIX + 8 / G;
+  int y, x0;  // the segment's row and first column
+  int p, q;   // this lane's pixel in the segment and channel quad
+  int x;      // its column, clamped into the image (lanes past the right
+              // edge compute a copy of the last pixel and store nothing)
+  __device__ __forceinline__ explicit Tile(int W) {
+    const int tiles_x = (W + NPIX - 1) / NPIX;
+    y = blockIdx.x / tiles_x;
+    x0 = (blockIdx.x % tiles_x) * NPIX;
+    p = threadIdx.x / G;
+    q = threadIdx.x % G;
+    x = min(x0 + p, W - 1);
+  }
 };
 
-__device__ __forceinline__ Taps project_taps(const float* __restrict__ rel,
-                                             const float* __restrict__ src,
-                                             int C, int H, int W,
-                                             float px, float py, float d) {
-  float p[3];
+// Rows 0-2 of a view's rel (its [4, 4] matrix, 16-byte aligned rows)
+// applied to ref pixel (px, py): p(d) = r * d + t.
+struct Ray {
+  float r[3], t[3];
+};
+
+__device__ __forceinline__ Ray make_ray(const float* __restrict__ rel,
+                                        float px, float py) {
+  Ray g;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float ray = __fadd_rn(__fadd_rn(__fmul_rn(rel[4 * a], px),
-                                          __fmul_rn(rel[4 * a + 1], py)),
-                                rel[4 * a + 2]);
-    p[a] = __fadd_rn(__fmul_rn(ray, d), rel[4 * a + 3]);
+    const float4 m = __ldg(reinterpret_cast<const float4*>(rel) + a);
+    g.r[a] = __fadd_rn(__fadd_rn(__fmul_rn(m.x, px), __fmul_rn(m.y, py)), m.z);
+    g.t[a] = m.w;
   }
+  return g;
+}
+
+// The block's tap descriptors of one view: for each (plane j, pixel p) the
+// float4 offset of the top-left tap of the in-image 2x2 block, and the
+// weights of its 4 taps in the order (x, y) (x+1, y) (x, y+1) (x+1, y+1).
+template <int KT, int NPIX>
+struct Descs {
+  float4 w[KT][NPIX];
+  int off[KT][NPIX];
+};
+
+// The descriptor of ref pixel (ray g) at depth d, G quads a source pixel
+// (see the design note above). Needs H, W >= 2.
+__device__ __forceinline__ void describe(const Ray& g, float d, int H, int W,
+                                         int G, int& off, float4& w) {
+  float p[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) p[a] = __fadd_rn(__fmul_rn(g.r[a], d), g.t[a]);
   const float z = p[2];
   const float sz = fabsf(z) < 1e-8f ? 1e-8f : z;
   float xs = __fdiv_rn(p[0], sz);
@@ -77,209 +162,476 @@ __device__ __forceinline__ Taps project_taps(const float* __restrict__ rel,
   const float x0 = floorf(xs), y0 = floorf(ys);
   const float fx = __fsub_rn(xs, x0), fy = __fsub_rn(ys, y0);
   const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy);
-  // validity in float: a coordinate far outside the image never reaches
-  // an int conversion
-  const bool vx0 = x0 >= 0.f && x0 <= (float)(W - 1);
-  const bool vx1 = x0 >= -1.f && x0 <= (float)(W - 2);
-  const bool vy0 = y0 >= 0.f && y0 <= (float)(H - 1);
-  const bool vy1 = y0 >= -1.f && y0 <= (float)(H - 2);
-  const int ix = vx0 || vx1 ? (int)x0 : 0;
-  const int iy = vy0 || vy1 ? (int)y0 : 0;
-  Taps t;
-  t.p[0] = vx0 && vy0 ? src + ((long long)iy * W + ix) * C : nullptr;
-  t.p[1] = vx1 && vy0 ? src + ((long long)iy * W + ix + 1) * C : nullptr;
-  t.p[2] = vx0 && vy1 ? src + ((long long)(iy + 1) * W + ix) * C : nullptr;
-  t.p[3] = vx1 && vy1 ? src + ((long long)(iy + 1) * W + ix + 1) * C : nullptr;
-  t.w[0] = __fmul_rn(gx, gy);
-  t.w[1] = __fmul_rn(fx, gy);
-  t.w[2] = __fmul_rn(gx, fy);
-  t.w[3] = __fmul_rn(fx, fy);
-  return t;
+  // clamped in float first: a coordinate far outside the image (or NaN)
+  // never reaches an int conversion, and -2 / W mean "no tap in the image"
+  const int xi = (int)fminf(fmaxf(x0, -2.f), (float)W);
+  const int yi = (int)fminf(fmaxf(y0, -2.f), (float)H);
+  const int xb = min(max(xi, 0), W - 2), yb = min(max(yi, 0), H - 2);
+  const float ax0 = xi == xb ? gx : (xi == xb - 1 ? fx : 0.f);
+  const float ax1 = xi == xb ? fx : (xi == xb + 1 ? gx : 0.f);
+  const float ay0 = yi == yb ? gy : (yi == yb - 1 ? fy : 0.f);
+  const float ay1 = yi == yb ? fy : (yi == yb + 1 ? gy : 0.f);
+  w = make_float4(__fmul_rn(ax0, ay0), __fmul_rn(ax1, ay0),
+                  __fmul_rn(ax0, ay1), __fmul_rn(ax1, ay1));
+  off = (yb * W + xb) * G;
 }
 
-// The warped value of channels [c, c+4), summed in the plain version's
-// order (tap 0 + tap 1 + tap 2 + tap 3), each product rounded on its own.
-__device__ __forceinline__ float4 sample4(const Taps& t, int c) {
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+// This lane's channel quad of the bilinear sample: the 4 taps of the block
+// at `off` (srcq: the view's source image at this lane's quad; rowq: float4s
+// per source row), summed in the plain version's tap order.
+template <int G>
+__device__ __forceinline__ float4 gather(const float4* __restrict__ srcq,
+                                         int off, float4 w, int rowq) {
+  const float4* b = srcq + off;
+  const float4 v0 = __ldg(b), v1 = __ldg(b + G);
+  const float4 v2 = __ldg(b + rowq), v3 = __ldg(b + rowq + G);
+  float4 r;
+  r.x = fmaf(v3.x, w.w, fmaf(v2.x, w.z, fmaf(v1.x, w.y, v0.x * w.x)));
+  r.y = fmaf(v3.y, w.w, fmaf(v2.y, w.z, fmaf(v1.y, w.y, v0.y * w.x)));
+  r.z = fmaf(v3.z, w.w, fmaf(v2.z, w.z, fmaf(v1.z, w.y, v0.z * w.x)));
+  r.w = fmaf(v3.w, w.w, fmaf(v2.w, w.z, fmaf(v1.w, w.y, v0.w * w.x)));
+  return r;
+}
+
+// Lane q of a pixel describes planes j = jj * G + q of its view (each
+// (pixel, plane, view) is projected once, not once per quad); __syncwarp
+// suffices, since a pixel's G lanes share a warp.
+template <int C, int KT>
+__device__ __forceinline__ void describe_view(Descs<KT, Tile<C>::NPIX>& ds,
+                                              const Tile<C>& t, const Ray& g,
+                                              const float* d, int H, int W) {
+  constexpr int G = Tile<C>::G, KPL = (KT + G - 1) / G;
+  __syncwarp();  // the previous view's descriptors are read
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (t.p[j] == nullptr) continue;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(t.p[j] + c));
-    s.x = __fadd_rn(s.x, __fmul_rn(v.x, t.w[j]));
-    s.y = __fadd_rn(s.y, __fmul_rn(v.y, t.w[j]));
-    s.z = __fadd_rn(s.z, __fmul_rn(v.z, t.w[j]));
-    s.w = __fadd_rn(s.w, __fmul_rn(v.w, t.w[j]));
+  for (int jj = 0; jj < KPL; ++jj) {
+    const int j = jj * G + t.q;
+    if (KT % G == 0 || j < KT) {
+      int off;
+      float4 w;
+      describe(g, d[jj], H, W, G, off, w);
+      ds.off[j][t.p] = off;
+      ds.w[j][t.p] = w;
+    }
   }
-  return s;
+  __syncwarp();
 }
 
+// This lane's depths of the planes it describes (a plane past K repeats
+// plane K-1; its output is not stored).
+template <int C, int KT>
+__device__ __forceinline__ void lane_depths(float* d, const Tile<C>& t,
+                                            const float* __restrict__ depths,
+                                            int k0, int K, long long HW,
+                                            long long pix) {
+  constexpr int G = Tile<C>::G, KPL = (KT + G - 1) / G;
+#pragma unroll
+  for (int jj = 0; jj < KPL; ++jj)
+    d[jj] = __ldg(depths + min(k0 + min(jj * G + t.q, KT - 1), K - 1) * HW + pix);
+}
+
+// Plane k of the block's output, out_k[c, y, x0 + i] for every channel,
+// through the shared-memory tile `buf` (one __syncthreads; the caller
+// alternates two buffers, so a buffer is rewritten only after every lane
+// has passed the barrier that followed its last read).
 template <int C>
-__global__ void __launch_bounds__(kThreads)
-sweep_pair_kernel(const float* __restrict__ ref, const float* __restrict__ src,
-                  const float* __restrict__ rel, const float* __restrict__ depths,
-                  float* __restrict__ out, int K, int H, int W) {
+__device__ __forceinline__ void store_plane(float* buf, float4 v,
+                                            const Tile<C>& t,
+                                            float* __restrict__ out_k,
+                                            long long HW, int W, bool live) {
+  constexpr int NPIX = Tile<C>::NPIX, S = Tile<C>::S;
+  buf[(4 * t.q + 0) * S + t.p] = v.x;
+  buf[(4 * t.q + 1) * S + t.p] = v.y;
+  buf[(4 * t.q + 2) * S + t.p] = v.z;
+  buf[(4 * t.q + 3) * S + t.p] = v.w;
+  __syncthreads();
+  if (!live) return;
+  float* row = out_k + (long long)t.y * W + t.x0;
+#pragma unroll
+  for (int r = 0; r < C * NPIX / kThreads; ++r) {
+    const int e = r * kThreads + threadIdx.x;
+    const int c = e / NPIX, i = e % NPIX;
+    if (t.x0 + i < W) row[c * HW + i] = buf[c * S + i];
+  }
+}
+
+// Sums a[0..KT) over a pixel's G lanes (lanes q of one pixel are
+// neighbours) in log2(G) butterfly steps, each halving what a lane keeps:
+// lane q ends with the totals of planes q * KT/G + i in a[i], i < KT/G.
+template <int KT, int G>
+__device__ __forceinline__ void reduce_scatter(float* a, int q) {
+  int n = KT;
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const bool up = (q & o) != 0;
+    n >>= 1;
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) {
+      if (i < n) {
+        const float send = up ? a[i] : a[i + n];
+        const float keep = up ? a[i + n] : a[i];
+        a[i] = keep + __shfl_xor_sync(0xffffffffu, send, o, G);
+      }
+    }
+  }
+}
+
+template <int C, int KT>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+sweep_pair_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
+                  const float* __restrict__ rels, const float* __restrict__ depths,
+                  float* __restrict__ out, int V, int D, int H, int W) {
+  constexpr int G = Tile<C>::G, NPIX = Tile<C>::NPIX, KPL = (KT + G - 1) / G;
+  static_assert(KT % G == 0, "each lane keeps KT / G planes' totals");
+  __shared__ Descs<KT, NPIX> ds;
+  __shared__ float tile[KT][NPIX];
+  const Tile<C> t(W);
+  const int groups = (D + KT - 1) / KT;
+  const int v = blockIdx.y / groups, k0 = (blockIdx.y % groups) * KT;
   const long long HW = (long long)H * W;
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (long long)K * HW) return;
-  const long long pix = idx % HW;
-  const int y = (int)(pix / W), x = (int)(pix % W);
-  const Taps t = project_taps(rel, src, C, H, W, (float)x, (float)y,
-                              depths[idx]);
-  const float* r = ref + pix * C;
-  float acc = 0.f;
+  const long long pix = (long long)t.y * W + t.x;
+  const float4 rv = __ldg(reinterpret_cast<const float4*>(ref + pix * C) + t.q);
+  float d[KPL];
+  lane_depths<C, KT>(d, t, depths, k0, D, HW, pix);
+  describe_view<C, KT>(ds, t, make_ray(rels + 16 * v, (float)t.x, (float)t.y),
+                       d, H, W);
+  const float4* src = reinterpret_cast<const float4*>(srcs) + (long long)v * HW * G + t.q;
+  float dot[KT];
 #pragma unroll
-  for (int c = 0; c < C; c += 4) {
-    const float4 s = sample4(t, c);
-    const float4 rv = __ldg(reinterpret_cast<const float4*>(r + c));
-    acc += s.x * rv.x + s.y * rv.y + s.z * rv.z + s.w * rv.w;
+  for (int j = 0; j < KT; ++j) {
+    const float4 s = gather<G>(src, ds.off[j][t.p], ds.w[j][t.p], W * G);
+    dot[j] = s.x * rv.x + s.y * rv.y + s.z * rv.z + s.w * rv.w;
   }
-  out[idx] = acc / (float)C;
+  reduce_scatter<KT, G>(dot, t.q);
+#pragma unroll
+  for (int i = 0; i < KT / G; ++i) tile[t.q * (KT / G) + i][t.p] = dot[i] / (float)C;
+  __syncthreads();
+  float* base = out + ((long long)v * D + k0) * HW + (long long)t.y * W + t.x0;
+#pragma unroll
+  for (int r = 0; r < KT * NPIX / kThreads; ++r) {
+    const int e = r * kThreads + threadIdx.x;
+    const int j = e / NPIX, i = e % NPIX;
+    if (k0 + j < D && t.x0 + i < W) base[j * HW + i] = tile[j][i];
+  }
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 sweep_cost_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
                   const float* __restrict__ rels, const float* __restrict__ depths,
                   const float* __restrict__ weights, float* __restrict__ out,
                   int V, int K, int H, int W) {
+  constexpr int G = Tile<C>::G, NPIX = Tile<C>::NPIX, KT = kCostPlanes;
+  constexpr int KPL = (KT + G - 1) / G;
+  __shared__ Descs<KT, NPIX> ds;
+  __shared__ float tile[2][C * Tile<C>::S];
+  const Tile<C> t(W);
+  const int k0 = blockIdx.y * KT;
   const long long HW = (long long)H * W;
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (long long)K * HW) return;
-  const long long pix = idx % HW;
-  const int k = (int)(idx / HW);
-  const int y = (int)(pix / W), x = (int)(pix % W);
-  const float d = depths[idx];
-
-  float rv[C];
+  const long long pix = (long long)t.y * W + t.x;
+  float d[KPL];
+  lane_depths<C, KT>(d, t, depths, k0, K, HW, pix);
+  const float4 rv = __ldg(reinterpret_cast<const float4*>(ref + pix * C) + t.q);
+  float4 acc[KT];
 #pragma unroll
-  for (int c = 0; c < C; c += 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(ref + pix * C + c));
-    rv[c] = v.x; rv[c + 1] = v.y; rv[c + 2] = v.z; rv[c + 3] = v.w;
-  }
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  for (int j = 0; j < KT; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
   float wsum = 0.f;
   for (int v = 0; v < V; ++v) {
-    const float wv = weights[(long long)v * HW + pix];
-    const Taps t = project_taps(rels + 12 * v, srcs + (long long)v * HW * C,
-                                C, H, W, (float)x, (float)y, d);
+    describe_view<C, KT>(ds, t, make_ray(rels + 16 * v, (float)t.x, (float)t.y),
+                         d, H, W);
+    const float wv = __ldg(weights + v * HW + pix);
+    const float4* src = reinterpret_cast<const float4*>(srcs) + (long long)v * HW * G + t.q;
 #pragma unroll
-    for (int c = 0; c < C; c += 4) {
-      const float4 s = sample4(t, c);
-      acc[c] += (s.x * rv[c]) * wv;
-      acc[c + 1] += (s.y * rv[c + 1]) * wv;
-      acc[c + 2] += (s.z * rv[c + 2]) * wv;
-      acc[c + 3] += (s.w * rv[c + 3]) * wv;
+    for (int j = 0; j < KT; ++j) {
+      const float4 s = gather<G>(src, ds.off[j][t.p], ds.w[j][t.p], W * G);
+      acc[j].x += (s.x * rv.x) * wv;
+      acc[j].y += (s.y * rv.y) * wv;
+      acc[j].z += (s.z * rv.z) * wv;
+      acc[j].w += (s.w * rv.w) * wv;
     }
     wsum += wv;
   }
   const float denom = wsum + 1e-5f;
-  float* o = out + (long long)k * C * HW + pix;
 #pragma unroll
-  for (int c = 0; c < C; ++c) o[(long long)c * HW] = acc[c] / denom;
+  for (int j = 0; j < KT; ++j) {
+    const float4 o = make_float4(acc[j].x / denom, acc[j].y / denom,
+                                 acc[j].z / denom, acc[j].w / denom);
+    store_plane<C>(tile[j & 1], o, t, out + (long long)(k0 + j) * C * HW, HW, W,
+                   k0 + j < K);
+  }
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 sweep_var_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
                  const float* __restrict__ rels, const float* __restrict__ depths,
                  float* __restrict__ out, int V, int K, int H, int W) {
+  constexpr int G = Tile<C>::G, NPIX = Tile<C>::NPIX, KT = kVarPlanes;
+  constexpr int KPL = (KT + G - 1) / G;
+  __shared__ Descs<KT, NPIX> ds;
+  __shared__ float tile[2][C * Tile<C>::S];
+  const Tile<C> t(W);
+  const int k0 = blockIdx.y * KT;
   const long long HW = (long long)H * W;
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (long long)K * HW) return;
-  const long long pix = idx % HW;
-  const int k = (int)(idx / HW);
-  const int y = (int)(pix / W), x = (int)(pix % W);
-  const float d = depths[idx];
-
-  // s: ref + sum of the warps, q: ref^2 + sum of their squares
-  float s[C], q[C];
+  const long long pix = (long long)t.y * W + t.x;
+  float d[KPL];
+  lane_depths<C, KT>(d, t, depths, k0, K, HW, pix);
+  const float4 rv = __ldg(reinterpret_cast<const float4*>(ref + pix * C) + t.q);
+  // s: ref + sum of the warps, sq: ref^2 + sum of their squares
+  float4 s[KT], sq[KT];
 #pragma unroll
-  for (int c = 0; c < C; c += 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(ref + pix * C + c));
-    s[c] = v.x; s[c + 1] = v.y; s[c + 2] = v.z; s[c + 3] = v.w;
-    q[c] = v.x * v.x; q[c + 1] = v.y * v.y;
-    q[c + 2] = v.z * v.z; q[c + 3] = v.w * v.w;
+  for (int j = 0; j < KT; ++j) {
+    s[j] = rv;
+    sq[j] = make_float4(rv.x * rv.x, rv.y * rv.y, rv.z * rv.z, rv.w * rv.w);
   }
   for (int v = 0; v < V; ++v) {
-    const Taps t = project_taps(rels + 12 * v, srcs + (long long)v * HW * C,
-                                C, H, W, (float)x, (float)y, d);
+    describe_view<C, KT>(ds, t, make_ray(rels + 16 * v, (float)t.x, (float)t.y),
+                         d, H, W);
+    const float4* src = reinterpret_cast<const float4*>(srcs) + (long long)v * HW * G + t.q;
 #pragma unroll
-    for (int c = 0; c < C; c += 4) {
-      const float4 w = sample4(t, c);
-      s[c] += w.x; s[c + 1] += w.y; s[c + 2] += w.z; s[c + 3] += w.w;
-      q[c] += w.x * w.x; q[c + 1] += w.y * w.y;
-      q[c + 2] += w.z * w.z; q[c + 3] += w.w * w.w;
+    for (int j = 0; j < KT; ++j) {
+      const float4 w = gather<G>(src, ds.off[j][t.p], ds.w[j][t.p], W * G);
+      s[j].x += w.x; s[j].y += w.y; s[j].z += w.z; s[j].w += w.w;
+      sq[j].x += w.x * w.x; sq[j].y += w.y * w.y;
+      sq[j].z += w.z * w.z; sq[j].w += w.w * w.w;
     }
   }
   const float n = (float)(V + 1);
-  float* o = out + (long long)k * C * HW + pix;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float mean = s[c] / n;
-    o[(long long)c * HW] = q[c] / n - mean * mean;
+  for (int j = 0; j < KT; ++j) {
+    const float mx = s[j].x / n, my = s[j].y / n, mz = s[j].z / n, mw = s[j].w / n;
+    const float4 o = make_float4(sq[j].x / n - mx * mx, sq[j].y / n - my * my,
+                                 sq[j].z / n - mz * mz, sq[j].w / n - mw * mw);
+    store_plane<C>(tile[j & 1], o, t, out + (long long)(k0 + j) * C * HW, HW, W,
+                   k0 + j < K);
   }
 }
 
-inline unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+// Cost and variance with one thread per pixel for small C: the thread
+// projects each (plane, view) once and gathers all G quads of each tap
+// itself. A block covers kThreads consecutive pixels of the flattened
+// image (x fastest, so the stores of a channel are 128-byte runs) and
+// walks planes k0 .. k1-1.
+template <int C>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSMWide)
+sweep_cost_wide_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
+                       const float* __restrict__ rels, const float* __restrict__ depths,
+                       const float* __restrict__ weights, float* __restrict__ out,
+                       int V, int K, int H, int W, int KB) {
+  constexpr int G = C / 4;
+  const long long HW = (long long)H * W;
+  const long long at = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const bool live = at < HW;
+  const long long pix = live ? at : HW - 1;
+  const int y = (int)(pix / W), x = (int)(pix % W);
+  float4 rv[G];
+#pragma unroll
+  for (int q = 0; q < G; ++q) rv[q] = __ldg(reinterpret_cast<const float4*>(ref + pix * C) + q);
+  float wsum = 0.f;
+  for (int v = 0; v < V; ++v) wsum += __ldg(weights + v * HW + pix);
+  const float denom = wsum + 1e-5f;
+  const float4* src = reinterpret_cast<const float4*>(srcs);
+  const int k0 = blockIdx.y * KB, k1 = min(K, k0 + KB);
+  for (int k = k0; k < k1; ++k) {
+    const float d = __ldg(depths + k * HW + pix);
+    float4 acc[G];
+#pragma unroll
+    for (int q = 0; q < G; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int v = 0; v < V; ++v) {
+      int off;
+      float4 w;
+      describe(make_ray(rels + 16 * v, (float)x, (float)y), d, H, W, G, off, w);
+      const float wv = __ldg(weights + v * HW + pix);
+      const float4* sv = src + v * HW * G;
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const float4 s = gather<G>(sv + q, off, w, W * G);
+        acc[q].x += (s.x * rv[q].x) * wv;
+        acc[q].y += (s.y * rv[q].y) * wv;
+        acc[q].z += (s.z * rv[q].z) * wv;
+        acc[q].w += (s.w * rv[q].w) * wv;
+      }
+    }
+    if (!live) continue;
+    float* o = out + (long long)k * C * HW + pix;
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      o[(4 * q + 0) * HW] = acc[q].x / denom;
+      o[(4 * q + 1) * HW] = acc[q].y / denom;
+      o[(4 * q + 2) * HW] = acc[q].z / denom;
+      o[(4 * q + 3) * HW] = acc[q].w / denom;
+    }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSMWide)
+sweep_var_wide_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
+                      const float* __restrict__ rels, const float* __restrict__ depths,
+                      float* __restrict__ out, int V, int K, int H, int W, int KB) {
+  constexpr int G = C / 4;
+  const long long HW = (long long)H * W;
+  const long long at = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const bool live = at < HW;
+  const long long pix = live ? at : HW - 1;
+  const int y = (int)(pix / W), x = (int)(pix % W);
+  float4 rv[G];
+#pragma unroll
+  for (int q = 0; q < G; ++q) rv[q] = __ldg(reinterpret_cast<const float4*>(ref + pix * C) + q);
+  const float n = (float)(V + 1);
+  const float4* src = reinterpret_cast<const float4*>(srcs);
+  const int k0 = blockIdx.y * KB, k1 = min(K, k0 + KB);
+  for (int k = k0; k < k1; ++k) {
+    const float d = __ldg(depths + k * HW + pix);
+    // s: ref + sum of the warps, sq: ref^2 + sum of their squares
+    float4 s[G], sq[G];
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      s[q] = rv[q];
+      sq[q] = make_float4(rv[q].x * rv[q].x, rv[q].y * rv[q].y,
+                          rv[q].z * rv[q].z, rv[q].w * rv[q].w);
+    }
+#pragma unroll 4
+    for (int v = 0; v < V; ++v) {
+      int off;
+      float4 w;
+      describe(make_ray(rels + 16 * v, (float)x, (float)y), d, H, W, G, off, w);
+      const float4* sv = src + v * HW * G;
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const float4 u = gather<G>(sv + q, off, w, W * G);
+        s[q].x += u.x; s[q].y += u.y; s[q].z += u.z; s[q].w += u.w;
+        sq[q].x += u.x * u.x; sq[q].y += u.y * u.y;
+        sq[q].z += u.z * u.z; sq[q].w += u.w * u.w;
+      }
+    }
+    if (!live) continue;
+    float* o = out + (long long)k * C * HW + pix;
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const float mx = s[q].x / n, my = s[q].y / n, mz = s[q].z / n, mw = s[q].w / n;
+      o[(4 * q + 0) * HW] = sq[q].x / n - mx * mx;
+      o[(4 * q + 1) * HW] = sq[q].y / n - my * my;
+      o[(4 * q + 2) * HW] = sq[q].z / n - mz * mz;
+      o[(4 * q + 3) * HW] = sq[q].w / n - mw * mw;
+    }
+  }
+}
+
+template <int C>
+inline unsigned tiles_for(int H, int W) {
+  return (unsigned)H * (unsigned)((W + Tile<C>::NPIX - 1) / Tile<C>::NPIX);
+}
+
+inline unsigned wide_blocks(int H, int W) {
+  return (unsigned)(((long long)H * W + kThreads - 1) / kThreads);
+}
+
+// Planes per one-thread-per-pixel block: 8 (a sweep chunk), halved while
+// the grid would have fewer than kMinBlocks blocks (more threads in flight
+// on a small stage).
+inline int planes_per_block(unsigned blocks, int K) {
+  int kb = 8;
+  while (kb > 1 && (long long)blocks * ((K + kb - 1) / kb) < kMinBlocks) kb /= 2;
+  return kb;
+}
+
+template <int C, int KT>
+void launch_pair(const float* ref, const float* srcs, const float* rels,
+                 const float* depths, float* out, int V, int D, int H, int W,
+                 cudaStream_t s) {
+  const dim3 grid(tiles_for<C>(H, W), (unsigned)(V * ((D + KT - 1) / KT)));
+  sweep_pair_kernel<C, KT><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, D, H, W);
+}
+
+template <int C>
+void launch_cost(const float* ref, const float* srcs, const float* rels,
+                 const float* depths, const float* weights, float* out, int V,
+                 int K, int H, int W, cudaStream_t s) {
+  if (C < kQuadLanesFrom) {
+    const unsigned blocks = wide_blocks(H, W);
+    const int kb = planes_per_block(blocks, K);
+    sweep_cost_wide_kernel<C><<<dim3(blocks, (K + kb - 1) / kb), kThreads, 0, s>>>(
+        ref, srcs, rels, depths, weights, out, V, K, H, W, kb);
+    return;
+  }
+  const dim3 grid(tiles_for<C>(H, W), (K + kCostPlanes - 1) / kCostPlanes);
+  sweep_cost_kernel<C><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, weights,
+                                                 out, V, K, H, W);
+}
+
+template <int C>
+void launch_var(const float* ref, const float* srcs, const float* rels,
+                const float* depths, float* out, int V, int K, int H, int W,
+                cudaStream_t s) {
+  if (C < kQuadLanesFrom) {
+    const unsigned blocks = wide_blocks(H, W);
+    const int kb = planes_per_block(blocks, K);
+    sweep_var_wide_kernel<C><<<dim3(blocks, (K + kb - 1) / kb), kThreads, 0, s>>>(
+        ref, srcs, rels, depths, out, V, K, H, W, kb);
+    return;
+  }
+  const dim3 grid(tiles_for<C>(H, W), (K + kVarPlanes - 1) / kVarPlanes);
+  sweep_var_kernel<C><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, K,
+                                                H, W);
 }
 
 }  // namespace
 
 extern "C" const char* error_string(int code) {
   if (code == kUnsupported) return "unsupported channel count (take 8, 16 or 32)";
+  if (code == kBadSize) return "unsupported image size (take H, W >= 2 and H*W*C < 2^31)";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Pair mode (K1). ref/src [H,W,C], rel [12], depths [K,H,W] -> out [K,H,W].
-extern "C" int sweep_corr_f32(const float* ref, const float* src,
-                              const float* rel, const float* depths,
-                              float* out, int K, int H, int W, int C,
+// Pair mode (K1). ref [H,W,C], srcs [V,H,W,C], rels [V,4,4],
+// depths [D,H,W] -> out [V,D,H,W], every view's volume in one launch.
+extern "C" int sweep_corr_f32(const float* ref, const float* srcs,
+                              const float* rels, const float* depths,
+                              float* out, int V, int D, int H, int W, int C,
                               void* stream) {
-  const long long n = (long long)K * H * W;
-  if (n == 0) return 0;
+  if ((long long)V * D * H * W == 0) return 0;
+  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
-    case 8: sweep_pair_kernel<8><<<blocks_for(n), kThreads, 0, s>>>(ref, src, rel, depths, out, K, H, W); break;
-    case 16: sweep_pair_kernel<16><<<blocks_for(n), kThreads, 0, s>>>(ref, src, rel, depths, out, K, H, W); break;
-    case 32: sweep_pair_kernel<32><<<blocks_for(n), kThreads, 0, s>>>(ref, src, rel, depths, out, K, H, W); break;
+    case 8: launch_pair<8, 8>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
+    case 16: launch_pair<16, 8>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
+    case 32: launch_pair<32, 8>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
     default: return kUnsupported;
   }
   return (int)cudaGetLastError();
 }
 
-// Cost mode (K2). ref [H,W,C], srcs [V,H,W,C], rels [V,12], depths [K,H,W],
+// Cost mode (K2). ref [H,W,C], srcs [V,H,W,C], rels [V,4,4], depths [K,H,W],
 // weights [V,H,W] -> out [K,C,H,W].
 extern "C" int sweep_cost_f32(const float* ref, const float* srcs,
                               const float* rels, const float* depths,
                               const float* weights, float* out, int V, int K,
                               int H, int W, int C, void* stream) {
-  const long long n = (long long)K * H * W;
-  if (n == 0) return 0;
+  if ((long long)K * H * W == 0) return 0;
+  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
-    case 8: sweep_cost_kernel<8><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, weights, out, V, K, H, W); break;
-    case 16: sweep_cost_kernel<16><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, weights, out, V, K, H, W); break;
-    case 32: sweep_cost_kernel<32><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, weights, out, V, K, H, W); break;
+    case 8: launch_cost<8>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
+    case 16: launch_cost<16>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
+    case 32: launch_cost<32>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
     default: return kUnsupported;
   }
   return (int)cudaGetLastError();
 }
 
-// Variance mode (K2v). ref [H,W,C], srcs [V,H,W,C], rels [V,12],
+// Variance mode (K2v). ref [H,W,C], srcs [V,H,W,C], rels [V,4,4],
 // depths [K,H,W] -> out [K,C,H,W].
 extern "C" int sweep_var_f32(const float* ref, const float* srcs,
                              const float* rels, const float* depths, float* out,
                              int V, int K, int H, int W, int C, void* stream) {
-  const long long n = (long long)K * H * W;
-  if (n == 0) return 0;
+  if ((long long)K * H * W == 0) return 0;
+  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
-    case 8: sweep_var_kernel<8><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, K, H, W); break;
-    case 16: sweep_var_kernel<16><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, K, H, W); break;
-    case 32: sweep_var_kernel<32><<<blocks_for(n), kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, K, H, W); break;
+    case 8: launch_var<8>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
+    case 16: launch_var<16>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
+    case 32: launch_var<32>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
     default: return kUnsupported;
   }
   return (int)cudaGetLastError();

@@ -32,27 +32,18 @@ from .cascade import streaming_sweep
 from .cost_reg import CostRegNet2D, RedStep2
 from .feature_net import FeatureNet, multi_view_features
 
-PAIR_CHUNK = 8  # planes per K1 launch
-
 
 def pair_corr_volumes(f1: torch.Tensor, rel1: torch.Tensor,
                       depths1: torch.Tensor,
                       warp_impl: str = "kernel") -> torch.Tensor:
     """Per-source-view correlation volumes [V-1, D, H1, W1] from stage-1
     features f1 [V, H1, W1, C] (channels-last), rel1 [V-1, 4, 4] and the
-    uniform planes depths1 [D]: one K1 launch per (view, chunk of 8
-    planes)."""
+    uniform planes depths1 [D]: one K1 launch writes them all."""
     H1, W1 = f1.shape[1:3]
     D = depths1.shape[0]
     d_hw = depths1[:, None, None].expand(D, H1, W1).contiguous()
-    K = PAIR_CHUNK
-    while D % K:
-        K -= 1
     corr_fn = sweep_corr if warp_impl == "kernel" else sweep_corr_plain
-    return torch.stack([
-        torch.cat([corr_fn(f1[0], f1[1 + v], rel1[v], d_hw[i:i + K])
-                   for i in range(0, D, K)])
-        for v in range(f1.shape[0] - 1)])
+    return corr_fn(f1[0], f1[1:], rel1, d_hw)
 
 
 class PairBranch(nn.Module):

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
     "sweep": {
-        "sweep_corr_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "sweep_corr_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "sweep_cost_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "sweep_var_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },

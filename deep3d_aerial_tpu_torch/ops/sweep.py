@@ -1,8 +1,9 @@
 """Fused plane sweep: CUDA kernels K1 (pair), K2 (cost) and K2v
 (variance), with their plain PyTorch versions.
 
-  sweep_corr  (K1)  one source view, K planes -> [K, H, W]
-                    mean_c(ref * warp(src))                  (AdaMVS pair branch)
+  sweep_corr  (K1)  all V source views, D planes -> [V, D, H, W]
+                    mean_c(ref * warp(src_v)), every view's volume in one
+                    launch                                   (AdaMVS pair branch)
   sweep_cost  (K2)  all V source views, K planes -> [K, C, H, W]
                     sum_v w_v * ref * warp(src_v) / (sum_v w_v + 1e-5)
                                                              (AdaMVS stages)
@@ -10,9 +11,11 @@
                     E[f^2] - E[f]^2 over {ref} and the V warps (MSREDNet stages)
 
 They replace deep3d_aerial_tpu/ops/pallas_sweep.py:_sweep_corr_kernel and
-:_sweep_cost_kernel (mode='corr' and mode='variance'). Features are channels-last ([H, W, C]),
-depths per pixel ([K, H, W]), rel the [4, 4] (or [3, 4]) src_P @ inv(ref_P).
-The kernel source, with its design and bound, is csrc/sweep.cu.
+:_sweep_cost_kernel (mode='corr' and mode='variance'). Features are
+channels-last ([H, W, C]), depths per pixel ([K, H, W]), rels the [V, 4, 4]
+src_P @ inv(ref_P) (the plain versions also take [V, 3, 4]; the kernels
+read rows 0-2 of the [4, 4] matrices in place). The kernel source, with its
+design and bound, is csrc/sweep.cu.
 
 A wrapper launches the kernel for CUDA tensors and raises if the launch
 fails; it takes the plain version only for CPU tensors. Each wrapper counts
@@ -25,13 +28,23 @@ import torch
 
 from .warp import bilinear_sample, sweep_coordinates
 
+# planes per step of sweep_corr_plain: bounds its [planes, H, W, C] warps
+PLAIN_CHUNK = 8
 
-def sweep_corr_plain(ref: torch.Tensor, src: torch.Tensor, rel: torch.Tensor,
+
+def sweep_corr_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
                      depths: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: [K, H, W] pair correlation."""
+    """Plain version of K1: [V, D, H, W] pair correlation of each source
+    view (the JAX package's pair_corr_volumes)."""
     H, W, _ = ref.shape
-    x, y, _ = sweep_coordinates(rel, depths, (H, W))
-    return (bilinear_sample(src, x, y) * ref[None]).mean(-1)
+    V, D = srcs.shape[0], depths.shape[0]
+    out = ref.new_empty((V, D, H, W))
+    for v in range(V):
+        for i in range(0, D, PLAIN_CHUNK):
+            x, y, _ = sweep_coordinates(rels[v], depths[i:i + PLAIN_CHUNK], (H, W))
+            out[v, i:i + PLAIN_CHUNK] = (bilinear_sample(srcs[v], x, y)
+                                         * ref[None]).mean(-1)
+    return out
 
 
 def sweep_cost_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
@@ -65,11 +78,6 @@ def sweep_var_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
     return (cost / n - mean * mean).permute(0, 3, 1, 2).contiguous()
 
 
-def _rel12(rel: torch.Tensor) -> torch.Tensor:
-    """Rows 0-2 of the relative projection(s), flattened: [..., 12]."""
-    return rel[..., :3, :4].float().reshape(*rel.shape[:-2], 12).contiguous()
-
-
 def _check_cuda(name: str, **tensors) -> None:
     for k, t in tensors.items():
         if not t.is_cuda or t.dtype != torch.float32:
@@ -77,26 +85,37 @@ def _check_cuda(name: str, **tensors) -> None:
                              f"got {t.dtype} on {t.device}")
 
 
-def sweep_corr(ref: torch.Tensor, src: torch.Tensor, rel: torch.Tensor,
+def _rels(name: str, rels: torch.Tensor, V: int, device) -> torch.Tensor:
+    """The [V, 4, 4] projections as the kernels read them: float32,
+    contiguous, on the features' device (no copy when they already are)."""
+    if tuple(rels.shape) != (V, 4, 4):
+        raise ValueError(f"{name}: rels must be [{V}, 4, 4], got {tuple(rels.shape)}")
+    rels = rels.to(device=device, dtype=torch.float32).contiguous()
+    if rels.data_ptr() % 16:  # the kernels read each row as one float4
+        rels = rels.clone()
+    return rels
+
+
+def sweep_corr(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
                depths: torch.Tensor) -> torch.Tensor:
-    """K1: ref/src [H, W, C] (C in 8, 16, 32), rel [4, 4], depths [K, H, W]
-    -> [K, H, W]."""
+    """K1: ref [H, W, C] (C in 8, 16, 32), srcs [V, H, W, C], rels
+    [V, 4, 4], depths [D, H, W] -> [V, D, H, W], in one launch."""
     if not ref.is_cuda:
-        return sweep_corr_plain(ref, src, rel, depths)
+        return sweep_corr_plain(ref, srcs, rels, depths)
     from .cuda_build import check, load
 
     H, W, C = ref.shape
-    K = depths.shape[0]
-    if src.shape != ref.shape or tuple(depths.shape) != (K, H, W):
-        raise ValueError(f"sweep_corr: shapes ref {tuple(ref.shape)}, src "
-                         f"{tuple(src.shape)}, depths {tuple(depths.shape)}")
-    ref, src, depths = ref.contiguous(), src.contiguous(), depths.contiguous()
-    rel = _rel12(rel).to(ref.device)
-    _check_cuda("sweep_corr", ref=ref, src=src, depths=depths)
-    out = torch.empty((K, H, W), device=ref.device, dtype=torch.float32)
+    V, D = srcs.shape[0], depths.shape[0]
+    if tuple(srcs.shape) != (V, H, W, C) or tuple(depths.shape) != (D, H, W):
+        raise ValueError(f"sweep_corr: shapes ref {tuple(ref.shape)}, srcs "
+                         f"{tuple(srcs.shape)}, depths {tuple(depths.shape)}")
+    ref, srcs, depths = ref.contiguous(), srcs.contiguous(), depths.contiguous()
+    rels = _rels("sweep_corr", rels, V, ref.device)
+    _check_cuda("sweep_corr", ref=ref, srcs=srcs, rels=rels, depths=depths)
+    out = torch.empty((V, D, H, W), device=ref.device, dtype=torch.float32)
     lib = load("sweep")
-    rc = lib.sweep_corr_f32(ref.data_ptr(), src.data_ptr(), rel.data_ptr(),
-                            depths.data_ptr(), out.data_ptr(), K, H, W, C,
+    rc = lib.sweep_corr_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
+                            depths.data_ptr(), out.data_ptr(), V, D, H, W, C,
                             torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_corr")
     sweep_corr.launches += 1
@@ -117,15 +136,14 @@ def sweep_cost(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
     H, W, C = ref.shape
     V, K = srcs.shape[0], depths.shape[0]
     if (tuple(srcs.shape) != (V, H, W, C) or tuple(depths.shape) != (K, H, W)
-            or tuple(weights.shape) != (V, H, W) or rels.shape[0] != V):
+            or tuple(weights.shape) != (V, H, W)):
         raise ValueError(f"sweep_cost: shapes ref {tuple(ref.shape)}, srcs "
-                         f"{tuple(srcs.shape)}, rels {tuple(rels.shape)}, "
-                         f"depths {tuple(depths.shape)}, weights "
-                         f"{tuple(weights.shape)}")
+                         f"{tuple(srcs.shape)}, depths {tuple(depths.shape)}, "
+                         f"weights {tuple(weights.shape)}")
     ref, srcs = ref.contiguous(), srcs.contiguous()
     depths, weights = depths.contiguous(), weights.contiguous()
-    rels = _rel12(rels).to(ref.device)
-    _check_cuda("sweep_cost", ref=ref, srcs=srcs, depths=depths,
+    rels = _rels("sweep_cost", rels, V, ref.device)
+    _check_cuda("sweep_cost", ref=ref, srcs=srcs, rels=rels, depths=depths,
                 weights=weights)
     out = torch.empty((K, C, H, W), device=ref.device, dtype=torch.float32)
     lib = load("sweep")
@@ -151,14 +169,12 @@ def sweep_var(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
 
     H, W, C = ref.shape
     V, K = srcs.shape[0], depths.shape[0]
-    if (tuple(srcs.shape) != (V, H, W, C) or tuple(depths.shape) != (K, H, W)
-            or rels.shape[0] != V):
+    if tuple(srcs.shape) != (V, H, W, C) or tuple(depths.shape) != (K, H, W):
         raise ValueError(f"sweep_var: shapes ref {tuple(ref.shape)}, srcs "
-                         f"{tuple(srcs.shape)}, rels {tuple(rels.shape)}, "
-                         f"depths {tuple(depths.shape)}")
+                         f"{tuple(srcs.shape)}, depths {tuple(depths.shape)}")
     ref, srcs, depths = ref.contiguous(), srcs.contiguous(), depths.contiguous()
-    rels = _rel12(rels).to(ref.device)
-    _check_cuda("sweep_var", ref=ref, srcs=srcs, depths=depths)
+    rels = _rels("sweep_var", rels, V, ref.device)
+    _check_cuda("sweep_var", ref=ref, srcs=srcs, rels=rels, depths=depths)
     out = torch.empty((K, C, H, W), device=ref.device, dtype=torch.float32)
     lib = load("sweep")
     rc = lib.sweep_var_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),

@@ -89,7 +89,7 @@ def test_cuda_wrappers_never_take_the_plain_path_for_a_cuda_tensor(monkeypatch):
     d = torch.zeros(2, 4, 4).as_subclass(FakeCuda)
     rel = torch.eye(4)
     with pytest.raises((RuntimeError, ValueError)):
-        sweep.sweep_corr(t, t, rel, d)
+        sweep.sweep_corr(t, t[None], rel[None], d)
     with pytest.raises((RuntimeError, ValueError)):
         sweep.sweep_cost(t, t[None], rel[None], d, d[:1])
     with pytest.raises((RuntimeError, ValueError)):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from deep3d_aerial_tpu_torch.models import adamvs
 from deep3d_aerial_tpu_torch.models.cascade import OnlineSoftmaxState
 from deep3d_aerial_tpu_torch.models.cost_reg import RedStep2, RedStep4
 from deep3d_aerial_tpu_torch.ops import cf_conv as cc
@@ -40,6 +41,28 @@ def dev():
     return torch.device("cuda")
 
 
+def _kernel_names(run, per_call, calls=3):
+    """Names of the kernels that `calls` runs of `run()` launch (memsets
+    and copies left out), from a profiler session (`device_events`) that
+    lists calls x per_call of them: a session that lists another count (a
+    lost event) is measured again, and five in a row fail. Also returns the
+    number of sessions made."""
+    from deep3d_aerial_tpu_torch.utils.profiling import device_events
+
+    made = [0]
+
+    def runs():
+        made[0] += 1
+        for _ in range(calls):
+            run()
+
+    def kernels(evs):
+        return [e.name for e in evs if "Memset" not in e.name and "Memcpy" not in e.name]
+
+    evs = device_events(runs, lambda evs: len(kernels(evs)) == calls * per_call)
+    return kernels(evs), made[0]
+
+
 def _rels(rng, V):
     rel = np.tile(np.eye(4, dtype=np.float32), (V, 1, 1))
     rel[:, :3, :3] += rng.normal(scale=0.01, size=(V, 3, 3)).astype(np.float32)
@@ -50,27 +73,94 @@ def _rels(rng, V):
     return rel
 
 
-@pytest.mark.parametrize("C,H,W", [(8, 13, 21), (16, 40, 33), (32, 96, 128)])
-def test_sweep_kernels_match_plain(dev, C, H, W):
-    rng = np.random.default_rng(C + H)
-    V, K = 4, 8
-
+def _sweep_inputs(dev, rng, C, H, W, V, K):
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
-    ref, srcs = t(rng.normal(size=(H, W, C))), t(rng.normal(size=(V, H, W, C)))
-    rels = t(_rels(rng, V))
-    depths = t(rng.uniform(90, 110, size=(K, H, W)))
-    wts = t(rng.uniform(0.1, 1.0, size=(V, H, W)))
+    return (t(rng.normal(size=(H, W, C))), t(rng.normal(size=(V, H, W, C))),
+            t(_rels(rng, V)), t(rng.uniform(90, 110, size=(K, H, W))),
+            t(rng.uniform(0.1, 1.0, size=(V, H, W))))
+
+
+@pytest.mark.parametrize("C,H,W", [(8, 13, 21), (16, 40, 33), (32, 96, 128)])
+def test_sweep_kernels_match_plain(dev, C, H, W):
+    """K1 (every view's volume in one launch) and K2 at odd sizes; the last
+    view sees part of the planes from behind."""
+    rng = np.random.default_rng(C + H)
+    V, K = 4, 8
+    ref, srcs, rels, depths, wts = _sweep_inputs(dev, rng, C, H, W, V, K)
     n1, n2 = sw.sweep_corr.launches, sw.sweep_cost.launches
-    for v in range(V):
-        k = sw.sweep_corr(ref, srcs[v], rels[v], depths)
-        p = sw.sweep_corr_plain(ref, srcs[v], rels[v], depths)
-        torch.testing.assert_close(k, p, rtol=0, atol=TOL)
+    k = sw.sweep_corr(ref, srcs, rels, depths)
+    p = sw.sweep_corr_plain(ref, srcs, rels, depths)
+    assert k.shape == (V, K, H, W)
+    torch.testing.assert_close(k, p, rtol=0, atol=TOL)
     k = sw.sweep_cost(ref, srcs, rels, depths, wts)
     p = sw.sweep_cost_plain(ref, srcs, rels, depths, wts)
     torch.testing.assert_close(k, p, rtol=0, atol=TOL)
-    assert sw.sweep_corr.launches == n1 + V and sw.sweep_cost.launches == n2 + 1
+    assert sw.sweep_corr.launches == n1 + 1 and sw.sweep_cost.launches == n2 + 1
+
+
+# plane counts off the blocks' plane groups: 8 a one-thread-per-pixel block
+# at 384x512 C8; 8 a lane-per-quad pair or cost block, 4 a variance block
+# (40x33 C16, 24x40 C32)
+@pytest.mark.parametrize("C,H,W,K", [(8, 384, 512, 13), (16, 40, 33, 5), (32, 24, 40, 48)])
+def test_sweep_kernels_match_plain_odd_plane_counts(dev, C, H, W, K):
+    rng = np.random.default_rng(K)
+    ref, srcs, rels, depths, wts = _sweep_inputs(dev, rng, C, H, W, 4, K)
+    for k, p in ((sw.sweep_corr(ref, srcs, rels, depths),
+                  sw.sweep_corr_plain(ref, srcs, rels, depths)),
+                 (sw.sweep_cost(ref, srcs, rels, depths, wts),
+                  sw.sweep_cost_plain(ref, srcs, rels, depths, wts)),
+                 (sw.sweep_var(ref, srcs, rels, depths),
+                  sw.sweep_var_plain(ref, srcs, rels, depths))):
+        torch.testing.assert_close(k, p, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("C,H,W", [(8, 1856, 2752), (32, 464, 688), (16, 928, 1376)])
+@pytest.mark.parametrize("mode", ["cost", "var"])
+def test_sweep_kernels_match_plain_full_res(dev, mode, C, H, W):
+    """K2 and K2v at the 1856x2752 production frame's three stage shapes
+    (V4, K8): 64-bit offsets, a ragged last tile of each row (2752 = 21.5 x
+    128), the lane-per-quad kernels' largest grids."""
+    rng = np.random.default_rng(11)
+    ref, srcs, rels, depths, wts = _sweep_inputs(dev, rng, C, H, W, 4, 8)
+    if mode == "cost":
+        kernel, plain, args = sw.sweep_cost, sw.sweep_cost_plain, (ref, srcs, rels, depths, wts)
+    else:
+        kernel, plain, args = sw.sweep_var, sw.sweep_var_plain, (ref, srcs, rels, depths)
+    n = kernel.launches
+    torch.testing.assert_close(kernel(*args), plain(*args), rtol=0, atol=TOL)
+    assert kernel.launches == n + 1
+
+
+@pytest.mark.parametrize("C,H,W", [(32, 96, 128), (8, 384, 512)])
+def test_sweep_same_bits_every_run(dev, C, H, W):
+    """Each mode twice on the same inputs gives identical bits: every sum
+    runs in a fixed order, no atomics."""
+    rng = np.random.default_rng(3)
+    ref, srcs, rels, depths, wts = _sweep_inputs(dev, rng, C, H, W, 4, 8)
+    for fn in (lambda: sw.sweep_corr(ref, srcs, rels, depths),
+               lambda: sw.sweep_cost(ref, srcs, rels, depths, wts),
+               lambda: sw.sweep_var(ref, srcs, rels, depths)):
+        first = fn()
+        for _ in range(2):
+            torch.testing.assert_close(fn(), first, rtol=0, atol=0)
+
+
+def test_pair_corr_volumes_launch_k1_once(dev):
+    """The AdaMVS pair branch builds all four views' 48-plane volumes in one
+    K1 launch, equal to the plain path's."""
+    rng = np.random.default_rng(5)
+    f1 = torch.from_numpy(rng.normal(size=(5, 24, 40, 32)).astype(np.float32)).to(dev)
+    rel1 = torch.from_numpy(_rels(rng, 4)).to(dev)
+    depths1 = torch.linspace(90.0, 110.0, 48, device=dev)
+    n = sw.sweep_corr.launches
+    k = adamvs.pair_corr_volumes(f1, rel1, depths1)
+    assert sw.sweep_corr.launches == n + 1
+    p = adamvs.pair_corr_volumes(f1, rel1, depths1, warp_impl="plain")
+    assert sw.sweep_corr.launches == n + 1
+    assert k.shape == (4, 48, 24, 40)
+    torch.testing.assert_close(k, p, rtol=0, atol=TOL)
 
 
 def _red2_inputs(dev, cin, H, W, up, seed):
@@ -158,27 +248,23 @@ def test_red_step2_launches_per_step(dev):
     """One step is 3 device launches (the three levels), as the profiler
     sees them, with and without the softmax fold; the counter counts
     steps."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     mod, cost, s1, s2 = _red2_inputs(dev, 32, 96, 128, True, 4)
     step = mod.plane_step(dev)
     osm = OnlineSoftmaxState.init((192, 256), device=dev)
     dv = torch.full((192, 256), 100.0, device=dev)
     n = rs.red_step2.launches
+
+    def run():
+        step(cost, s1, s2)
+        step(cost, s1, s2, osm=osm, dv=dv)
+
     with torch.no_grad():
         step(cost, s1, s2, osm=osm, dv=dv)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(cost, s1, s2)
-            step(cost, s1, s2, osm=osm, dv=dv)
-            torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-               and "Memset" not in e.name and "Memcpy" not in e.name]
-    if kernels:  # a profiler session now and then sees no device events
-        assert len(kernels) == 2 * RED2_LAUNCHES_PER_STEP, kernels
-        assert all("red2_level" in k for k in kernels), kernels
-    assert rs.red_step2.launches == n + 3
+        kernels, sessions = _kernel_names(run, 2 * RED2_LAUNCHES_PER_STEP)
+    assert len(kernels) == 3 * 2 * RED2_LAUNCHES_PER_STEP, kernels
+    assert all("red2_level" in k for k in kernels), kernels
+    assert rs.red_step2.launches == n + 1 + 3 * 2 * sessions
 
 
 def test_red_step2_wrapper_refuses(dev):
@@ -204,10 +290,13 @@ def test_red_step2_wrapper_refuses(dev):
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.zeros((4, 4, 12), device=dev)  # 12 channels: no instance
     d = torch.full((2, 4, 4), 100.0, device=dev)
+    rel = torch.eye(4, device=dev)[None]
     with pytest.raises(RuntimeError, match="channel"):
-        sw.sweep_corr(x, x, torch.eye(4, device=dev), d)
+        sw.sweep_corr(x, x[None], rel, d)
     with pytest.raises(ValueError):
-        sw.sweep_corr(x.double(), x.double(), torch.eye(4, device=dev), d)
+        sw.sweep_corr(x.double(), x[None].double(), rel, d)
+    with pytest.raises(ValueError, match="rels"):  # the kernels read [V, 4, 4]
+        sw.sweep_corr(x, x[None], rel[:, :3], d)
 
 
 @pytest.mark.parametrize("C,H,W", [(8, 13, 21), (16, 40, 33), (32, 24, 40)])
@@ -301,25 +390,18 @@ def test_red_step4_same_bits_every_run(dev, cin, H, W):
 def test_red_step4_launches_per_step(dev):
     """One step is 11 device launches (9 of them the conv template), as
     the profiler sees them, and the counters agree."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     mod, cost, states = _red4_inputs(dev, 32, 96, 128, 8)
     step = mod.plane_step(dev)
     n, nc = rs4.red_step4.launches, cc.cf_conv3x3.launches
     with torch.no_grad():
         step(cost, *states)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(cost, *states)
-            torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-               and "Memset" not in e.name and "Memcpy" not in e.name]
-    assert rs4.red_step4.launches == n + 2
-    assert cc.cf_conv3x3.launches == nc + 2 * CONV_LAUNCHES_PER_STEP
-    if kernels:  # a profiler session now and then sees no device events
-        assert len(kernels) == LAUNCHES_PER_STEP, kernels
-        assert sum("conv_mma_kernel" in k for k in kernels) == CONV_LAUNCHES_PER_STEP
+        kernels, sessions = _kernel_names(lambda: step(cost, *states), LAUNCHES_PER_STEP)
+    assert rs4.red_step4.launches == n + 1 + 3 * sessions
+    assert cc.cf_conv3x3.launches == nc + (1 + 3 * sessions) * CONV_LAUNCHES_PER_STEP
+    # three steps: 33 launches, 27 of them the conv template
+    assert len(kernels) == 3 * LAUNCHES_PER_STEP, kernels
+    assert sum("conv_mma_kernel" in k for k in kernels) == 3 * CONV_LAUNCHES_PER_STEP, kernels
 
 
 def test_red_step4_plane_step_launches_the_kernel(dev):

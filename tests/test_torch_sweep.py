@@ -1,7 +1,7 @@
-"""Plain versions of the sweep kernels K1 (pair correlation), K2 (weighted
-correlation cost) and K2v (variance cost) against the JAX package's gather
-oracles, on the CPU, with real camera geometry from the JAX package's own
-helpers.
+"""Plain versions of the sweep kernels K1 (pair correlation volumes), K2
+(weighted correlation cost) and K2v (variance cost) against the JAX
+package's gather oracles, on the CPU, with real camera geometry from the
+JAX package's own helpers.
 
 Tolerance 1e-5 absolute: the same fp32 elementwise coordinate chain and
 bilinear taps on both sides; features are unit-scale, so the remaining
@@ -15,12 +15,13 @@ import pytest
 import torch
 
 from deep3d_aerial_tpu.geometry.camera import proj_matrix, stage_relative_projections
+from deep3d_aerial_tpu.models.adamvs import pair_corr_volumes
 from deep3d_aerial_tpu.models.cascade import (
     correlation_cost_plane,
     variance_cost_plane,
 )
 from deep3d_aerial_tpu.ops.pallas_sweep import sweep_corr_chunk_reference
-from deep3d_aerial_tpu_torch.models import cascade
+from deep3d_aerial_tpu_torch.models import adamvs, cascade
 from deep3d_aerial_tpu_torch.ops.sweep import (
     sweep_corr,
     sweep_cost,
@@ -50,12 +51,30 @@ def test_sweep_corr_plain_matches_reference(C, H, W):
     depths = rng.uniform(85, 115, size=(8, H, W)).astype(np.float32)
     j = sweep_corr_chunk_reference(jnp.asarray(ref), jnp.asarray(src),
                                    jnp.asarray(rel), jnp.asarray(depths))
-    t = sweep_corr_plain(*(torch.from_numpy(a) for a in (ref, src, rel, depths)))
-    assert t.shape == (8, H, W)
-    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-5)
+    args = [torch.from_numpy(a) for a in (ref, src[None], rel[None], depths)]
+    t = sweep_corr_plain(*args)
+    assert t.shape == (1, 8, H, W)
+    np.testing.assert_allclose(t[0].numpy(), np.asarray(j), rtol=0, atol=1e-5)
     # the wrapper takes the plain version for CPU tensors
-    w = sweep_corr(*(torch.from_numpy(a) for a in (ref, src, rel, depths)))
-    np.testing.assert_array_equal(w.numpy(), t.numpy())
+    np.testing.assert_array_equal(sweep_corr(*args).numpy(), t.numpy())
+
+
+@pytest.mark.parametrize("V1", [2, 4])
+@pytest.mark.parametrize("C,H,W", [(8, 13, 19), (32, 15, 17)])
+def test_sweep_corr_plain_matches_pair_corr_volumes(V1, C, H, W):
+    """All source views' volumes at once against the JAX pair branch's
+    volume build (its XLA gather formulation), with D = 7 uniform planes
+    (not a multiple of the 8-plane steps of either side)."""
+    rng = np.random.default_rng(24 + V1 + C)
+    rels = _geometry(rng, V1 + 1, H, W)
+    f1 = rng.normal(size=(V1 + 1, H, W, C)).astype(np.float32)
+    depths1 = np.linspace(85, 115, 7).astype(np.float32)
+    j = pair_corr_volumes(jnp.asarray(f1), jnp.asarray(rels),
+                          jnp.asarray(depths1), warp_impl="xla")
+    t = adamvs.pair_corr_volumes(torch.from_numpy(f1), torch.from_numpy(rels),
+                                 torch.from_numpy(depths1))
+    assert t.shape == (V1, 7, H, W)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("C,H,W,V", [(16, 15, 22, 4), (8, 12, 17, 3)])
