@@ -1,10 +1,11 @@
 """The PyTorch port's driver on one CUDA card (an H100 in this repository's
 measurements): builds the hand-written kernels from csrc/, holds each
 against its plain PyTorch version, and for each ported model -- AdaMVS,
-then MSREDNet -- runs the pipeline's main path (dense matching + fusion at
-384x512, default configuration, seeded random weights), compares the
-kernel path with the plain path end to end, and runs one 1856x2752
-production frame.
+MSREDNet, CasMVSNet, UCSNet -- runs the pipeline's main path (dense
+matching + fusion at 384x512, default configuration, seeded random
+weights; CasMVSNet's from a COLMAP model, through the default view
+selection), compares the kernel path with the plain path end to end, and
+runs one 1856x2752 production frame.
 
     python3 chip_smoke.py
 
@@ -72,6 +73,10 @@ FULL_H, FULL_W = 1856, 2752
 # MSREDNet at its published widths: base 8, 'unet' features 32/16/8,
 # RedStep4 hidden 8/16/32/64, the same planes per stage
 MSRED_CHANNELS = (32, 16, 8)
+# UCSNet's planes per stage (CasMVSNet takes NDEPTHS); both at their
+# published widths: base 8, features 32/16/8 ('fpn' and 'unet'), a
+# CostRegNet3D of base 8 per stage
+UCS_NDEPTHS = (64, 32, 8)
 # one RedStep2 step (csrc/red_step2.cu): 3 launches, one per level
 RED2_LAUNCHES = 3
 # one RedStep4 step (csrc/red_step4.cu): 11 launches, 9 of them the conv
@@ -199,6 +204,52 @@ def write_workspace(ws: Path, cam, poses, dev):
     tf.write_blocks(export / "blocks.txt",
                     [([-200.0, 200.0, -200.0, 200.0, -50.0, 50.0],
                       list(range(1, len(poses) + 1)))])
+
+
+def write_colmap_workspace(ws: Path, cam, poses, dev, n_points=4000, seed=5):
+    """images/ and sparse/ of a survey: a COLMAP model written with the
+    port's sparse.colmap -- the camera, each image's pose, and terrain
+    points over the survey's footprint with their tracks (each point in
+    every image it projects into). export/ is left to view selection."""
+    from PIL import Image
+
+    from deep3d_aerial_tpu_torch.geometry.camera import rotmat2qvec
+    from deep3d_aerial_tpu_torch.sparse import colmap
+
+    (ws / "images").mkdir(parents=True)
+    for i, pose in enumerate(poses, start=1):
+        img, _ = render(cam, pose, dev)
+        Image.fromarray(np.dstack([(img.cpu().numpy() * 255).astype(np.uint8)] * 3)
+                        ).save(ws / "images" / f"im_{i:02d}.png")
+    rng = np.random.default_rng(seed)
+    c = np.stack([p.center for p in poses])
+    half = 0.6 * cam.width / cam.fx * 100.0
+    x = rng.uniform(c[:, 0].min() - half, c[:, 0].max() + half, n_points)
+    y = rng.uniform(c[:, 1].min() - half, c[:, 1].max() + half, n_points)
+    xyz = np.stack([x, y, terrain_z(torch.from_numpy(x), torch.from_numpy(y)).numpy()], -1)
+    tracks = {p: [] for p in range(n_points)}
+    obs = {}
+    for i, pose in enumerate(poses, start=1):
+        uv, d = pose.world_to_image(cam.K, xyz)
+        vis = ((uv[:, 0] >= 0) & (uv[:, 0] < cam.width) & (uv[:, 1] >= 0)
+               & (uv[:, 1] < cam.height) & (d > 0))
+        obs[i] = [(uv[p], p) for p in np.nonzero(vis)[0]]
+        for k, (_, p) in enumerate(obs[i]):
+            tracks[p].append((i, k))
+    points = {p + 1: colmap.ColmapPoint3D(
+        p + 1, xyz[p], np.array([128, 128, 128], np.uint8), 0.5,
+        np.array([t[0] for t in tr], np.int64), np.array([t[1] for t in tr], np.int64))
+        for p, tr in tracks.items() if len(tr) >= 2}
+    cameras = {1: colmap.ColmapCamera(1, "PINHOLE", cam.width, cam.height,
+                                      np.array([cam.fx, cam.fy, cam.cx, cam.cy]))}
+    images = {i: colmap.ColmapImage(
+        i, rotmat2qvec(pose.R_cw), pose.t_cw, 1, f"im_{i:02d}.png",
+        np.array([uv for uv, _ in obs[i]]).reshape(-1, 2),
+        np.array([p + 1 if p + 1 in points else -1 for _, p in obs[i]], np.int64))
+        for i, pose in enumerate(poses, start=1)}
+    (ws / "sparse").mkdir()
+    colmap.write_model(cameras, images, points, ws / "sparse")
+    return len(points)
 
 
 def sample(cam, poses, dev, ref=0, views=VIEWS):
@@ -1051,12 +1102,17 @@ class _Marked(torch.nn.Module):
 
 
 def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
-                    eager_updates=0):
+                    eager_updates=0, colmap=False):
     """AerialPipeline(...).run_dense() on a synthetic workspace: dense
     matching + fusion at 384x512, the model's default configuration, seeded
     random weights. `per_map`: the exact launches of each counter per map;
     `eager_updates`: the OnlineSoftmaxState.update calls per map (0 where
-    the regularizer's step folds the softmax)."""
+    the regularizer's step folds the softmax). With `colmap` the workspace
+    holds a COLMAP model and the images only, and the run starts with the
+    default view selection (image paths from `data_folder`); every
+    selected reference view must get a depth map. Returns (launches, median
+    seconds per map, median ms between the forward's marks by label)."""
+    from deep3d_aerial_tpu_torch.io import text_formats as tf
     from deep3d_aerial_tpu_torch.io.pfm import read_pfm
     from deep3d_aerial_tpu_torch.models import cascade
     from deep3d_aerial_tpu_torch.io.ply import read_ply
@@ -1065,16 +1121,20 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
 
     with tempfile.TemporaryDirectory() as tmp:
         ws = Path(tmp) / "ws"
-        write_workspace(ws, cam0, poses0, dev)
+        if colmap:
+            n_points = write_colmap_workspace(ws, cam0, poses0, dev)
+        else:
+            write_workspace(ws, cam0, poses0, dev)
         cfg = PipelineConfig(
             image_w=W0, image_h=H0, image_scale=1.0, view_num=VIEWS,
-            allow_random_weights=True, run_view_selection=False,
+            allow_random_weights=True, run_view_selection=colmap,
             run_create_mesh=False, run_create_dsm=False,
             fusion_num=4, geo_consist_num=2, photomatric_threshold=0.0,
             position_threshold=2.0, depth_threshold=0.05,
             normal_threshold=180.0, model_type=model_type,
         )
-        pipe = AerialPipeline(str(ws), cfg, device=dev)
+        pipe = AerialPipeline(str(ws), cfg, device=dev,
+                              data_folder=str(ws / "images") if colmap else None)
         model = _Marked(pipe.build_model())
         update = cascade.OnlineSoftmaxState.update
         updates = [0]
@@ -1097,8 +1157,22 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
 
         maps = sorted((ws / "dense" / "MVS").glob("*_init.pfm"))
         n = len(maps)
-        if n != len(poses0):
-            raise AssertionError(f"{n} depth maps for {len(poses0)} views")
+        want = [f"im_{i:02d}" for i in range(1, len(poses0) + 1)]
+        if colmap:
+            for f in ("viewpair.txt", "blocks.txt", "scene_border.txt",
+                      "image_path.txt", "cameras.txt", "images.txt"):
+                if not (ws / "export" / f).is_file():
+                    raise AssertionError(f"view selection wrote no export/{f}")
+            refs = [r for r, _ in tf.read_view_pairs(ws / "export" / "viewpair.txt")]
+            want = [f"im_{r:02d}" for r in sorted(refs)]
+            log(f"[main:{model_type}] view selection from a COLMAP model of "
+                f"{len(poses0)} images and {n_points} points: {len(refs)} "
+                f"reference views, "
+                f"{len(tf.read_blocks(ws / 'export' / 'blocks.txt'))} block(s)")
+        got = [p.name[:-len("_init.pfm")] for p in maps]
+        if got != want:
+            raise AssertionError(f"depth maps {got}, expected one per reference "
+                                 f"view {want}")
         for p in maps:
             d = read_pfm(p)[0]
             if d.shape != (H0, W0) or not np.isfinite(d).all():
@@ -1125,17 +1199,25 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
             stage_ms.setdefault(label, []).append(a.elapsed_time(b))
     secs = pipe.map_seconds
     steady = float(np.median(secs[1:])) if len(secs) > 1 else secs[0]
-    log(f"[{tag}] {n} maps at {H0}x{W0}, {VIEWS} views, ndepths {NDEPTHS}: "
+    log(f"[{tag}] {n} maps at {H0}x{W0}, {VIEWS} views, ndepths {model.model.ndepths}: "
         f"run_dense {total:.2f} s; per map first {secs[0]:.3f} s, "
         f"median after {steady * 1e3:.2f} ms = {1.0 / steady:.2f} maps/s; "
         f"fused points {points}")
     log(f"[{tag}] launches " + json.dumps(launches) + " per map "
         + json.dumps(per_map) + f"; eager online-softmax updates {updates[0]} "
         f"({eager_updates} per map)")
+    med = {k: float(np.median(v)) for k, v in stage_ms.items()}
     log(f"[{tag}] per-stage ms between CUDA events, idle gaps included "
         "(median over maps 2..n): " + json.dumps(
-        {k: round(float(np.median(v)), 4) for k, v in stage_ms.items()}))
-    return launches, steady
+        {k: round(v, 4) for k, v in med.items()}))
+    if any(k.endswith(".cost_reg") for k in med):
+        total = sum(med.values())
+        reg = sum(v for k, v in med.items() if k.endswith(".cost_reg"))
+        vol = sum(v for k, v in med.items() if k.endswith(".volume"))
+        log(f"[{tag}] of {total:.3f} ms between a forward's marks: CostRegNet3D "
+            f"{reg:.3f} ms ({reg / total:.3f}), K2v volumes {vol:.3f} ms "
+            f"({vol / total:.3f})")
+    return launches, steady, med
 
 
 def phase_end_to_end(dev, cam0, poses0):
@@ -1209,6 +1291,87 @@ def phase_end_to_end_msrednet(dev, cam0, poses0):
         raise AssertionError(f"{got} conv-template launches in two MSREDNet "
                              f"forwards, expected {want}")
     return busy, counts
+
+
+# cuDNN's (and its CUTLASS-style) convolution kernels, as the profiler lists
+# them: implicit GEMMs (fprop; dgrad for the transposed convs) and the
+# layout transforms cuDNN launches around them
+CONV_FAMILY = ("conv", "Conv", "fprop", "dgrad", "gemm", "xmma", "cutlass",
+               "implicit", "nchwToNhwc", "nhwcToNchw")
+
+
+def phase_end_to_end_volume(dev, cam0, poses0, model_type):
+    """One sample through the CasMVSNet / UCSNet forward with K2v and with
+    its plain version (same weights): depth (and UCSNet's sigma) within
+    TOL_DEPTH_FRAC of the range, confidence within TOL_CONF. Then the
+    kernel forward profiled: device busy against wall, and device ms by
+    family -- K2v, cuDNN convs, other -- with the convs split into
+    CostRegNet3D's 3-D ones and the feature net's 2-D ones by profiling the
+    feature net alone."""
+    from deep3d_aerial_tpu_torch.models import build_model
+    from deep3d_aerial_tpu_torch.models.casmvsnet import stage_features
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    imgs, rel, dmin, dmax, _ = sample(cam0, poses0, dev, ref=1)
+    mk = init_random_weights(build_model(model_type), seed=0).to(dev).eval()
+    mp = build_model(model_type, warp_impl="plain").to(dev).eval()
+    mp.load_state_dict(mk.state_dict())
+    scores_k, scores_p = {}, {}
+    hooks = [getattr(m, f"cost_reg{s}").register_forward_hook(
+        lambda mod, args, out, s=s, got=got: got.__setitem__(f"stage{s + 1}", out[0, 0]))
+        for m, got in ((mk, scores_k), (mp, scores_p)) for s in range(3)]
+    with torch.no_grad():
+        ok = mk(imgs, rel, dmin, dmax)
+        op = mp(imgs, rel, dmin, dmax)
+    for h in hooks:
+        h.remove()
+    dtol = TOL_DEPTH_FRAC * (dmax - dmin)
+    tag = f"e2e:{model_type}"
+    for s in ("stage1", "stage2", "stage3"):
+        diffs = {k: float((ok[s][k] - op[s][k]).abs().max()) for k in op[s]}
+        finite = all(bool(torch.isfinite(v).all()) for v in ok[s].values())
+        # the confidence gathers a window at the TRUNCATED expected plane
+        # index: where that index sits on an integer, the two paths may
+        # truncate it to neighbouring planes and gather other windows. So
+        # confidence is held to TOL_CONF where both paths' truncated index
+        # agree, and a pixel where they differ must have both indices
+        # within 1e-3 of one integer.
+        D = scores_k[s].shape[0]
+        ks = torch.arange(D, dtype=torch.float32, device=dev)[:, None, None]
+        ik, ip = ((torch.softmax(sc[s], 0) * ks).sum(0) for sc in (scores_k, scores_p))
+        same = ik.clamp(0, D - 1).long() == ip.clamp(0, D - 1).long()
+        edge = torch.round(ip)
+        on_edge = ((ik - edge).abs() <= 1e-3) & ((ip - edge).abs() <= 1e-3)
+        dc = (ok[s]["photometric_confidence"] - op[s]["photometric_confidence"]).abs()
+        diffs["photometric_confidence"] = float(dc[same].max())
+        flips = int((~same).sum())
+        log(f"[{tag}] {s}: kernel vs plain max |diff| " + json.dumps(
+            {k: float(f"{v:.3e}") for k, v in diffs.items()})
+            + f" (depth and variance tol {dtol:.3e} m, confidence tol {TOL_CONF:g} "
+            f"where the truncated plane index agrees); {flips} of {same.numel()} "
+            f"pixels truncate to another plane, all within 1e-3 of an integer: "
+            f"{bool(on_edge[~same].all())}")
+        if not bool(on_edge[~same].all()):
+            raise AssertionError(f"{model_type} end to end {s}: the plane index "
+                                 "differs away from an integer")
+        for k, v in diffs.items():
+            if not finite or not v <= (TOL_CONF if k == "photometric_confidence" else dtol):
+                raise AssertionError(f"{model_type} end to end {s} {k}: {v} "
+                                     f"(finite {finite})")
+    fams = {"sweep_var": "K2v sweep_var"}
+    fams.update({k: "cuDNN convs" for k in CONV_FAMILY})
+    busy, counts = profile_forward(mk, (imgs, rel, dmin, dmax), fams,
+                                   f"profile:{model_type}")
+    feat, _ = profile_forward(lambda x: stage_features(mk.feature, x), (imgs,),
+                              fams, f"profile:{model_type}:features")
+    if busy:
+        conv, conv2d = busy.get("cuDNN convs", 0.0), feat.get("cuDNN convs", 0.0)
+        log(f"[profile:{model_type}] device ms a forward: K2v "
+            f"{busy.get('K2v sweep_var', 0.0):.3f} in "
+            f"{counts.get('K2v sweep_var', 0)} launches; cuDNN convs {conv:.3f} "
+            f"(CostRegNet3D's 3-D {conv - conv2d:.3f}, FeatureNet's 2-D "
+            f"{conv2d:.3f}); other {busy.get('other (PyTorch ops, cuDNN)', 0.0):.3f}")
+    return busy
 
 
 def profile_forward(model, inputs, fams, tag="profile", calls=1):
@@ -1326,7 +1489,7 @@ def main() -> int:
     records, red2_yard = phase_kernels(dev, cam0, poses0, camF, posesF)
     log(f"[phase] kernels {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    launches, _ = phase_main_path(
+    launches, _, _ = phase_main_path(
         dev, cam0, poses0, (sweep_corr, sweep_cost, red_step2),
         {"sweep_corr": 1,
          "sweep_cost": sum(d // CHUNK for d in NDEPTHS),
@@ -1348,7 +1511,7 @@ def main() -> int:
     records += msred_records
     log(f"[phase] kernels:msrednet {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    msred_launches, _ = phase_main_path(
+    msred_launches, _, _ = phase_main_path(
         dev, cam0, poses0, (sweep_var, red_step4, cf_conv3x3),
         {"sweep_var": sum(d // CHUNK for d in NDEPTHS),
          "red_step4": sum(NDEPTHS),
@@ -1365,6 +1528,24 @@ def main() -> int:
     t = time.perf_counter()
     phase_production_frame(dev, camF, posesF, model_type="msrednet")
     log(f"[phase] production frame:msrednet {time.perf_counter() - t:.1f} s")
+
+    # CasMVSNet and UCSNet: the variance volumes (K2v) and CostRegNet3D
+    volume_launches = {}
+    for model_type, ndepths, colmap in (("casmvsnet", NDEPTHS, True),
+                                        ("ucsnet", UCS_NDEPTHS, False)):
+        t = time.perf_counter()
+        got, _, _ = phase_main_path(
+            dev, cam0, poses0, (sweep_var,),
+            {"sweep_var": sum(d // CHUNK for d in ndepths)},
+            model_type=model_type, colmap=colmap)
+        volume_launches[model_type] = got["sweep_var"]
+        log(f"[phase] main path:{model_type} {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_end_to_end_volume(dev, cam0, poses0, model_type)
+        log(f"[phase] end to end:{model_type} {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_production_frame(dev, camF, posesF, model_type=model_type)
+        log(f"[phase] production frame:{model_type} {time.perf_counter() - t:.1f} s")
 
     adamvs, msred = f"AdaMVS {H0}x{W0} map", f"MSREDNet {H0}x{W0} map"
     src = {"sweep_corr": ("sweep.cu", "pallas_sweep.py:235", adamvs),
@@ -1395,6 +1576,9 @@ def main() -> int:
         })
         if name == "red_step2":  # not a library call: the convs alone
             kernels[-1]["convs_cudnn_ms"] = red2_yard
+        if name == "sweep_var":  # every main path it runs on, in its own run
+            kernels[-1]["launches_by_path"] = {"msrednet": launches[name],
+                                               **volume_launches}
     kernels.append({
         "name": "cf_conv3x3", "route": "cuda",
         "source": "deep3d_aerial_tpu_torch/csrc/red_step4.cu",

@@ -1,21 +1,17 @@
 from .adamvs import AdaMVS
+from .casmvsnet import CasMVSNet
 from .msrednet import MSREDNet
+from .ucsnet import UCSNet
 
-MODELS = {"adamvs": AdaMVS, "msrednet": MSREDNet}
-# CasMVSNet and UCSNet are a ROADMAP section A item
-_NOT_PORTED = ("casmvsnet", "ucsnet")
+MODELS = {"adamvs": AdaMVS, "casmvsnet": CasMVSNet, "msrednet": MSREDNet,
+          "ucsnet": UCSNet}
 
 
 def check_model_type(model_type: str) -> None:
-    """Raise unless the port runs `model_type`: NotImplementedError naming
-    its ROADMAP item for a model not ported yet, ValueError otherwise."""
-    if model_type in MODELS:
-        return
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet (ROADMAP A: "
-            "CasMVSNet/UCSNet with K2v, CostRegNet3D and FeatureNet 'fpn')")
-    raise ValueError(f"unknown model_type {model_type!r}")
+    """Raise ValueError unless the port runs `model_type`."""
+    if model_type not in MODELS:
+        raise ValueError(f"unknown model_type {model_type!r}; one of "
+                         f"{sorted(MODELS)}")
 
 
 def build_model(model_type: str, **kwargs):
@@ -24,4 +20,5 @@ def build_model(model_type: str, **kwargs):
     return MODELS[model_type](**kwargs)
 
 
-__all__ = ["AdaMVS", "MSREDNet", "build_model", "check_model_type"]
+__all__ = ["AdaMVS", "CasMVSNet", "MSREDNet", "UCSNet", "build_model",
+           "check_model_type"]

@@ -1,8 +1,9 @@
 """Building blocks of the cascade MVS networks, NCHW (counterpart of
 deep3d_aerial_tpu/models/blocks.py).
 
-Parameter layouts are PyTorch's (conv OIHW; transposed conv [in, out, 3, 3],
-flipped, see ops/conv.py), and the submodule names follow the JAX package's tree so
+Parameter layouts are PyTorch's (conv OIHW or OIDHW; transposed conv
+[in, out, 3, 3] or [in, out, 3, 3, 3], flipped, see ops/conv.py), and the
+submodule names follow the JAX package's tree so
 that weights.py maps one onto the other by rule: `Conv_0` / `ConvTranspose_0`
 -> `conv`, `GroupNorm_0` -> `norm`, `ConvBlock_i` -> `convs.i`,
 `DeconvBlock_i` -> `deconvs.i`.
@@ -14,7 +15,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.conv import conv2d_same, conv_transpose2d_same
+from ..ops.conv import (
+    conv2d_same,
+    conv3d_same,
+    conv_transpose2d_same,
+    conv_transpose3d_same,
+)
 from ..ops.depth_samplers import resize_bilinear
 from ..ops.resize import upsample_axis_lerp
 
@@ -46,11 +52,46 @@ class ConvTranspose2d(nn.Module):
         return conv_transpose2d_same(x, self.weight, self.bias)
 
 
+class Conv3d(nn.Module):
+    """The JAX package's 3-D nn.Conv(padding='SAME'): OIDHW weight, optional
+    bias."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 bias: bool = True):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x):
+        return conv3d_same(x, self.weight, self.bias, self.stride)
+
+
+class ConvTranspose3d(nn.Module):
+    """The JAX package's nn.ConvTranspose(3x3x3, strides=2, padding='SAME'):
+    exact 2x on D, H and W."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cin, cout, 3, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x):
+        return conv_transpose3d_same(x, self.weight, self.bias)
+
+
+CONVS = {2: Conv2d, 3: Conv3d}
+CONV_TRANSPOSES = {2: ConvTranspose2d, 3: ConvTranspose3d}
+
+
 class GroupNorm(nn.Module):
     """nn.GroupNorm as the JAX package applies it: groups
     max(1, C // 8), epsilon 1e-6, variance E[x^2] - E[x]^2, and -- because
-    Linen reads the first axis of an unbatched [H, W, C] map as a batch axis
-    -- statistics per image ROW, over (W, channels of the group)."""
+    Linen reads the first axis of an unbatched input as a batch axis --
+    statistics per slice of the first spatial axis: per image ROW of a
+    [N, C, H, W] map, over (W, channels of the group), and per depth PLANE
+    of a [N, C, D, H, W] volume, over (H, W, channels of the group). A
+    GroupNorm that pools the whole map or volume is a different function."""
 
     def __init__(self, channels: int, eps: float = 1e-6):
         super().__init__()
@@ -60,15 +101,18 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        N, C, H, W = x.shape
-        g = x.reshape(N, self.groups, C // self.groups, H, W)
-        mean = g.mean(dim=(2, 4), keepdim=True)
-        var = ((g * g).mean(dim=(2, 4), keepdim=True) - mean * mean).clamp_min(0)
+        N, C, *spatial = x.shape
+        G = self.groups
+        g = x.reshape(N, G, C // G, *spatial)
+        # the group's channels and every spatial axis but the first
+        dims = (2,) + tuple(range(4, g.ndim))
+        mean = g.mean(dim=dims, keepdim=True)
+        var = ((g * g).mean(dim=dims, keepdim=True) - mean * mean).clamp_min(0)
         # Linen's order: the scale folds into the inverse deviation
-        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(
-            1, self.groups, C // self.groups, 1, 1)
-        y = ((g - mean) * mul).reshape(N, C, H, W)
-        return y + self.bias[:, None, None]
+        ones = (1,) * len(spatial)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(1, G, C // G, *ones)
+        y = ((g - mean) * mul).reshape(N, C, *spatial)
+        return y + self.bias.reshape(C, *ones)
 
 
 def _norm(norm: str, channels: int):
@@ -80,13 +124,14 @@ def _norm(norm: str, channels: int):
 
 
 class ConvBlock(nn.Module):
-    """Conv + optional GroupNorm + optional ReLU; bias only without norm."""
+    """Conv (2-D, or 3-D with ndim=3) + optional GroupNorm + optional ReLU;
+    bias only without norm."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 relu: bool = True, norm: str = "group"):
+                 relu: bool = True, norm: str = "group", ndim: int = 2):
         super().__init__()
         self.norm = _norm(norm, cout)
-        self.conv = Conv2d(cin, cout, kernel, stride, bias=self.norm is None)
+        self.conv = CONVS[ndim](cin, cout, kernel, stride, bias=self.norm is None)
         self.relu = relu
 
     def forward(self, x):
@@ -97,13 +142,14 @@ class ConvBlock(nn.Module):
 
 
 class DeconvBlock(nn.Module):
-    """Exact-2x transposed conv + optional GroupNorm + optional ReLU."""
+    """Exact-2x transposed conv (2-D, or 3-D with ndim=3) + optional
+    GroupNorm + optional ReLU."""
 
     def __init__(self, cin: int, cout: int, relu: bool = True,
-                 norm: str = "group"):
+                 norm: str = "group", ndim: int = 2):
         super().__init__()
         self.norm = _norm(norm, cout)
-        self.conv = ConvTranspose2d(cin, cout, bias=self.norm is None)
+        self.conv = CONV_TRANSPOSES[ndim](cin, cout, bias=self.norm is None)
         self.relu = relu
 
     def forward(self, x):
@@ -139,6 +185,12 @@ class ConvGRUCell(nn.Module):
         r, u = torch.sigmoid(self.gates(torch.cat([x, h], dim=1))).chunk(2, dim=1)
         c = torch.tanh(self.cand(torch.cat([x, r * h], dim=1)))
         return u * h + (1.0 - u) * c
+
+
+def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x upsampling of [..., H, W], by repeats (the JAX package's
+    upsample_nearest2x)."""
+    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
 
 def upsample_bilinear_int(x: torch.Tensor, p: int) -> torch.Tensor:

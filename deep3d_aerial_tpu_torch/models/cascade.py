@@ -1,20 +1,25 @@
-"""Streaming cascade sweep (counterpart of
-deep3d_aerial_tpu/models/cascade.py): the cost built `plane_chunk` planes at
-a time, each plane folded through a recurrent regularizer into an online
-softmax, so no [D, H, W, C] volume ever exists.
+"""Cascade machinery (counterpart of deep3d_aerial_tpu/models/cascade.py).
+
+The streaming sweep: the cost built `plane_chunk` planes at a time, each
+plane folded through a recurrent regularizer into an online softmax, so no
+[D, H, W, C] volume ever exists.
 
   * 'correlation' -- confidence-weighted correlation (AdaMVS; kernel K2 on
                      CUDA), regularized by RedStep2 (kernel K3)
   * 'variance'    -- variance over the views (MSREDNet; kernel K2v on
                      CUDA), regularized by RedStep4 (kernel K4)
 
-Ported here: one depth block. Depth shards are not ported yet (ROADMAP,
-section A).
+The volume path (CasMVSNet, UCSNet): the whole variance volume, built in
+chunks of planes (kernel K2v on CUDA), regularized by a 3-D hourglass into
+one score per plane and pixel, then a softmax head over the planes.
+
+Ported here: one depth block. Depth shards are not ported yet (ROADMAP A,
+depth shards).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -147,3 +152,89 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
                 score, *states = step(costs[k], *states)
                 osm = OnlineSoftmaxState.update(osm, score, dvs[k])
     return OnlineSoftmaxState.finalize(osm)
+
+
+# planes per K2v launch of the volume path, at most (the JAX package's
+# _variance_volume_pallas chunk)
+VOLUME_CHUNK = 8
+
+
+def variance_cost_volume(feats: torch.Tensor, rel: torch.Tensor,
+                         depths: torch.Tensor,
+                         warp_impl: str = "kernel") -> torch.Tensor:
+    """The whole variance cost volume for the 3-D regularizer.
+
+    feats [V, H, W, C] (channels-last, ref first), rel [V-1, 4, 4], depths
+    [D] or [D, H, W] -> [1, C, D, H, W]: E[f^2] - E[f]^2 over the ref and
+    the V-1 warped source features. Built in chunks of K planes, K the
+    largest divisor of D up to VOLUME_CHUNK; each chunk is one sweep_var
+    call (one K2v launch on CUDA tensors with warp_impl 'kernel'; its plain
+    version on CPU tensors or with 'plain') and one copy into the volume.
+    """
+    if warp_impl not in ("kernel", "plain"):
+        raise ValueError(f"warp_impl {warp_impl!r} (kernel, plain)")
+    ref, srcs = feats[0], feats[1:]
+    H, W, C = ref.shape
+    D = depths.shape[0]
+    if depths.ndim == 1:
+        depths = depths[:, None, None].expand(D, H, W)
+    var_fn = sweep_var if warp_impl == "kernel" else sweep_var_plain
+    K = min(VOLUME_CHUNK, D)
+    while D % K:
+        K -= 1
+    vol = torch.empty((1, C, D, H, W), device=ref.device, dtype=torch.float32)
+    for start in range(0, D, K):
+        chunk = var_fn(ref, srcs, rel, depths[start:start + K].contiguous())
+        vol[0, :, start:start + K].copy_(chunk.transpose(0, 1))
+    return vol
+
+
+def blocked_volume_scores(reg: Callable[[torch.Tensor], torch.Tensor],
+                          feats: torch.Tensor, rel: torch.Tensor,
+                          depths: torch.Tensor, warp_impl: str = "kernel",
+                          mark: Optional[Callable[[str], None]] = None
+                          ) -> torch.Tensor:
+    """Variance cost volume + 3-D regularizer -> scores [D, H, W], as one
+    depth block (the models refuse depth_shards other than 1). `mark(label)`,
+    when given, is called once the volume ('volume') and the regularizer
+    ('cost_reg') have been enqueued."""
+    mark = mark or (lambda label: None)
+    vol = variance_cost_volume(feats, rel, depths, warp_impl=warp_impl)
+    mark("volume")
+    scores = reg(vol)[0, 0]
+    mark("cost_reg")
+    return scores
+
+
+def soft_argmax_depth(prob: torch.Tensor, depths: torch.Tensor) -> torch.Tensor:
+    """Expected depth under prob [D, H, W]; depths [D] or [D, H, W]."""
+    if depths.ndim == 1:
+        depths = depths[:, None, None]
+    return torch.sum(prob * depths, dim=0)
+
+
+def window_confidence(prob: torch.Tensor, window: int = 4) -> torch.Tensor:
+    """Sum of `window` consecutive probabilities around the expected index:
+    prob [D, H, W] padded (1 front, 2 back) in D, a 4-tap sliding sum, and
+    the sum gathered at the expected index TRUNCATED toward zero (the JAX
+    code's astype(int32); its docstring says rounded), clipped to [0, D-1].
+    A NaN index gathers at 0, as XLA converts NaN to 0."""
+    D = prob.shape[0]
+    padded = torch.nn.functional.pad(prob, (0, 0, 0, 0, 1, 2))
+    summed = padded[0:D]
+    for k in range(1, window):
+        summed = summed + padded[k:k + D]
+    ks = torch.arange(D, dtype=prob.dtype, device=prob.device)[:, None, None]
+    idx = torch.sum(prob * ks, dim=0)
+    # clamping before the cast truncates as the cast of the unclamped value
+    # would, then clips; it keeps the cast defined for NaN and inf
+    idx = torch.nan_to_num(idx, nan=0.0).clamp(0, D - 1).to(torch.int64)
+    return torch.gather(summed, 0, idx[None])[0]
+
+
+def masked_softmax_depth_head(scores: torch.Tensor, depths: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """softmax over D -> (prob [D, H, W], depth [H, W], maxprob [H, W])."""
+    prob = torch.softmax(scores, dim=0)
+    depth = soft_argmax_depth(prob, depths)
+    return prob, depth, prob.amax(dim=0)

@@ -1,0 +1,109 @@
+"""CasMVSNet, the feedforward coarse-to-fine plane-sweep network
+(counterpart of deep3d_aerial_tpu/models/casmvsnet.py):
+
+  * 'fpn' feature pyramid (FeatureNet)
+  * every stage: the whole variance cost volume (models/cascade.py; one
+    K2v launch per chunk of 8 planes on CUDA), a CostRegNet3D hourglass
+    (plain 3-D convs), a softmax over the planes, soft-argmax depth and the
+    4-plane window confidence
+  * stage 1 samples the depth range uniformly; later stages sample a window
+    of ndepth x ratio x interval around the bilinear-resized previous depth
+
+warp_impl 'kernel' runs K2v on CUDA tensors (its plain version on CPU
+tensors); 'plain' runs the plain version everywhere. Depth shards are not
+ported yet (ROADMAP A, depth shards).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..ops.depth_samplers import (
+    resize_bilinear,
+    uniform_depth_samples,
+    window_depth_samples,
+)
+from .cascade import blocked_volume_scores, masked_softmax_depth_head, window_confidence
+from .cost_reg import CostRegNet3D
+from .feature_net import FeatureNet, multi_view_features
+
+
+def check_volume_settings(name: str, warp_impl: str, depth_shards: int) -> None:
+    """Refuse what the volume models do not run: an unknown warp_impl
+    (ValueError) or depth shards (NotImplementedError)."""
+    if warp_impl not in ("kernel", "plain"):
+        raise ValueError(f"warp_impl {warp_impl!r} (kernel, plain)")
+    if depth_shards != 1:
+        raise NotImplementedError(
+            f"{name} depth_shards is not ported yet (ROADMAP A.9: depth shards)")
+
+
+def stage_features(feature: FeatureNet, imgs: torch.Tensor):
+    """The three stages' features, each [V, h, w, C] (channels-last, the
+    sweep kernels' layout)."""
+    return [f.permute(0, 2, 3, 1).contiguous()
+            for f in multi_view_features(feature, imgs)]
+
+
+class CasMVSNet(nn.Module):
+    def __init__(self, ndepths: Tuple[int, ...] = (48, 32, 8),
+                 depth_interval_ratios: Tuple[float, ...] = (4.0, 2.0, 1.0),
+                 num_depth: int = 384, base_channels: int = 8,
+                 arch: str = "fpn", norm: str = "group",
+                 warp_impl: str = "kernel", depth_shards: int = 1):
+        super().__init__()
+        check_volume_settings("CasMVSNet", warp_impl, depth_shards)
+        self.ndepths = tuple(int(d) for d in ndepths)
+        self.depth_interval_ratios = tuple(float(r) for r in depth_interval_ratios)
+        self.num_depth = num_depth
+        self.warp_impl = warp_impl
+        self.feature = FeatureNet(base_channels, arch=arch, norm=norm)
+        for s, c in enumerate(self.feature.out_channels[:len(self.ndepths)]):
+            self.add_module(f"cost_reg{s}", CostRegNet3D(c, norm=norm))
+
+    def forward(self, imgs: torch.Tensor, rel_projs: torch.Tensor,
+                depth_min, depth_max,
+                mark: Optional[Callable[[str], None]] = None) -> Dict:
+        """imgs [V, H, W, 3]; rel_projs [3, V-1, 4, 4] per-stage src-vs-ref
+        transforms; scalar depth range. Returns the JAX model's dict: per
+        stage depth and photometric_confidence, and the last stage's at the
+        top level.
+
+        `mark(label)`, when given, is called as each phase has been
+        enqueued: 'features', then per stage s 'stage<s>.volume' (K2v),
+        'stage<s>.cost_reg' (CostRegNet3D) and 'stage<s>' (the head)."""
+        mark = mark or (lambda label: None)
+        dev = imgs.device
+        feats = stage_features(self.feature, imgs)
+        mark("features")
+        depth_min = torch.as_tensor(depth_min, dtype=torch.float32, device=dev)
+        depth_max = torch.as_tensor(depth_max, dtype=torch.float32, device=dev)
+        interval = (depth_max - depth_min) / self.num_depth
+        rel_projs = rel_projs.float()
+
+        depth = conf = None
+        outputs: Dict = {}
+        for s, nd in enumerate(self.ndepths):
+            f = feats[s]
+            H, W = f.shape[1:3]
+            if depth is None:
+                depths = uniform_depth_samples(depth_min, depth_max, nd)
+            else:
+                depths = window_depth_samples(
+                    resize_bilinear(depth, (H, W)), nd,
+                    self.depth_interval_ratios[s] * interval)
+            tag = f"stage{s + 1}"
+            scores = blocked_volume_scores(
+                getattr(self, f"cost_reg{s}"), f, rel_projs[s], depths,
+                warp_impl=self.warp_impl,
+                mark=lambda label: mark(f"{tag}.{label}"))
+            prob, depth, _ = masked_softmax_depth_head(scores.float(), depths)
+            conf = window_confidence(prob)
+            outputs[tag] = {"depth": depth, "photometric_confidence": conf}
+            mark(tag)
+        outputs["depth"] = depth
+        outputs["photometric_confidence"] = conf
+        return outputs

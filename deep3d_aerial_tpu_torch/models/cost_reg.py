@@ -10,7 +10,10 @@ deep3d_aerial_tpu/models/cost_reg.py):
                     (MSREDNet); its step is kernel K4 (ops/red_step4.py) on
                     CUDA, built from the conv template K5 (ops/cf_conv.py)
 
-CostRegNet3D (CasMVSNet, UCSNet) is not ported yet (ROADMAP, section A).
+  * CostRegNet3D -- 3-D hourglass over the whole [C, D, H, W] variance
+                    volume (CasMVSNet, UCSNet): plain PyTorch 3-D convs
+                    (cuDNN on CUDA); the JAX package computes it in XLA,
+                    outside any Pallas kernel
 """
 
 from __future__ import annotations
@@ -23,13 +26,13 @@ import torch.nn as nn
 
 from ..ops import red_step4 as rs4
 from ..ops.red_step2 import pack_params, red_step2, red_step2_plain
-from .blocks import Conv2d, ConvBlock, ConvGRUCell, ConvTranspose2d, DeconvBlock
+from .blocks import Conv2d, Conv3d, ConvBlock, ConvGRUCell, ConvTranspose2d, DeconvBlock
 
 
 def _crop_like(x, ref):
     """Crop a decoder output to the skip tensor's spatial shape (transposed
     convs overshoot by one on odd input sizes)."""
-    return x[..., :ref.shape[-2], :ref.shape[-1]]
+    return x[(...,) + tuple(slice(0, s) for s in ref.shape[2:])]
 
 
 class _PackedCache:
@@ -72,6 +75,39 @@ class CostRegNet2D(nn.Module):
         x = c4 + _crop_like(self.deconvs[0](x), c4)
         x = c2 + _crop_like(self.deconvs[1](x), c2)
         x = c0 + _crop_like(self.deconvs[2](x), c0)
+        return self.prob(x)
+
+
+class CostRegNet3D(nn.Module):
+    """Hourglass over a [1, Cin, D, H, W] volume -> [1, 1, D, H, W] scores
+    (D, H, W multiples of 8): 7 ConvBlocks (stride 2 at 1, 3 and 5), 3
+    DeconvBlocks summed into the skips, and a biased 3x3x3 `prob` conv.
+    GroupNorm statistics are per depth plane (models/blocks.py). On a card,
+    run it with TF32 off (as the pipeline's dense_match does), or its convs
+    are not float32."""
+
+    def __init__(self, cin: int, base: int = 8, norm: str = "group"):
+        super().__init__()
+        b = base
+        specs = [(cin, b, 1), (b, 2 * b, 2), (2 * b, 2 * b, 1),
+                 (2 * b, 4 * b, 2), (4 * b, 4 * b, 1),
+                 (4 * b, 8 * b, 2), (8 * b, 8 * b, 1)]
+        self.convs = nn.ModuleList(
+            [ConvBlock(ci, co, stride=s, norm=norm, ndim=3) for ci, co, s in specs])
+        self.deconvs = nn.ModuleList(
+            [DeconvBlock(ci, co, norm=norm, ndim=3)
+             for ci, co in ((8 * b, 4 * b), (4 * b, 2 * b), (2 * b, b))])
+        self.prob = Conv3d(b, 1)
+
+    def forward(self, vol):
+        cv, dc = self.convs, self.deconvs
+        c0 = cv[0](vol)
+        c2 = cv[2](cv[1](c0))
+        c4 = cv[4](cv[3](c2))
+        x = cv[6](cv[5](c4))
+        x = c4 + _crop_like(dc[0](x), c4)
+        x = c2 + _crop_like(dc[1](x), c2)
+        x = c0 + _crop_like(dc[2](x), c0)
         return self.prob(x)
 
 

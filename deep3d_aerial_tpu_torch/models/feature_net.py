@@ -1,11 +1,12 @@
 """Feature pyramids (counterpart of deep3d_aerial_tpu/models/feature_net.py):
 
-  * 'unet'   -- deconv-fuse decoder (MSREDNet)
+  * 'fpn'    -- FPN top-down merge: nearest 2x upsampling plus 1x1 lateral
+                convs, 3x3 output convs (CasMVSNet)
+  * 'unet'   -- deconv-fuse decoder (MSREDNet, UCSNet)
   * 'branch' -- the UNet decoder plus two avg-pool context branches per
                 stage (AdaMVS)
 
-Stages at 1/4, 1/2 and 1/1 resolution with [4b, 2b, b] channels, NCHW. The
-'fpn' arch (CasMVSNet, UCSNet) is not ported yet (ROADMAP, section A).
+Stages at 1/4, 1/2 and 1/1 resolution with [4b, 2b, b] channels, NCHW.
 """
 
 from __future__ import annotations
@@ -15,17 +16,15 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from .blocks import Conv2d, ConvBlock, DeconvFuse, avgpool_branch
+from .blocks import Conv2d, ConvBlock, DeconvFuse, avgpool_branch, upsample_nearest2x
 
 
 class FeatureNet(nn.Module):
     def __init__(self, base_channels: int = 8, arch: str = "branch",
                  norm: str = "group"):
         super().__init__()
-        if arch not in ("branch", "unet"):
-            raise NotImplementedError(
-                f"FeatureNet arch {arch!r} is not ported (ROADMAP A: "
-                "CasMVSNet/UCSNet)")
+        if arch not in ("fpn", "branch", "unet"):
+            raise ValueError(f"unknown feature arch {arch!r}")
         b = base_channels
         self.base_channels = b
         self.arch = arch
@@ -34,6 +33,13 @@ class FeatureNet(nn.Module):
                  (2 * b, 4 * b, 5, 2), (4 * b, 4 * b, 3, 1), (4 * b, 4 * b, 3, 1)]
         self.convs = nn.ModuleList(
             [ConvBlock(ci, co, k, s, norm=norm) for ci, co, k, s in specs])
+        if arch == "fpn":
+            self.out1 = Conv2d(4 * b, 4 * b, 1, bias=False)
+            self.inner1 = Conv2d(2 * b, 4 * b, 1)
+            self.out2 = Conv2d(4 * b, 2 * b, 3, bias=False)
+            self.inner2 = Conv2d(b, 4 * b, 1)
+            self.out3 = Conv2d(4 * b, b, 3, bias=False)
+            return
         # 'branch' heads see [ctx1, ctx2, x]: twice the stage's channels
         k = 2 if arch == "branch" else 1
         if arch == "branch":
@@ -67,6 +73,12 @@ class FeatureNet(nn.Module):
         conv0 = c[1](c[0](x))
         conv1 = c[4](c[3](c[2](conv0)))
         conv2 = c[7](c[6](c[5](conv1)))
+        if self.arch == "fpn":
+            s1 = self.out1(conv2)
+            intra = upsample_nearest2x(conv2) + self.inner1(conv1)
+            s2 = self.out2(intra)
+            intra = upsample_nearest2x(intra) + self.inner2(conv0)
+            return s1, s2, self.out3(intra)
         s1 = self._head(conv2, 1, self.out1)
         intra = self.deconv1(conv1, conv2)
         s2 = self._head(intra, 2, self.out2)

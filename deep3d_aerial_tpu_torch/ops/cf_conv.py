@@ -122,10 +122,11 @@ def cf_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     scratch = torch.empty(lib.cf_conv3x3_scratch_floats(Ci, Co, H, W, m),
                           device=x.device)
     tick = tickets(x.device, lib.cf_conv3x3_tickets(Ci, Co, H, W, m))
-    rc = lib.cf_conv3x3_f32(x.data_ptr(), packed.data_ptr(), b.data_ptr(), Ci,
-                            Co, H, W, m, int(relu), out.data_ptr(),
-                            scratch.data_ptr(), tick.data_ptr(),
-                            torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = lib.cf_conv3x3_f32(x.data_ptr(), packed.data_ptr(), b.data_ptr(), Ci,
+                                Co, H, W, m, int(relu), out.data_ptr(),
+                                scratch.data_ptr(), tick.data_ptr(),
+                                torch.cuda.current_stream(x.device).cuda_stream)
     check(lib, rc, "cf_conv3x3")
     cf_conv3x3.launches += 1
     return out

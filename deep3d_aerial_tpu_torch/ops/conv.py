@@ -1,12 +1,17 @@
-"""The JAX package's 'SAME' convolutions in PyTorch (NCHW, OIHW weights).
+"""The JAX package's 'SAME' convolutions in PyTorch, 2-D (NCHW, OIHW weights)
+and 3-D (NCDHW, OIDHW weights).
 
-Its convs pad a strided 'SAME' conv TensorFlow's way: out = ceil(n / s) and the
-total padding max((out - 1) * s + k - n, 0) splits as (total // 2, rest), so
-a 3x3 stride-2 conv over an even side pads (0, 1) and a 5x5 one (1, 2) --
+Its convs pad a strided 'SAME' conv TensorFlow's way, on every spatial axis
+alike (D as well as H and W): out = ceil(n / s) and the total padding
+max((out - 1) * s + k - n, 0) splits as (total // 2, rest), so a 3x3 or
+3x3x3 stride-2 conv over an even side pads (0, 1) and a 5x5 one (1, 2) --
 not PyTorch's symmetric `padding=`. Its stride-2 'SAME' ConvTranspose does
-not flip its kernel: out[2q] = K[0] x[q-1] + K[2] x[q], out[2q+1] = K[1] x[q].
-With the kernel flipped (weights.py does that once, on loading) this is
-PyTorch's conv_transpose2d at stride 2 without padding, cropped to 2n.
+not flip its kernel; per axis
+    out[2q] = K[0] x[q-1] + K[2] x[q],    out[2q+1] = K[1] x[q],
+and a 3-D one applies that table on D, H and W (the taps multiply). With
+the kernel flipped on every spatial axis (weights.py does that once, on
+loading) this is PyTorch's conv_transpose2d / conv_transpose3d at stride 2
+without padding, cropped to 2n on each axis.
 """
 
 from __future__ import annotations
@@ -24,16 +29,27 @@ def same_pads(n: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
+def _pad_same(x: torch.Tensor, kernel, stride: int) -> torch.Tensor:
+    """`x` padded for a 'SAME' conv over its last len(kernel) axes."""
+    pads = []
+    for n, k in zip(reversed(x.shape[-len(kernel):]), reversed(kernel)):
+        pads += same_pads(n, k, stride)
+    return F.pad(x, pads) if any(pads) else x
+
+
 def conv2d_same(x: torch.Tensor, w: torch.Tensor,
                 b: Optional[torch.Tensor] = None,
                 stride: int = 1) -> torch.Tensor:
     """nn.Conv(padding='SAME') of the JAX package on NCHW `x` with OIHW `w`."""
-    kh, kw = w.shape[-2:]
-    py = same_pads(x.shape[-2], kh, stride)
-    px = same_pads(x.shape[-1], kw, stride)
-    if any(py + px):
-        x = F.pad(x, (px[0], px[1], py[0], py[1]))
-    return F.conv2d(x, w, b, stride=stride)
+    return F.conv2d(_pad_same(x, w.shape[-2:], stride), w, b, stride=stride)
+
+
+def conv3d_same(x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None,
+                stride: int = 1) -> torch.Tensor:
+    """nn.Conv(padding='SAME') of the JAX package on NCDHW `x` with OIDHW
+    `w`."""
+    return F.conv3d(_pad_same(x, w.shape[-3:], stride), w, b, stride=stride)
 
 
 def conv_transpose2d_same(x: torch.Tensor, w: torch.Tensor,
@@ -45,3 +61,13 @@ def conv_transpose2d_same(x: torch.Tensor, w: torch.Tensor,
     H, W = x.shape[-2:]
     y = F.conv_transpose2d(x, w, b, stride=2)
     return y[..., :2 * H, :2 * W]
+
+
+def conv_transpose3d_same(x: torch.Tensor, w: torch.Tensor,
+                          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """nn.ConvTranspose(strides=2, padding='SAME') of the JAX package,
+    3x3x3, on NCDHW `x`; `w` is [in, out, 3, 3, 3], already flipped on all
+    three spatial axes (weights.py)."""
+    D, H, W = x.shape[-3:]
+    y = F.conv_transpose3d(x, w, b, stride=2)
+    return y[..., :2 * D, :2 * H, :2 * W]

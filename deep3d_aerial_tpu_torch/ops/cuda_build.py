@@ -30,7 +30,7 @@ _BUILD = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-_tickets: Dict[str, "torch.Tensor"] = {}
+_tickets: Dict[int, "torch.Tensor"] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -154,12 +154,14 @@ def tickets(device, n: int):
     Launches on one stream at a time share it."""
     import torch
 
-    key = str(device)
+    device = torch.device(device)
+    if device.index is None:  # "cuda": the current device, named by index
+        device = torch.device("cuda", torch.cuda.current_device())
     with _lock:
-        t = _tickets.get(key)
+        t = _tickets.get(device.index)
         if t is None or t.numel() < n:
             t = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
-            _tickets[key] = t
+            _tickets[device.index] = t
         return t
 
 

@@ -4,6 +4,8 @@ deep3d_aerial_tpu/ops/depth_samplers.py).
   * stage 1: uniform inclusive range over [dmin, dmax]
   * later stages: per-pixel window of `ndepth * interval` centred on the
     upsampled previous-stage depth
+  * UCSNet's later stages: per-pixel window center +- lamb * sigma, from the
+    previous stage's predicted uncertainty
 """
 
 from __future__ import annotations
@@ -36,6 +38,19 @@ def window_depth_samples(center_depth: torch.Tensor, ndepth: int,
                                device=center_depth.device)
     lo = center_depth - ndepth / 2.0 * interval
     hi = center_depth + ndepth / 2.0 * interval
+    step = (hi - lo) / (ndepth - 1)
+    k = torch.arange(ndepth, dtype=torch.float32,
+                     device=center_depth.device)[:, None, None]
+    return lo[None] + k * step[None]
+
+
+def variance_depth_samples(center_depth: torch.Tensor, sigma: torch.Tensor,
+                           ndepth: int, lamb: float = 1.5) -> torch.Tensor:
+    """UCSNet's uncertainty-aware window [D, H, W]: ndepth samples from
+    center - lamb * sigma to center + lamb * sigma (the JAX package's order
+    of operations: lo + k * step, step = (hi - lo) / (ndepth - 1))."""
+    lo = center_depth - lamb * sigma
+    hi = center_depth + lamb * sigma
     step = (hi - lo) / (ndepth - 1)
     k = torch.arange(ndepth, dtype=torch.float32,
                      device=center_depth.device)[:, None, None]

@@ -166,12 +166,13 @@ def red_step2(params: Params, cost: torch.Tensor, s1: torch.Tensor,
         state = tuple(t.data_ptr() for t in osm)
     s1n = torch.empty_like(s1)
     s2n = torch.empty_like(s2)
-    rc = lib.red_step2_f32(cost.data_ptr(), Cin, s1.data_ptr(), s2.data_ptr(),
-                           packed.data_ptr(), s1n.data_ptr(), s2n.data_ptr(),
-                           None if score is None else score.data_ptr(),
-                           *state, None if dv is None else dv.data_ptr(),
-                           H, W, int(up),
-                           torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = lib.red_step2_f32(cost.data_ptr(), Cin, s1.data_ptr(), s2.data_ptr(),
+                               packed.data_ptr(), s1n.data_ptr(), s2n.data_ptr(),
+                               None if score is None else score.data_ptr(),
+                               *state, None if dv is None else dv.data_ptr(),
+                               H, W, int(up),
+                               torch.cuda.current_stream(dev).cuda_stream)
     check(lib, rc, "red_step2")
     red_step2.launches += 1
     return score, s1n, s2n

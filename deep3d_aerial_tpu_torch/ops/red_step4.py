@@ -174,12 +174,13 @@ def red_step4(params: Params, cost: torch.Tensor, s1: torch.Tensor,
     scratch = torch.empty(lib.red_step4_scratch_floats(Cin, H, W), device=dev)
     tick = tickets(dev, lib.red_step4_tickets(Cin, H, W))
     convs = ctypes.c_int(0)
-    rc = lib.red_step4_f32(cost.data_ptr(), Cin, s1.data_ptr(), s2.data_ptr(),
-                           s3.data_ptr(), s4.data_ptr(), packed.data_ptr(),
-                           score.data_ptr(), *(o.data_ptr() for o in outs),
-                           scratch.data_ptr(), tick.data_ptr(), H, W,
-                           ctypes.byref(convs),
-                           torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = lib.red_step4_f32(cost.data_ptr(), Cin, s1.data_ptr(), s2.data_ptr(),
+                               s3.data_ptr(), s4.data_ptr(), packed.data_ptr(),
+                               score.data_ptr(), *(o.data_ptr() for o in outs),
+                               scratch.data_ptr(), tick.data_ptr(), H, W,
+                               ctypes.byref(convs),
+                               torch.cuda.current_stream(dev).cuda_stream)
     check(lib, rc, "red_step4")
     red_step4.launches += 1
     cf_conv3x3.launches += convs.value

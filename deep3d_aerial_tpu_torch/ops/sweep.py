@@ -17,8 +17,10 @@ src_P @ inv(ref_P) (the plain versions also take [V, 3, 4]; the kernels
 read rows 0-2 of the [4, 4] matrices in place). The kernel source, with its
 design and bound, is csrc/sweep.cu.
 
-A wrapper launches the kernel for CUDA tensors and raises if the launch
-fails; it takes the plain version only for CPU tensors. Each wrapper counts
+A wrapper launches the kernel for CUDA tensors, on their device (made the
+current one for the launch, since the C entries size their grids for the
+current device), and raises if the launch fails; it takes the plain
+version only for CPU tensors. Each wrapper counts
 its launches in `<wrapper>.launches`.
 """
 
@@ -114,9 +116,10 @@ def sweep_corr(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
     _check_cuda("sweep_corr", ref=ref, srcs=srcs, rels=rels, depths=depths)
     out = torch.empty((V, D, H, W), device=ref.device, dtype=torch.float32)
     lib = load("sweep")
-    rc = lib.sweep_corr_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
-                            depths.data_ptr(), out.data_ptr(), V, D, H, W, C,
-                            torch.cuda.current_stream(ref.device).cuda_stream)
+    with torch.cuda.device(ref.device):
+        rc = lib.sweep_corr_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
+                                depths.data_ptr(), out.data_ptr(), V, D, H, W, C,
+                                torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_corr")
     sweep_corr.launches += 1
     return out
@@ -147,10 +150,11 @@ def sweep_cost(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
                 weights=weights)
     out = torch.empty((K, C, H, W), device=ref.device, dtype=torch.float32)
     lib = load("sweep")
-    rc = lib.sweep_cost_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
-                            depths.data_ptr(), weights.data_ptr(),
-                            out.data_ptr(), V, K, H, W, C,
-                            torch.cuda.current_stream(ref.device).cuda_stream)
+    with torch.cuda.device(ref.device):
+        rc = lib.sweep_cost_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
+                                depths.data_ptr(), weights.data_ptr(),
+                                out.data_ptr(), V, K, H, W, C,
+                                torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_cost")
     sweep_cost.launches += 1
     return out
@@ -177,9 +181,10 @@ def sweep_var(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
     _check_cuda("sweep_var", ref=ref, srcs=srcs, rels=rels, depths=depths)
     out = torch.empty((K, C, H, W), device=ref.device, dtype=torch.float32)
     lib = load("sweep")
-    rc = lib.sweep_var_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
-                           depths.data_ptr(), out.data_ptr(), V, K, H, W, C,
-                           torch.cuda.current_stream(ref.device).cuda_stream)
+    with torch.cuda.device(ref.device):
+        rc = lib.sweep_var_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
+                               depths.data_ptr(), out.data_ptr(), V, K, H, W, C,
+                               torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_var")
     sweep_var.launches += 1
     return out

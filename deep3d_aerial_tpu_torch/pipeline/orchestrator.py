@@ -2,16 +2,18 @@
 deep3d_aerial_tpu/pipeline/orchestrator.py), with the same file artifacts:
 
   workspace/
-    export/               predef cams/images, image_path, viewpair, blocks (input)
+    sparse/               COLMAP model (input of view selection)
+    export/               predef cams/images, image_path, viewpair, blocks,
+                          scene_border (written by view selection, or input)
     dense/MVS/            <name>_init.pfm, _prob.pfm, [_normal.pfm], <name>.txt
     dense/fusion/         scene_i.ply (+ scene_i.txt border)
     production/           copied final products
 
-Ported: dense matching with AdaMVS or MSREDNet, and depth fusion. View
-selection and COLMAP ingest, mesh and DSM, the `.dmap` and `.mvs` outputs,
-the pipelined run, batched inference, depth previews and the CasMVSNet and
-UCSNet models are not: switching one on raises NotImplementedError naming
-its ROADMAP item.
+Ported: view selection from a COLMAP model, dense matching with AdaMVS,
+CasMVSNet, UCSNet or MSREDNet, and depth fusion. Mesh and DSM, the `.dmap`
+and `.mvs` outputs, the pipelined run, batched inference and depth
+previews are not: switching one on raises NotImplementedError naming its
+ROADMAP item.
 
 The pipeline runs on a CUDA device unless the caller asks for the CPU
 (`device="cpu"`); with no CUDA device and no such request it raises.
@@ -33,6 +35,8 @@ from ..fusion.fuse import ViewData
 from ..io import text_formats as tf
 from ..io.pfm import read_pfm, write_pfm
 from ..io.ply import write_ply
+from ..sparse import view_selection
+from ..sparse.export import export_predef
 from .config import PipelineConfig
 from .dataset import EvalDataset
 
@@ -48,8 +52,6 @@ def _not_ported(what: str, item: str):
 
 # pipeline switches of stages that are not ported: (stage, ROADMAP item)
 _UNPORTED_STAGES = {
-    "run_view_selection": ("view selection",
-                           "view selection and COLMAP ingest (sparse/)"),
     "run_create_mesh": ("mesh", "mesh and DSM with the .mvs handoff"),
     "run_create_dsm": ("DSM", "mesh and DSM with the .mvs handoff"),
 }
@@ -87,6 +89,20 @@ def _check_dense_config(cfg: PipelineConfig) -> None:
             "none. Remove it from the config")
 
 
+def zero_non_finite(depth: torch.Tensor, conf: torch.Tensor):
+    """A depth map's clean-up before anything reads it, in the JAX
+    pipeline's order: where any depth pixel is not finite, that pixel's
+    depth and confidence, and every non-finite confidence, become 0 (depth 0
+    is invalid; fusion masks depth <= 0). Normals are taken after, from the
+    cleaned depth. Returns (depth, conf, number of depth pixels zeroed)."""
+    bad = ~torch.isfinite(depth)
+    n_bad = int(bad.sum())
+    if n_bad:
+        depth = torch.where(bad, 0.0, depth)
+        conf = torch.where(bad | ~torch.isfinite(conf), 0.0, conf)
+    return depth, conf, n_bad
+
+
 def resolve_device(device: "str | torch.device") -> torch.device:
     """The device to run on; a CUDA device that is not there raises
     instead of falling back to the CPU."""
@@ -100,14 +116,17 @@ def resolve_device(device: "str | torch.device") -> torch.device:
 
 class AerialPipeline:
     def __init__(self, workspace: str, config: PipelineConfig,
-                 device: "str | torch.device" = "cuda"):
+                 device: "str | torch.device" = "cuda",
+                 data_folder: Optional[str] = None):
         self.device = resolve_device(device)
         self.ws = workspace
         self.cfg = config
+        self.data_folder = data_folder
         # seconds per depth map of the last dense_match, host clock around
         # a forward that ends in a device->host copy
         self.map_seconds: List[float] = []
 
+        self.sparse_path = _join(workspace, "sparse")
         self.export_path = _join(workspace, "export")
         self.dense_path = _join(workspace, "dense")
         self.mvs_path = _join(self.dense_path, "MVS")
@@ -117,9 +136,56 @@ class AerialPipeline:
                   self.fusion_path, self.production_path):
             os.makedirs(p, exist_ok=True)
 
+    def _ensure_image_paths(self) -> None:
+        """Build export/image_path.txt from the data folder when absent,
+        matching COLMAP image names to files (by name, else by stem with
+        the config's extension or a common one)."""
+        out = _join(self.export_path, "image_path.txt")
+        if os.path.exists(out) or self.data_folder is None:
+            return
+        from ..sparse import colmap
+
+        _, images, _ = colmap.read_model(self.sparse_path)
+        entries = []
+        for im in sorted(images.values(), key=lambda v: v.id):
+            path = _join(self.data_folder, im.name)
+            if not os.path.exists(path):
+                base = os.path.splitext(im.name)[0]
+                for ext in (self.cfg.fext, ".png", ".jpg", ".jpeg", ".tif"):
+                    cand = _join(self.data_folder, base + ext)
+                    if os.path.exists(cand):
+                        path = cand
+                        break
+            entries.append((im.id, im.name, os.path.abspath(path)))
+        tf.write_image_paths(out, entries)
+
     # ---------------- stage 1: view selection -------------------------
     def select_view(self) -> None:
-        raise _not_ported(*_UNPORTED_STAGES["run_view_selection"])
+        """From the COLMAP model in sparse/: export/'s predef cameras and
+        images (with depth ranges), image paths, scene blocks, view pairs
+        and the scene border (host numpy, as the JAX package)."""
+        cfg = self.cfg
+        self._ensure_image_paths()
+        export_predef(self.sparse_path, self.export_path)
+
+        from ..sparse import colmap
+
+        _, _, points = colmap.read_model(self.sparse_path)
+        xyz = np.stack([p.xyz for p in points.values()]) if points else np.zeros((0, 3))
+        blocks, border = view_selection.compute_scene_blocks(
+            xyz,
+            block_size=cfg.scene_block_size[1:3]
+            if len(cfg.scene_block_size) == 3 else cfg.scene_block_size,
+            overlap=cfg.block_overlap,
+            bbx_border=cfg.bbx_border_scene,
+        )
+        block_refs, viewpairs = view_selection.select_views(
+            self.sparse_path, blocks, mode=cfg.view_selection_mode,
+            database_path=_join(self.ws, "database.db"),
+        )
+        tf.write_view_pairs(_join(self.export_path, "viewpair.txt"), viewpairs)
+        tf.write_blocks(_join(self.export_path, "blocks.txt"), block_refs)
+        tf.write_border(_join(self.export_path, "scene_border.txt"), border)
 
     # ---------------- stage 2: dense matching -------------------------
     def build_model(self):
@@ -189,28 +255,20 @@ class AerialPipeline:
                     out = model(torch.from_numpy(s.imgs).to(dev),
                                 torch.from_numpy(s.rel_projs).to(dev),
                                 s.depth_min, s.depth_max)
-                    depth_t = out["depth"]
+                    depth_t, conf_t, n_bad = zero_non_finite(
+                        out["depth"], out["photometric_confidence"])
                     normals = None
                     if cfg.save_normals:
                         K_inv = torch.from_numpy(np.linalg.inv(
                             s.ref_cam.K).astype(np.float32)).to(dev)
-                        normals = normals_from_depth(
-                            torch.nan_to_num(depth_t, nan=0.0), K_inv
-                        ).cpu().numpy()
+                        normals = normals_from_depth(depth_t, K_inv).cpu().numpy()
                     depth = depth_t.cpu().numpy().astype(np.float32)
-                    conf = out["photometric_confidence"].cpu().numpy().astype(
-                        np.float32)
+                    conf = conf_t.cpu().numpy().astype(np.float32)
                 took = time.perf_counter() - t0
                 self.map_seconds.append(took)
-                if not np.isfinite(depth).all():
-                    # numeric blowup: zero the bad pixels (depth 0 = invalid,
-                    # fusion masks depth <= 0) and say so
-                    bad = ~np.isfinite(depth)
-                    print(f"[mvs] WARNING: {int(bad.sum())} non-finite depth "
-                          f"px in {s.ref_name}; zeroed")
-                    depth = np.where(bad, 0.0, depth).astype(np.float32)
-                    conf = np.where(bad | ~np.isfinite(conf), 0.0,
-                                    conf).astype(np.float32)
+                if n_bad:
+                    print(f"[mvs] WARNING: {n_bad} non-finite depth px in "
+                          f"{s.ref_name}; zeroed")
                 write_pfm(_join(self.mvs_path, f"{s.ref_name}_init.pfm"), depth)
                 write_pfm(_join(self.mvs_path, f"{s.ref_name}_prob.pfm"), conf)
                 if normals is not None:
@@ -260,6 +318,7 @@ class AerialPipeline:
             if getattr(cfg, switch):
                 raise _not_ported(what, item)
         stages = [
+            (cfg.run_view_selection, "view selection", self.select_view),
             (cfg.run_mvs, "dense matching",
              lambda: self.dense_match(model=model)),
             (cfg.run_depth_fusion, "depth fusion", self.fuse_depth_map),

@@ -8,10 +8,11 @@ train/checkpoint.py `export_params_npz` writes (keys are
 dict of numpy arrays with those keys. Names map by rule (models/blocks.py):
 `Conv_0` / `ConvTranspose_0` -> `conv`, `GroupNorm_0` -> `norm`,
 `ConvBlock_i` -> `convs.i`, `DeconvBlock_i` -> `deconvs.i`; leaves `kernel`
-and `scale` -> `weight`. Conv kernels go HWIO -> OIHW; transposed-conv
-kernels HWIO -> [in, out, kh, kw], flipped in both spatial axes, because
-the JAX package's stride-2 'SAME' ConvTranspose does not flip its kernel
-and PyTorch's conv_transpose2d does (ops/conv.py). Any leaf missing, left
+and `scale` -> `weight`. Conv kernels go HWIO -> OIHW (3-D: DHWIO ->
+OIDHW); transposed-conv kernels HWIO -> [in, out, kh, kw] (DHWIO -> [in,
+out, kd, kh, kw]), flipped on every spatial axis, because the JAX
+package's stride-2 'SAME' ConvTranspose does not flip its kernel and
+PyTorch's conv_transpose2d/3d does (ops/conv.py). Any leaf missing, left
 over or of the wrong shape raises.
 """
 
@@ -25,11 +26,19 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .models.blocks import ConvTranspose2d
+from .models.blocks import ConvTranspose2d, ConvTranspose3d
+
+_TRANSPOSED = (ConvTranspose2d, ConvTranspose3d)
 
 _KEY = re.compile(r"\['([^']+)'\]")
 _RENAME = {"Conv_0": "conv", "ConvTranspose_0": "conv", "GroupNorm_0": "norm",
            "kernel": "weight", "scale": "weight"}
+
+
+def _owner(model: nn.Module, param_name: str) -> nn.Module:
+    """The module that holds parameter `param_name` of `model`."""
+    path, _, _ = param_name.rpartition(".")
+    return model.get_submodule(path)
 
 
 def torch_key(tree_key: str) -> str:
@@ -75,12 +84,13 @@ def tree_to_state_dict(model: nn.Module, tree) -> Dict[str, torch.Tensor]:
             problems.append(f"left over: {fk} (-> {tk})")
             continue
         a = np.asarray(arr, np.float32)
-        if tk.endswith("weight") and a.ndim == 4:
-            owner = model.get_submodule(tk.rsplit(".", 1)[0])
-            if isinstance(owner, ConvTranspose2d):
-                a = a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        if tk.endswith("weight") and a.ndim in (4, 5):
+            sp = a.ndim - 2  # spatial axes lead: [*taps, in, out]
+            if isinstance(_owner(model, tk), _TRANSPOSED):
+                a = a.transpose(sp, sp + 1, *range(sp))[
+                    (slice(None),) * 2 + (slice(None, None, -1),) * sp]
             else:
-                a = a.transpose(3, 2, 0, 1)
+                a = a.transpose(sp + 1, sp, *range(sp))
         if tuple(a.shape) != tuple(own[tk].shape):
             problems.append(f"shape: {fk} {a.shape} vs {tk} "
                             f"{tuple(own[tk].shape)}")
@@ -106,11 +116,10 @@ def init_random_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.ndim == 4:
+            if p.ndim in (4, 5):
                 # fan-in: in-channels x taps (transposed: dim 0 holds in)
                 fan_in = p[0].numel() if not isinstance(
-                    model.get_submodule(name.rsplit(".", 1)[0]),
-                    ConvTranspose2d) else p.shape[0] * 9
+                    _owner(model, name), _TRANSPOSED) else p.shape[0] * p[0, 0].numel()
                 p.copy_(torch.randn(p.shape, generator=g) / fan_in ** 0.5)
             elif name.endswith("weight"):  # 1-D: a norm's scale
                 p.fill_(1.0)

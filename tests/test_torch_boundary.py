@@ -24,7 +24,9 @@ def _modules():
 def test_importing_every_module_pulls_no_jax():
     """In a fresh interpreter (this one has JAX loaded by conftest)."""
     mods = _modules()
-    for m in ("ops.sweep", "ops.cf_conv", "ops.red_step4", "models.msrednet"):
+    for m in ("ops.sweep", "ops.cf_conv", "ops.red_step4", "models.msrednet",
+              "models.casmvsnet", "models.ucsnet", "sparse.colmap",
+              "sparse.view_selection"):
         assert f"deep3d_aerial_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -440,3 +440,90 @@ def test_red_step4_wrapper_refuses(dev):
         cc.cf_conv3x3(torch.zeros((8, 4, 4), device=dev).double(),
                       torch.zeros((8, 8, 3, 3), device=dev),
                       torch.zeros(8, device=dev))
+
+
+def test_variance_cost_volume_from_k2v_chunks(dev):
+    """The volume path's whole [1, C, D, H, W] volume, built from one K2v
+    launch per chunk of 8 planes (6 for CasMVSNet's stage 1 at 384x512),
+    equals its plain build."""
+    from deep3d_aerial_tpu_torch.models.cascade import variance_cost_volume
+
+    rng = np.random.default_rng(41)
+    ref, srcs, rels, depths, _ = _sweep_inputs(dev, rng, 32, 96, 128, 4, 48)
+    feats = torch.cat([ref[None], srcs])
+    n = sw.sweep_var.launches
+    k = variance_cost_volume(feats, rels, depths)
+    assert sw.sweep_var.launches == n + 6
+    p = variance_cost_volume(feats, rels, depths, warp_impl="plain")
+    assert k.shape == (1, 32, 48, 96, 128)
+    torch.testing.assert_close(k, p, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("name,launches", [("casmvsnet", 6 + 4 + 1), ("ucsnet", 8 + 4 + 1)])
+def test_volume_model_forward_kernel_vs_plain(dev, name, launches):
+    """One CasMVSNet / UCSNet forward at 128x160 (5 views, default
+    ndepths, seeded random weights) with K2v against the same forward with
+    its plain version: depth (and UCSNet's sigma) within 1e-3 x the depth
+    range, confidence within 1e-4; one K2v launch per chunk."""
+    from deep3d_aerial_tpu_torch.models import build_model
+
+    rng = np.random.default_rng(42)
+    V, H, W = 5, 128, 160
+    imgs = torch.from_numpy(rng.normal(size=(V, H, W, 3)).astype(np.float32)).to(dev)
+    rel = torch.from_numpy(np.stack([_rels(rng, V - 1)] * 3)).to(dev)
+    mk = init_random_weights(build_model(name), seed=3).to(dev).eval()
+    mp = build_model(name, warp_impl="plain").to(dev).eval()
+    mp.load_state_dict(mk.state_dict())
+    n = sw.sweep_var.launches
+    with torch.no_grad():
+        ok = mk(imgs, rel, 90.0, 110.0)
+        assert sw.sweep_var.launches == n + launches
+        op = mp(imgs, rel, 90.0, 110.0)
+    assert sw.sweep_var.launches == n + launches
+    for s in ("stage1", "stage2", "stage3"):
+        for key, tol in (("depth", 1e-3 * 20.0), ("photometric_confidence", 1e-4),
+                         ("variance", 1e-3 * 20.0)):
+            if key in op[s]:
+                assert torch.isfinite(ok[s][key]).all()
+                torch.testing.assert_close(ok[s][key], op[s][key], rtol=0, atol=tol)
+
+
+def test_kernels_launch_on_the_tensors_device():
+    """Every kernel on tensors of the second card, with the first card
+    current: the wrappers make the tensors' device current for the launch
+    (the C entries size their grids and shared memory for the current
+    device), and the current device is the first again after."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 1)
+    rng = np.random.default_rng(43)
+    ref, srcs, rels, depths, wts = _sweep_inputs(dev, rng, 16, 40, 64, 4, 8)
+    pairs = [(sw.sweep_corr(ref, srcs, rels, depths),
+              sw.sweep_corr_plain(ref, srcs, rels, depths)),
+             (sw.sweep_cost(ref, srcs, rels, depths, wts),
+              sw.sweep_cost_plain(ref, srcs, rels, depths, wts)),
+             (sw.sweep_var(ref, srcs, rels, depths),
+              sw.sweep_var_plain(ref, srcs, rels, depths))]
+    mod, cost, s1, s2 = _red2_inputs(dev, 16, 40, 64, True, 5)
+    params = dict(mod.named_parameters())
+    with torch.no_grad():
+        pairs += list(zip(rs.red_step2(params, cost, s1, s2, up=True),
+                          rs.red_step2_plain(params, cost, s1, s2, up=True)))
+        mod4, cost4, states = _red4_inputs(dev, 16, 40, 64, 6)
+        params4 = dict(mod4.named_parameters())
+        pairs += list(zip(rs4.red_step4(params4, cost4, *states),
+                          rs4.red_step4_plain(params4, cost4, *states)))
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((32, 40, 64), generator=g, device=dev)
+    w = torch.randn((16, 32, 3, 3), generator=g, device=dev) / 17.0
+    b = torch.randn((16,), generator=g, device=dev) * 0.1
+    pairs.append((cc.cf_conv3x3(x, w, b, mode="down"),
+                  cc.cf_conv3x3_plain(x, w, b, mode="down")))
+    torch.cuda.synchronize(dev)
+    for k, p in pairs:
+        assert k.device == dev
+        torch.testing.assert_close(k, p, rtol=0, atol=TOL)
+    assert torch.cuda.current_device() == 0

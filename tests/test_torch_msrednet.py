@@ -211,9 +211,3 @@ def test_msrednet_plain_impls_and_registry(jax_forward):
 def test_msrednet_settings_not_ported_raise(kw, error):
     with pytest.raises(error):
         MSREDNet(**kw)
-
-
-@pytest.mark.parametrize("name", ["casmvsnet", "ucsnet"])
-def test_registry_models_not_ported_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(name)

@@ -121,7 +121,6 @@ def test_config_copy_parses_like_the_jax_package(tmp_path):
 
 
 @pytest.mark.parametrize("switch,method", [
-    ("run_view_selection", "select_view"),
     ("run_create_mesh", "create_mesh"),
     ("run_create_dsm", "create_dsm"),
 ])
@@ -143,8 +142,7 @@ def test_unported_stage_raises(tmp_path, switch, method):
     ({"warp_impl": "xla"}, ValueError),
     ({"red_impl": "flax"}, ValueError),
     ({"strict_coverage": True}, ValueError),
-    ({"model_type": "casmvsnet"}, NotImplementedError),
-    ({"model_type": "ucsnet"}, NotImplementedError),
+    ({"model_type": "mvsnet"}, ValueError),
 ])
 def test_dense_setting_the_port_does_not_run_raises(tmp_path, setting, error):
     """Refused before any work (the workspace's export/ is empty); an
