@@ -1,11 +1,16 @@
 """The PyTorch port's driver on one CUDA card (an H100 in this repository's
-measurements): builds the hand-written kernels from csrc/, holds each
-against its plain PyTorch version, and for each ported model -- AdaMVS,
-MSREDNet, CasMVSNet, UCSNet -- runs the pipeline's main path (dense
-matching + fusion at 384x512, default configuration, seeded random
-weights; CasMVSNet's from a COLMAP model, through the default view
-selection), compares the kernel path with the plain path end to end, and
-runs one 1856x2752 production frame.
+measurements): builds the hand-written kernels from csrc/ and the native
+host library from native/ (g++), holds each kernel against its plain
+PyTorch version, and for each ported model -- AdaMVS, MSREDNet, CasMVSNet,
+UCSNet -- runs the pipeline's main path (dense matching, fusion with the
+.mvs handoff, the graph-cut mesh with refine and atlas texture, and the
+DSM, at 384x512, default configuration, seeded random weights; CasMVSNet's
+from a COLMAP model, through the default view selection), compares the
+kernel path with the plain path end to end, and runs one 1856x2752
+production frame. `[refine]` holds the photometric refine on the card
+against the CPU (on the AdaMVS path's mesh, and on a 183k-vertex plane),
+and `[main:fullres]` runs the default pipeline end to end on the
+1856x2752 survey.
 
     python3 chip_smoke.py
 
@@ -50,6 +55,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -109,6 +115,30 @@ TOL_RED4 = 1e-4
 # range, confidence within 1e-4
 TOL_DEPTH_FRAC = 1e-3
 TOL_CONF = 1e-4
+# photometric refine, card against CPU, within this x the mesh's mean edge,
+# for every step taken from the same vertices: the two compute the vertex
+# normals alike (mesh/refine.py: `_cross`, `_corner_passes`), so a vertex
+# whose face normals nearly cancel points the same way on both, but the
+# Laplacian's scatter-add (index_add, atomic on the card) and the sums over
+# views and taps reduce in other orders: a few ulps of the coordinates a
+# step (a step moves a vertex by at most 0.05 mean edges). A whole run is
+# not held to it: the refinement is chaotic at float32 resolution. The bilinear
+# sample's gradient jumps where a tap crosses a pixel border, and the step
+# is normalised by the largest normal gradient, so one vertex's jump
+# rescales every step; on the CPU alone a 1-ulp change of the input mesh
+# moved a 20-step refine of a pipeline mesh by 0.28 (zncc) and 0.24
+# (variance) mean edges, one step by 3.1e-6 (scripts/mesh_probe.py chaos).
+# The whole run's card-vs-CPU distance is printed, not gated.
+TOL_REFINE_EDGE = 1e-4
+# the mesh stage's graph cut (native/delaunay_mesh.cc, from the JAX
+# package) gets about this many fused points a block: the config's
+# recons_decimate_ratio is set to it before the stage. The core's cost
+# grows about as the square of its input (likely its locate per point
+# after the insertions, native/delaunay_mesh.cc:342-350): 20k points took
+# 31 s and 60k 256 s on one core of a Sapphire Rapids host
+# (scripts/mesh_probe.py graphcut), so the 180k points of a 384x512 main
+# path would take half an hour or more
+GRAPHCUT_POINTS = 8000
 
 
 def log(*a):
@@ -204,6 +234,17 @@ def write_workspace(ws: Path, cam, poses, dev):
     tf.write_blocks(export / "blocks.txt",
                     [([-200.0, 200.0, -200.0, 200.0, -50.0, 50.0],
                       list(range(1, len(poses) + 1)))])
+    tf.write_border(export / "scene_border.txt", footprint(cam, poses))
+
+
+def footprint(cam, poses):
+    """The survey's ground footprint at the terrain's level (x0, x1, y0,
+    y1, z0, z1): the DSM's border."""
+    c = np.stack([p.center for p in poses])
+    hx = 0.5 * cam.width / cam.fx * c[:, 2].mean()
+    hy = 0.5 * cam.height / cam.fy * c[:, 2].mean()
+    return [float(c[:, 0].min() - hx), float(c[:, 0].max() + hx),
+            float(c[:, 1].min() - hy), float(c[:, 1].max() + hy), -50.0, 50.0]
 
 
 def write_colmap_workspace(ws: Path, cam, poses, dev, n_points=4000, seed=5):
@@ -1102,10 +1143,14 @@ class _Marked(torch.nn.Module):
 
 
 def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
-                    eager_updates=0, colmap=False):
+                    eager_updates=0, colmap=False, after=None):
     """AerialPipeline(...).run_dense() on a synthetic workspace: dense
-    matching + fusion at 384x512, the model's default configuration, seeded
-    random weights. `per_map`: the exact launches of each counter per map;
+    matching, fusion with the .mvs handoff, and the default mesh and DSM
+    stages at 384x512, the model's default configuration (the graph cut's
+    input capped, `cap_graphcut_input`), seeded random weights; the mesh
+    and DSM products are checked by `check_mesh_dsm`, and `after(pipe, ws)`
+    runs before the workspace goes. `per_map`: the exact launches of each
+    counter per map;
     `eager_updates`: the OnlineSoftmaxState.update calls per map (0 where
     the regularizer's step folds the softmax). With `colmap` the workspace
     holds a COLMAP model and the images only, and the run starts with the
@@ -1128,7 +1173,6 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
         cfg = PipelineConfig(
             image_w=W0, image_h=H0, image_scale=1.0, view_num=VIEWS,
             allow_random_weights=True, run_view_selection=colmap,
-            run_create_mesh=False, run_create_dsm=False,
             fusion_num=4, geo_consist_num=2, photomatric_threshold=0.0,
             position_threshold=2.0, depth_threshold=0.05,
             normal_threshold=180.0, model_type=model_type,
@@ -1136,6 +1180,7 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
         pipe = AerialPipeline(str(ws), cfg, device=dev,
                               data_folder=str(ws / "images") if colmap else None)
         model = _Marked(pipe.build_model())
+        cap_graphcut_input(pipe)
         update = cascade.OnlineSoftmaxState.update
         updates = [0]
 
@@ -1148,8 +1193,9 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
             for c in counters:
                 c.launches = 0
             t0 = time.perf_counter()
-            pipe.run_dense(model=model)
-            torch.cuda.synchronize()
+            with GraphCutCount() as graphcut:
+                pipe.run_dense(model=model)
+                torch.cuda.synchronize()
             total = time.perf_counter() - t0
             launches = {c.__name__: c.launches for c in counters}
         finally:
@@ -1184,6 +1230,10 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
         if not plys:
             raise AssertionError("fusion wrote no PLY")
         points = sum(read_ply(p)[0].shape[0] for p in plys)
+        stats = check_mesh_dsm(ws, cfg, graphcut)
+        log_mesh_dsm(model_type, stats, pipe.stage_seconds, cfg.recons_decimate_ratio)
+        if after is not None:
+            after(pipe, ws)
 
     tag = "main" if model_type == "adamvs" else f"main:{model_type}"
     for name, k in per_map.items():
@@ -1200,7 +1250,7 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
     secs = pipe.map_seconds
     steady = float(np.median(secs[1:])) if len(secs) > 1 else secs[0]
     log(f"[{tag}] {n} maps at {H0}x{W0}, {VIEWS} views, ndepths {model.model.ndepths}: "
-        f"run_dense {total:.2f} s; per map first {secs[0]:.3f} s, "
+        f"run_dense {total:.2f} s (mesh and DSM included); per map first {secs[0]:.3f} s, "
         f"median after {steady * 1e3:.2f} ms = {1.0 / steady:.2f} maps/s; "
         f"fused points {points}")
     log(f"[{tag}] launches " + json.dumps(launches) + " per map "
@@ -1218,6 +1268,339 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
             f"{reg:.3f} ms ({reg / total:.3f}), K2v volumes {vol:.3f} ms "
             f"({vol / total:.3f})")
     return launches, steady, med
+
+
+# ---------------------------------------------------------------------------
+# the mesh and DSM stages: what the main path writes, and the refine
+# ---------------------------------------------------------------------------
+
+
+class GraphCutCount:
+    """While installed, counts the mesh stage's calls into the native graph
+    cut (`utils.native.reconstruct_mesh_native`), the points they pass and
+    the surfaces (faces) they get back."""
+
+    def __enter__(self):
+        from deep3d_aerial_tpu_torch.utils import native
+
+        self.calls = self.surfaces = self.points = self.faces = 0
+        self._native, self._fn = native, native.reconstruct_mesh_native
+
+        def counted(points, *args, **kw):
+            self.calls += 1
+            self.points += len(points)
+            tris = self._fn(points, *args, **kw)
+            if tris is not None:
+                self.surfaces += 1
+                self.faces += len(tris)
+            return tris
+
+        native.reconstruct_mesh_native = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._native.reconstruct_mesh_native = self._fn
+
+
+def cap_graphcut_input(pipe):
+    """Before the pipeline's mesh stage, set its recons_decimate_ratio so
+    that the largest fused block gives the graph cut about GRAPHCUT_POINTS
+    points (see there)."""
+    from deep3d_aerial_tpu_torch.io.ply import read_ply
+
+    stage = pipe.create_mesh
+
+    def create_mesh():
+        n = max([read_ply(p)[0].shape[0]
+                 for p in Path(pipe.fusion_path).glob("scene_*.ply")] or [1])
+        pipe.cfg.recons_decimate_ratio = min(1.0, GRAPHCUT_POINTS / max(n, 1))
+        return stage()
+
+    pipe.create_mesh = create_mesh
+
+
+def check_mesh_dsm(ws: Path, cfg, graphcut) -> dict:
+    """What the default mesh and DSM stages must leave in workspace `ws`
+    (raises otherwise): a `.mvs` scene beside each fused block, read back
+    with one vertex per fused point; for each block of at least 4 points
+    `_mesh.ply`, `_mesh_refine.ply` and the atlas-textured
+    `_mesh_refine_texture.ply` + `.png`, with faces and every index in
+    range; the graph cut called once, with a surface back, for each block
+    of at least 16 points; production/DSM/dsm.tif of the shape its border
+    and `dsm_uint` give, with valid cells, whose heights lie in the z-range
+    of the mesh vertices (a max over triangles of heights interpolated
+    between their corners cannot leave it) and that range within the fused
+    points' z-range widened by a tenth of it on each side (the Taubin
+    smoothing of the clean and refine steps, lambda 0.5 / mu -0.53 over 11
+    passes, is no convex average: its negative step can carry a vertex
+    past its neighbours);
+    production/Mesh and production/DSM holding the .ply/.tif/.tfw files of
+    mesh/ and dsm/. Returns the sizes it saw."""
+    from PIL import Image
+
+    from deep3d_aerial_tpu_torch.io import text_formats as tf
+    from deep3d_aerial_tpu_torch.io.geotiff import read_geotiff
+    from deep3d_aerial_tpu_torch.io.mvs_interface import read_mvs
+    from deep3d_aerial_tpu_torch.io.ply import read_ply
+    from deep3d_aerial_tpu_torch.mesh.atlas import read_textured_mesh_ply
+    from deep3d_aerial_tpu_torch.mesh.trimesh_io import read_mesh_ply
+
+    def faces_ok(name, v, f):
+        if len(f) == 0 or f.min() < 0 or f.max() >= len(v) or not np.isfinite(v).all():
+            raise AssertionError(f"{name}: {len(v)} vertices, {len(f)} faces, "
+                                 f"indices {f.min() if len(f) else None}.."
+                                 f"{f.max() if len(f) else None}")
+
+    mesh = ws / "mesh"
+    plys = sorted((ws / "dense" / "fusion").glob("scene_*.ply"))
+    if not plys:
+        raise AssertionError("fusion wrote no PLY")
+    z, points, faces, cut_blocks, atlas = [], 0, 0, 0, []
+    for ply in plys:
+        pts = read_ply(ply)[0]
+        points += len(pts)
+        z.append(pts[:, 2])
+        mvs = ply.with_suffix(".mvs")
+        if not mvs.is_file():
+            raise AssertionError(f"no {mvs.name} beside {ply.name}")
+        n_mvs = read_mvs(mvs).vertices.shape[0]
+        if n_mvs != len(pts):
+            raise AssertionError(f"{mvs.name}: {n_mvs} vertices, {ply.name} "
+                                 f"{len(pts)} points")
+        if len(pts) < 4:
+            continue
+        cut_blocks += len(pts) >= 16
+        for suffix in ("_mesh", "_mesh_refine"):
+            name = f"{ply.stem}{suffix}.ply"
+            faces_ok(name, *read_mesh_ply(mesh / name))
+        name = f"{ply.stem}_mesh_refine_texture.ply"
+        v, f, uv, png = read_textured_mesh_ply(mesh / name)
+        faces_ok(name, v, f)
+        if png != f"{ply.stem}_mesh_refine_texture.png" or not (mesh / png).is_file():
+            raise AssertionError(f"{name}: texture {png!r} missing")
+        if not (np.isfinite(uv).all() and uv.min() >= 0 and uv.max() <= 1):
+            raise AssertionError(f"{name}: uv outside [0, 1]")
+        atlas.append(Image.open(mesh / png).size)
+        faces += len(f)
+    if not cut_blocks or graphcut.calls != cut_blocks or graphcut.surfaces != cut_blocks:
+        raise AssertionError(
+            f"graph cut: {graphcut.calls} calls, {graphcut.surfaces} surfaces "
+            f"for {cut_blocks} blocks of >= 16 points: the mesh stage did not "
+            "take the graph-cut path")
+
+    bbx = tf.read_border(ws / "export" / "scene_border.txt")
+    dx, dy = cfg.dsm_uint
+    shape = (int(np.ceil((bbx[3] - bbx[2]) / dy)), int(np.ceil((bbx[1] - bbx[0]) / dx)))
+    grid, origin, cell, nodata = read_geotiff(ws / "production" / "DSM" / "dsm.tif")
+    if grid.shape != shape or tuple(cell) != (dx, dy) or tuple(origin) != (bbx[0], bbx[3]):
+        raise AssertionError(f"dsm.tif: shape {grid.shape}, cell {cell}, origin "
+                             f"{origin}; expected {shape}, {(dx, dy)}, {(bbx[0], bbx[3])}")
+    valid = grid != nodata
+    z = np.concatenate(z)
+    vz = np.concatenate([read_mesh_ply(p)[0][:, 2] for p in mesh.glob("*.ply")])
+    margin = 0.1 * (z.max() - z.min())
+    if vz.min() < z.min() - margin or vz.max() > z.max() + margin:
+        raise AssertionError(f"mesh vertices at heights {vz.min()}..{vz.max()}, "
+                             f"fused points {z.min()}..{z.max()}")
+    if not valid.any() or grid[valid].min() < vz.min() or grid[valid].max() > vz.max():
+        raise AssertionError(
+            f"dsm.tif: valid share {valid.mean()}, heights "
+            f"{grid[valid].min() if valid.any() else None}.."
+            f"{grid[valid].max() if valid.any() else None} outside the mesh "
+            f"vertices' {vz.min()}..{vz.max()}")
+    for src, dst in (("mesh", "Mesh"), ("dsm", "DSM")):
+        want = sorted(p.name for p in (ws / src).iterdir()
+                      if p.name.endswith((".ply", ".tif", ".tfw")))
+        got = sorted(p.name for p in (ws / "production" / dst).iterdir())
+        if not want or got != want:
+            raise AssertionError(f"production/{dst}: {got}, expected {want}")
+        for n in want:
+            if (ws / src / n).read_bytes() != (ws / "production" / dst / n).read_bytes():
+                raise AssertionError(f"production/{dst}/{n} differs from {src}/{n}")
+    return {"blocks": len(plys), "points": points, "faces": faces, "atlas": atlas,
+            "graphcut_points": graphcut.points, "graphcut_faces": graphcut.faces,
+            "dsm_shape": grid.shape, "valid": float(valid.mean()),
+            "dsm_z": (float(grid[valid].min()), float(grid[valid].max())),
+            "points_z": (float(z.min()), float(z.max()))}
+
+
+def log_mesh_dsm(tag, stats, secs, ratio):
+    log(f"[mesh:{tag}] {stats['blocks']} block(s), {stats['points']} fused points; "
+        f"graph cut on {stats['graphcut_points']} (recons_decimate_ratio "
+        f"{ratio:.5f}) -> {stats['graphcut_faces']} faces; textured mesh "
+        f"{stats['faces']} faces, atlas {stats['atlas']}; mesh stage "
+        f"{secs['mesh']:.2f} s (host clock; refine, texture and files included)")
+    log(f"[dsm:{tag}] {stats['dsm_shape'][0]}x{stats['dsm_shape'][1]} cells, valid "
+        f"share {stats['valid']:.4f}, heights {stats['dsm_z'][0]:.3f}.."
+        f"{stats['dsm_z'][1]:.3f} m (fused points {stats['points_z'][0]:.3f}.."
+        f"{stats['points_z'][1]:.3f}); DSM stage {secs['dsm']:.2f} s; stages "
+        + json.dumps({k: round(v, 3) for k, v in secs.items()}))
+
+
+def refine_case(dev, verts, faces, views, cfg, tag):
+    """photometric_refine on the card against the CPU: every step of the
+    card's run is taken again on the CPU from the same vertices and must
+    agree within TOL_REFINE_EDGE x the mean edge; the whole runs' distance
+    is printed (see TOL_REFINE_EDGE). Also the card's ms a step between
+    CUDA events over 10 steps, the whole call's host seconds and its peak
+    device memory. Returns the card's vertices of the whole call."""
+    from deep3d_aerial_tpu_torch.mesh import refine
+
+    verts = np.asarray(verts, np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = refine.photometric_refine(verts, faces, views, cfg, device=dev)
+    host_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    want = refine.photometric_refine(verts, faces, views, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+
+    card, v, mean_edge = refine.refine_setup(verts, faces, views, cfg, dev)
+    host, _, _ = refine.refine_setup(verts, faces, views, cfg, "cpu")
+    step_err = 0.0
+    for s in range(cfg.scales):
+        step = cfg.gradient_step * mean_edge * (0.5 ** s)
+        for _ in range(cfg.iterations):
+            nxt = refine.refine_update(card, v, step)
+            again = refine.refine_update(host, v.cpu(), step)
+            step_err = max(step_err, float((nxt.cpu() - again).abs().max()))
+            v = nxt
+    step = cfg.gradient_step * mean_edge
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        v = refine.refine_update(card, v, step)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / 10
+    drift = float(np.abs(got - want).max())
+    moved = float(np.abs(want - verts).max())
+    steps = cfg.scales * cfg.iterations
+    log(f"[refine] {tag} {cfg.energy}: {len(verts)} vertices, {len(faces)} faces, "
+        f"{len(views)} views, {steps} steps; max |card - cpu| of a step from the "
+        f"same vertices {step_err:.3e} m = {step_err / mean_edge:.3e} mean edges "
+        f"(tolerance {TOL_REFINE_EDGE}); whole runs {drift / mean_edge:.3e} mean "
+        f"edges apart, moved {moved / mean_edge:.3e}; card {ms:.3f} ms a step "
+        f"(CUDA events over 10 host-issued steps), whole call {host_s:.3f} s host, "
+        f"peak device memory {peak:.3f} GiB; cpu {cpu_s:.3f} s")
+    if (not np.isfinite(got).all() or step_err > TOL_REFINE_EDGE * mean_edge
+            or moved == 0 or np.abs(got - verts).max() == 0):
+        raise AssertionError(f"[refine] {tag} {cfg.energy}: a step card vs cpu "
+                             f"{step_err} (mean edge {mean_edge}), moved {moved}")
+    return got
+
+
+def phase_refine_pipeline(dev, pipe, ws):
+    """[refine] (a): the AdaMVS main path's `_mesh_refine.ply` with its
+    texture views, both energies, card against CPU; then the pipeline's
+    mesh stage with `refine_photometric` switched on, on the card, which
+    must write `_mesh_refine_photo.ply` (the refined vertices, the same
+    faces) and texture it."""
+    from deep3d_aerial_tpu_torch.mesh.refine import PhotoRefineConfig
+    from deep3d_aerial_tpu_torch.mesh.trimesh_io import read_mesh_ply
+
+    src = sorted((ws / "mesh").glob("scene_*_mesh_refine.ply"))[0]
+    verts, faces = read_mesh_ply(src)
+    views = [(v.image, v.geom.K, v.geom.T_cw) for v in pipe._texture_views()]
+    # the pipeline's default: scales = refine_scale_times, 20 steps each
+    scales = max(1, int(pipe.cfg.refine_scale_times))
+    for energy in ("zncc", "variance"):
+        refine_case(dev, verts, faces, views,
+                    PhotoRefineConfig(scales=scales, energy=energy), f"main {src.name}")
+    pipe.cfg.refine_photometric = True
+    t0 = time.perf_counter()
+    pipe.create_mesh()
+    took = time.perf_counter() - t0
+    photo = src.with_name(src.name.replace("_mesh_refine", "_mesh_refine_photo"))
+    v, f = read_mesh_ply(photo)
+    moved = float(np.abs(v - verts).max())
+    log(f"[refine] pipeline mesh stage with refine_photometric on the card: "
+        f"{took:.2f} s; {photo.name} moved {moved:.3e} m")
+    if not np.array_equal(f, faces) or not np.isfinite(v).all() or moved == 0:
+        raise AssertionError(f"{photo.name}: faces equal {np.array_equal(f, faces)}, "
+                             f"finite {np.isfinite(v).all()}, moved {moved}")
+    textured = src.with_name(src.name.replace("_mesh_refine", "_mesh_refine_texture"))
+    from deep3d_aerial_tpu_torch.mesh.atlas import read_textured_mesh_ply
+
+    tv = read_textured_mesh_ply(textured)[0]
+    if not np.array_equal(tv, v):
+        raise AssertionError(f"{textured.name} is not the texture of {photo.name}")
+
+
+def phase_refine_plane(dev):
+    """[refine] (b): the 428x428-vertex plane of tests/test_mesh.py (183k
+    vertices, 364k faces, 2 views of a 64x64 image), both energies, 10
+    steps, card against CPU."""
+    from deep3d_aerial_tpu_torch.mesh.refine import PhotoRefineConfig
+
+    n_side = 428
+    xs, ys = np.meshgrid(np.arange(n_side, dtype=np.float32),
+                         np.arange(n_side, dtype=np.float32))
+    verts = np.stack([xs.ravel(), ys.ravel(), np.zeros(n_side * n_side, np.float32)], -1)
+    i = (ys[:-1, :-1] * n_side + xs[:-1, :-1]).astype(np.int64).ravel()
+    faces = np.concatenate([np.stack([i, i + 1, i + n_side], -1),
+                            np.stack([i + 1, i + n_side + 1, i + n_side], -1)]).astype(np.int32)
+    K = np.array([[100.0, 0, 32], [0, 100.0, 32], [0, 0, 1]], np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[2, 3] = 500.0
+    img = np.random.default_rng(0).uniform(0, 1, (64, 64)).astype(np.float32)
+    views = [(img, K, T), (img + 0.01, K, T)]
+    for energy in ("zncc", "variance"):
+        refine_case(dev, verts, faces, views,
+                    PhotoRefineConfig(scales=2, iterations=5, energy=energy), "plane 428x428")
+
+
+def phase_fullres_pipeline(dev, camF, posesF):
+    """[main:fullres] one run_dense of the 1856x2752 survey: AdaMVS, its six
+    maps, every default stage (dense matching, fusion with the .mvs
+    handoff, mesh, DSM), seeded random weights."""
+    from deep3d_aerial_tpu_torch.pipeline.config import PipelineConfig
+    from deep3d_aerial_tpu_torch.pipeline.orchestrator import AerialPipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ws = Path(tmp) / "ws"
+        t0 = time.perf_counter()
+        write_workspace(ws, camF, posesF, dev)
+        setup = time.perf_counter() - t0
+        cfg = PipelineConfig(
+            image_w=FULL_W, image_h=FULL_H, image_scale=1.0, view_num=VIEWS,
+            allow_random_weights=True, run_view_selection=False,
+            fusion_num=4, geo_consist_num=2, photomatric_threshold=0.0,
+            position_threshold=2.0, depth_threshold=0.05, normal_threshold=180.0)
+        pipe = AerialPipeline(str(ws), cfg, device=dev)
+        cap_graphcut_input(pipe)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with GraphCutCount() as graphcut:
+            pipe.run_dense()
+            torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_maps = len(list((ws / "dense" / "MVS").glob("*_init.pfm")))
+        if n_maps != len(posesF):
+            raise AssertionError(f"[main:fullres] {n_maps} depth maps, expected {len(posesF)}")
+        stats = check_mesh_dsm(ws, cfg, graphcut)
+        # the fusion stage's device work: the same maps fused again (the
+        # same files) in one profiler session. No counter knows its launch
+        # count, so a record the profiler loses would read low
+        from deep3d_aerial_tpu_torch.utils.profiling import device_events
+
+        evs = device_events(pipe.fuse_depth_map, lambda evs: len(evs) > 0)
+        busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+        copies = sum(e.time_range.elapsed_us() for e in evs if "Memcpy" in e.name) / 1e3
+    log(f"[fusion:fullres] device busy {busy:.2f} ms ({len(kernels_of(evs))} kernels, "
+        f"copies {copies:.2f} ms; torch.profiler) of the stage's "
+        f"{pipe.stage_seconds['depth fusion']:.2f} s on the host clock")
+    log(f"[main:fullres] {n_maps} maps at {FULL_H}x{FULL_W}: run_dense {total:.2f} s "
+        f"(workspace written in {setup:.2f} s before), stages "
+        + json.dumps({k: round(v, 3) for k, v in pipe.stage_seconds.items()})
+        + f"; per map {json.dumps([round(s, 3) for s in pipe.map_seconds])} s; "
+        f"fused points {stats['points']}; peak device memory {peak:.2f} GiB")
+    log_mesh_dsm("fullres", stats, pipe.stage_seconds, cfg.recons_decimate_ratio)
 
 
 def phase_end_to_end(dev, cam0, poses0):
@@ -1472,10 +1855,17 @@ def main() -> int:
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
+    from deep3d_aerial_tpu_torch.utils import native
+
     t0 = time.perf_counter()
-    took = cuda_build.build()
+    with ThreadPoolExecutor(max_workers=1) as pool:  # g++ beside the nvccs
+        native_build = pool.submit(native.build)
+        took = cuda_build.build()
+        native_s = native_build.result()
     log(f"[build] {time.perf_counter() - t0:.1f} s wall "
         + json.dumps({k: round(v, 1) for k, v in took.items()}))
+    log(f"[build] native {native_s:.1f} s (g++ of native/dsm_reduce.cc and "
+        f"native/delaunay_mesh.cc into {native.library_path().name}, beside the CUDA builds)")
     for name in cuda_build.SOURCES:
         for line in cuda_build.library_path(name).with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -1493,8 +1883,12 @@ def main() -> int:
         dev, cam0, poses0, (sweep_corr, sweep_cost, red_step2),
         {"sweep_corr": 1,
          "sweep_cost": sum(d // CHUNK for d in NDEPTHS),
-         "red_step2": sum(NDEPTHS)})
-    log(f"[phase] main path {time.perf_counter() - t:.1f} s")
+         "red_step2": sum(NDEPTHS)},
+        after=lambda pipe, ws: phase_refine_pipeline(dev, pipe, ws))
+    log(f"[phase] main path (refine of its mesh included) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_refine_plane(dev)
+    log(f"[phase] refine plane {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_host_red_step2(dev, cam0, poses0)
     log(f"[phase] host red_step2 {time.perf_counter() - t:.1f} s")
@@ -1504,6 +1898,9 @@ def main() -> int:
     t = time.perf_counter()
     phase_production_frame(dev, camF, posesF)
     log(f"[phase] production frame {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_fullres_pipeline(dev, camF, posesF)
+    log(f"[phase] main:fullres {time.perf_counter() - t:.1f} s")
 
     # MSREDNet: K2v, K4, K5
     t = time.perf_counter()

@@ -1,8 +1,10 @@
 """CLI: python -m deep3d_aerial_tpu_torch.pipeline --workspace WS --config cfg.yaml
 [--data_folder IMAGES] [--device cuda|cpu]
 
-Runs the ported stages (view selection from the COLMAP model in WS/sparse,
-dense matching, fusion). `--data_folder` is the image root that builds
+Runs the config's stages: view selection from the COLMAP model in
+WS/sparse, dense matching, fusion (PLY + OpenMVS .mvs), the mesh and the
+DSM, then copies the products into WS/production (Point_Cloud, Mesh, DSM).
+`--data_folder` is the image root that builds
 export/image_path.txt when it is absent. `--device` defaults to cuda and
 raises when there is no CUDA device; `--device cpu` runs the plain PyTorch
 path on the CPU.

@@ -6,12 +6,18 @@ deep3d_aerial_tpu/pipeline/orchestrator.py), with the same file artifacts:
     export/               predef cams/images, image_path, viewpair, blocks,
                           scene_border (written by view selection, or input)
     dense/MVS/            <name>_init.pfm, _prob.pfm, [_normal.pfm], <name>.txt
-    dense/fusion/         scene_i.ply (+ scene_i.txt border)
+    dense/fusion/         scene_i.ply (+ scene_i.txt border, scene_i.mvs)
+    mesh/                 scene_i_mesh.ply, _mesh_refine.ply,
+                          _mesh_refine_texture.ply (+ atlas .png)
+    dsm/                  dsm.tif + dsm.tfw
     production/           copied final products
 
 Ported: view selection from a COLMAP model, dense matching with AdaMVS,
-CasMVSNet, UCSNet or MSREDNet, and depth fusion. Mesh and DSM, the `.dmap`
-and `.mvs` outputs, the pipelined run, batched inference and depth
+CasMVSNet, UCSNet or MSREDNet, depth fusion with the OpenMVS `.mvs`
+handoff, the mesh stage (graph-cut surface from the `.mvs` scene through
+the native core, Taubin refine, the photometric refine in PyTorch autograd
+on the pipeline's device when switched on, the UV atlas texture) and the
+DSM. The `.dmap` output, the pipelined run, batched inference and depth
 previews are not: switching one on raises NotImplementedError naming its
 ROADMAP item.
 
@@ -30,11 +36,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..dsm import DSMConfig, DSMFromMesh, DSMFromPointCloud
 from ..fusion import DepthFusion, FusionConfig, ViewGeometry
 from ..fusion.fuse import ViewData
 from ..io import text_formats as tf
+from ..io.geotiff import write_geotiff, write_tfw
 from ..io.pfm import read_pfm, write_pfm
-from ..io.ply import write_ply
+from ..io.ply import read_ply, write_ply
 from ..sparse import view_selection
 from ..sparse.export import export_predef
 from .config import PipelineConfig
@@ -48,13 +56,6 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP A: "
         f"{item}); switch it off in the config or run deep3d_aerial_tpu")
-
-
-# pipeline switches of stages that are not ported: (stage, ROADMAP item)
-_UNPORTED_STAGES = {
-    "run_create_mesh": ("mesh", "mesh and DSM with the .mvs handoff"),
-    "run_create_dsm": ("DSM", "mesh and DSM with the .mvs handoff"),
-}
 
 
 def _check_dense_config(cfg: PipelineConfig) -> None:
@@ -125,15 +126,20 @@ class AerialPipeline:
         # seconds per depth map of the last dense_match, host clock around
         # a forward that ends in a device->host copy
         self.map_seconds: List[float] = []
+        # host seconds of each stage of the last run_dense, by label
+        self.stage_seconds: Dict[str, float] = {}
 
         self.sparse_path = _join(workspace, "sparse")
         self.export_path = _join(workspace, "export")
         self.dense_path = _join(workspace, "dense")
         self.mvs_path = _join(self.dense_path, "MVS")
         self.fusion_path = _join(self.dense_path, "fusion")
+        self.mesh_path = _join(workspace, "mesh")
+        self.dsm_path = _join(workspace, "dsm")
         self.production_path = _join(workspace, "production")
         for p in (self.export_path, self.dense_path, self.mvs_path,
-                  self.fusion_path, self.production_path):
+                  self.fusion_path, self.mesh_path, self.dsm_path,
+                  self.production_path):
             os.makedirs(p, exist_ok=True)
 
     def _ensure_image_paths(self) -> None:
@@ -294,41 +300,246 @@ class AerialPipeline:
                 results.append(out)
         return results
 
-    # ---------------- stages 4-5: mesh, DSM ---------------------------
-    def create_mesh(self) -> List[str]:
-        raise _not_ported(*_UNPORTED_STAGES["run_create_mesh"])
+    @staticmethod
+    def _write_mvs_scene(path, views: Dict[str, ViewData], fused) -> None:
+        """Emit the OpenMVS Interface handoff next to the fused PLY
+        (reference fusion_3d_normal.py:574-581): every loaded view, one
+        platform each, and the fused points with their visibility."""
+        from types import SimpleNamespace
 
+        from ..io.mvs_interface import scene_from_fusion, write_mvs
+
+        ordered = sorted(views.values(), key=lambda v: v.image_id)
+        cam_records = []
+        images = []
+        id_to_index = {}
+        for idx, v in enumerate(ordered):
+            H, W = v.depth.shape
+            cam_records.append(SimpleNamespace(K=v.geom.K, width=W, height=H))
+            R_cw = np.asarray(v.geom.T_cw, np.float64)[:3, :3]
+            center = np.asarray(v.geom.T_wc, np.float64)[:3, 3]
+            images.append((v.image_id, idx, v.name, R_cw, center))
+            id_to_index[v.image_id] = idx
+
+        scene = scene_from_fusion(
+            cam_records, images, fused.xyz, fused.visibility,
+            normals=fused.normals, colors=fused.colors,
+            image_id_to_index=id_to_index,
+        )
+        write_mvs(path, scene)
+
+    # ---------------- stage 4: mesh -----------------------------------
+    def create_mesh(self) -> List[str]:
+        """ReconstructMesh + RefineMesh + TextureMesh equivalents per fused
+        block (reference run_mesh pipeline, createmesh.py:145-172): the
+        graph-cut surface from the block's .mvs scene (the 2.5-D mesh where
+        the graph cut has none to offer), Taubin refine, the photometric
+        refine on this pipeline's device when switched on, the texture."""
+        from ..mesh import MeshConfig, create_mesh_from_scene
+        from ..mesh.refine import RefineConfig, refine_mesh_file
+
+        cfg = self.cfg
+        mesh_cfg = photo_cfg = None
+        atlas_kwargs = {}
+        if cfg.mesh_config:
+            # OpenMVS-style mesh YAML (reference mesh/config.yaml keys)
+            from ..mesh.openmvs_config import load_openmvs_mesh_config
+
+            mesh_cfg, _refine_cfg, photo_cfg, tex = \
+                load_openmvs_mesh_config(cfg.mesh_config)
+            if tex.get("ignored"):
+                print(f"[mesh] config keys without an in-process equivalent "
+                      f"(ignored): {', '.join(tex['ignored'])}")
+            for key in ("empty_color", "outlier_threshold", "seam_level",
+                        "global_seam_level", "size_multiple",
+                        "packing_heuristic", "data_smoothness_ratio"):
+                if key in tex:
+                    atlas_kwargs[key] = tex[key]
+        out = []
+        for fname in sorted(os.listdir(self.fusion_path)):
+            if not fname.endswith(".ply"):
+                continue
+            src = _join(self.fusion_path, fname)
+            n_pts = read_ply(src)[0].shape[0]
+            if n_pts < 4:
+                # an (all but) empty fused block cannot seed a Delaunay
+                # surface; meshing it would emit degenerate artifacts
+                print(f"[mesh] WARNING: skipping {fname}: only {n_pts} "
+                      f"fused points")
+                continue
+            dst = _join(self.mesh_path, fname.replace(".ply", "_mesh.ply"))
+            # the visibility-driven graph-cut core reads the block's .mvs
+            # scene (OpenMVS ReconstructMesh equivalent)
+            mvs_path = _join(self.fusion_path, fname.replace(".ply", ".mvs"))
+            create_mesh_from_scene(
+                src, dst,
+                mesh_cfg if mesh_cfg is not None else MeshConfig(
+                    insert_distance=cfg.recons_insert_distance,
+                    decimate_ratio=cfg.recons_decimate_ratio,
+                ),
+                mvs_path=mvs_path,
+                method=cfg.mesh_method,
+            )
+            if cfg.refine_scale_times > 0:
+                refined = _join(
+                    self.mesh_path, fname.replace(".ply", "_mesh_refine.ply")
+                )
+                refine_mesh_file(dst, refined, RefineConfig(
+                    iterations=10 * int(cfg.refine_scale_times),
+                    decimate_ratio=cfg.refine_decimate_ratio,
+                ))
+                dst = refined
+            views = self._texture_views()
+            if cfg.refine_photometric and views:
+                from ..mesh.refine import (PhotoRefineConfig,
+                                           photometric_refine)
+                from ..mesh.trimesh_io import read_mesh_ply, write_mesh_ply
+
+                verts, faces = read_mesh_ply(dst)
+                verts = photometric_refine(
+                    verts, faces,
+                    [(v.image, v.geom.K, v.geom.T_cw) for v in views],
+                    photo_cfg if photo_cfg is not None else PhotoRefineConfig(
+                        scales=max(1, int(cfg.refine_scale_times))),
+                    device=self.device,
+                )
+                photo = _join(
+                    self.mesh_path,
+                    fname.replace(".ply", "_mesh_refine_photo.ply"))
+                write_mesh_ply(photo, verts, faces)
+                dst = photo
+            if views:
+                textured = _join(
+                    self.mesh_path,
+                    fname.replace(".ply", "_mesh_refine_texture.ply"),
+                )
+                if cfg.texture_atlas:
+                    # full TextureMesh parity: UV chart atlas + PNG
+                    from ..mesh.atlas import texture_atlas_mesh_file
+
+                    texture_atlas_mesh_file(dst, textured, views,
+                                            **atlas_kwargs)
+                else:
+                    from ..mesh.texture import texture_mesh_file
+
+                    texture_mesh_file(dst, textured, views)
+                dst = textured
+            out.append(dst)
+            print(f"[mesh] {dst}")
+        return out
+
+    def _texture_views(self):
+        """TextureViews from the MVS per-view cam artifacts + source images."""
+        from PIL import Image
+
+        from ..mesh.texture import TextureView
+
+        views = []
+        for fname in sorted(os.listdir(self.mvs_path)):
+            if not fname.endswith(".txt"):
+                continue
+            cam = tf.read_mvs_cam(_join(self.mvs_path, fname))
+            if not (cam.image_path and os.path.exists(cam.image_path)):
+                continue
+            img = Image.open(cam.image_path).convert("RGB")
+            if img.size != (cam.width, cam.height):
+                img = img.resize((cam.width, cam.height))
+            views.append(TextureView(
+                geom=ViewGeometry.create(cam.K, cam.T_cw),
+                image=np.asarray(img),
+            ))
+        return views
+
+    # ---------------- stage 5: DSM ------------------------------------
     def create_dsm(self) -> Optional[str]:
-        raise _not_ported(*_UNPORTED_STAGES["run_create_dsm"])
+        """dsm/dsm.tif + .tfw over the DSM border (the config's, else the
+        scene border), from the meshes or the fused points."""
+        cfg = self.cfg
+        border_path = _join(self.export_path, "scene_border.txt")
+        if cfg.bbx_border_dsm is not None:
+            bbx = list(cfg.bbx_border_dsm)
+        elif os.path.exists(border_path):
+            bbx = list(tf.read_border(border_path))
+        else:
+            return None
+
+        dcfg = DSMConfig(
+            cell_size=tuple(cfg.dsm_uint),
+            select_method=cfg.pc_select_method,
+            interp_method=cfg.pc_interpolation_method,
+        )
+
+        if cfg.dsm_source == "mesh":
+            from ..mesh.trimesh_io import read_mesh_ply
+
+            grids = []
+            for fname in sorted(os.listdir(self.mesh_path)):
+                if fname.endswith(".ply"):
+                    v, f = read_mesh_ply(_join(self.mesh_path, fname))
+                    grids.append(DSMFromMesh(dcfg).create(v, f, bbx))
+            if not grids:
+                return None
+            grid = np.full_like(grids[0], dcfg.nodata)
+            for g in grids:
+                grid = np.where(g != dcfg.nodata, np.maximum(grid, g), grid)
+        else:
+            pts = []
+            for fname in sorted(os.listdir(self.fusion_path)):
+                if fname.endswith(".ply"):
+                    p, _, _ = read_ply(_join(self.fusion_path, fname))
+                    pts.append(p)
+            if not pts:
+                return None
+            allp = np.concatenate(pts)
+            if allp.shape[0] == 0:
+                print("[dsm] WARNING: no fused points; skipping DSM")
+                return None
+            grid = DSMFromPointCloud(dcfg).create(allp, bbx)
+
+        out_tif = _join(self.dsm_path, "dsm.tif")
+        write_geotiff(out_tif, grid, origin_xy=(bbx[0], bbx[3]),
+                      cell_size=dcfg.cell_size, nodata=dcfg.nodata)
+        write_tfw(_join(self.dsm_path, "dsm.tfw"), (bbx[0], bbx[3]),
+                  dcfg.cell_size)
+        print(f"[dsm] {out_tif} {grid.shape}")
+        return out_tif
 
     # ---------------- production --------------------------------------
     def move_production(self) -> None:
-        dst = _join(self.production_path, "Point_Cloud")
-        os.makedirs(dst, exist_ok=True)
-        for fname in os.listdir(self.fusion_path):
-            if fname.endswith(".ply"):
-                shutil.copy2(_join(self.fusion_path, fname), _join(dst, fname))
+        """Copy the products (.ply, .tif, .tfw) of fusion, mesh and DSM
+        into production/Point_Cloud, Mesh and DSM."""
+        mapping = {
+            self.fusion_path: _join(self.production_path, "Point_Cloud"),
+            self.mesh_path: _join(self.production_path, "Mesh"),
+            self.dsm_path: _join(self.production_path, "DSM"),
+        }
+        for src, dst in mapping.items():
+            os.makedirs(dst, exist_ok=True)
+            for fname in os.listdir(src):
+                if fname.endswith((".ply", ".tif", ".tfw")):
+                    shutil.copy2(_join(src, fname), _join(dst, fname))
 
     # ---------------- full run ----------------------------------------
     def run_dense(self, model=None) -> None:
         """Every switched-on stage in order; `model` as for dense_match."""
         cfg = self.cfg
-        # refuse before any work is done, not after dense matching
-        for switch, (what, item) in _UNPORTED_STAGES.items():
-            if getattr(cfg, switch):
-                raise _not_ported(what, item)
         stages = [
             (cfg.run_view_selection, "view selection", self.select_view),
             (cfg.run_mvs, "dense matching",
              lambda: self.dense_match(model=model)),
             (cfg.run_depth_fusion, "depth fusion", self.fuse_depth_map),
+            (cfg.run_create_mesh, "mesh", self.create_mesh),
+            (cfg.run_create_dsm, "dsm", self.create_dsm),
         ]
+        self.stage_seconds = {}
         for enabled, label, fn in stages:
             if not enabled:
                 continue
-            t0 = time.time()
+            t0 = time.perf_counter()
             fn()
-            print(f"[pipeline] {label}: {(time.time() - t0) / 60.0:.2f} min")
+            self.stage_seconds[label] = time.perf_counter() - t0
+            print(f"[pipeline] {label}: "
+                  f"{self.stage_seconds[label] / 60.0:.2f} min")
         self.move_production()
 
 
@@ -412,5 +623,7 @@ class FusionSession:
         out_ply = _join(pipe.fusion_path, f"{scene}.ply")
         write_ply(out_ply, fused.xyz, fused.normals, fused.colors)
         tf.write_border(_join(pipe.fusion_path, f"{scene}.txt"), bbx)
+        pipe._write_mvs_scene(
+            _join(pipe.fusion_path, f"{scene}.mvs"), self.views, fused)
         print(f"[fusion] {scene}: {fused.xyz.shape[0]} points")
         return out_ply

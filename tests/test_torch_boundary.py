@@ -1,6 +1,7 @@
 """The port's boundary: it imports neither JAX nor the JAX package, runs on
-the GPU unless the caller asks for the CPU, and builds or loads no CUDA
-code when its modules are imported."""
+the GPU unless the caller asks for the CPU, builds or loads no CUDA code
+and no native library when its modules are imported, and builds its native
+library from native/ itself (never the JAX package's `_native/`)."""
 
 import pkgutil
 import re
@@ -26,7 +27,10 @@ def test_importing_every_module_pulls_no_jax():
     mods = _modules()
     for m in ("ops.sweep", "ops.cf_conv", "ops.red_step4", "models.msrednet",
               "models.casmvsnet", "models.ucsnet", "sparse.colmap",
-              "sparse.view_selection"):
+              "sparse.view_selection", "mesh.reconstruct", "mesh.refine",
+              "mesh.clean", "mesh.atlas", "mesh.texture", "mesh.trimesh_io",
+              "mesh.openmvs_config", "dsm.rasterize", "io.mvs_interface",
+              "io.geotiff", "utils.native"):
         assert f"deep3d_aerial_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -37,6 +41,8 @@ def test_importing_every_module_pulls_no_jax():
         "assert not bad, bad\n"
         "import deep3d_aerial_tpu_torch.ops.cuda_build as cb\n"
         "assert not cb._libs, 'a CUDA library was loaded at import'\n"
+        "import deep3d_aerial_tpu_torch.utils.native as nat\n"
+        "assert nat._LIB is None, 'the native library was loaded at import'\n"
         "print('ok', len(sys.modules))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -51,6 +57,22 @@ def test_no_source_names_jax():
     hits = [str(p.relative_to(REPO)) for p in ROOT.rglob("*")
             if p.suffix in (".py", ".cu", ".cuh") and pat.search(p.read_text())]
     assert not hits, hits
+
+
+def test_native_library_builds_from_native_into_build():
+    """No port file names the JAX package's `_native/` directory; the
+    library is built from native/*.cc into build/native/, which .gitignore
+    lists."""
+    from deep3d_aerial_tpu_torch.utils import native
+
+    pat = re.compile(r"[\\/\"']_native\b")
+    hits = [str(p.relative_to(REPO)) for p in ROOT.rglob("*")
+            if p.suffix in (".py", ".cu", ".cuh") and pat.search(p.read_text())]
+    assert not hits, hits
+    assert native._NATIVE == REPO / "native"
+    assert all((native._NATIVE / s).is_file() for s in native.SOURCES)
+    assert native.library_path().parent == REPO / "build" / "native"
+    assert "build/" in (REPO / ".gitignore").read_text().split()
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path, monkeypatch):

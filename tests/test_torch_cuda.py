@@ -527,3 +527,55 @@ def test_kernels_launch_on_the_tensors_device():
         assert k.device == dev
         torch.testing.assert_close(k, p, rtol=0, atol=TOL)
     assert torch.cuda.current_device() == 0
+
+
+
+def _refine_grid(n, seed):
+    """An n x n vertex grid 10 m wide at z = 10 (plus 2 cm of noise), and
+    three nadir views of a smooth texture on it that disagree a little."""
+    xs, ys = np.meshgrid(np.linspace(-5, 5, n, dtype=np.float32),
+                         np.linspace(-5, 5, n, dtype=np.float32))
+    z = 10.0 + np.random.default_rng(seed).normal(0, 0.02, n * n)
+    verts = np.stack([xs.ravel(), ys.ravel(), z], -1).astype(np.float32)
+    i = (np.arange(n - 1)[:, None] * n + np.arange(n - 1)[None]).ravel()
+    faces = np.concatenate([np.stack([i, i + 1, i + n], -1),
+                            np.stack([i + 1, i + n + 1, i + n], -1)]).astype(np.int32)
+    K = np.array([[20.0, 0, 32], [0, 20.0, 24], [0, 0, 1]], np.float32)
+    ys, xs = np.meshgrid(np.arange(48), np.arange(64), indexing="ij")
+    views = []
+    for k, tx in enumerate((-2.0, 0.0, 2.0)):
+        T = np.eye(4, dtype=np.float32)
+        T[0, 3] = tx
+        X = (xs - 32) / 2.0 - tx + 0.3 * k
+        Y = (ys - 24) / 2.0
+        img = 0.5 + 0.3 * np.sin(1.3 * X) * np.cos(0.9 * Y) + 0.2 * np.sin(0.4 * X + 1.7 * Y)
+        views.append((img.astype(np.float32), K, T))
+    return verts, faces, views
+
+
+@pytest.mark.parametrize("energy", ["zncc", "variance"])
+@pytest.mark.parametrize("n", [9, 64, 200])
+def test_photometric_refine_on_the_card_matches_the_cpu(dev, energy, n):
+    """Each step of the refine on the card against the same step on the CPU
+    from the same vertices, within 1e-4 x the mesh's mean edge: the
+    scatter-adds (index_add, atomic on the card) and the sums reduce in
+    another order, a few ulps a step. Whole runs are not compared: the
+    refinement is chaotic at float32 resolution (a bilinear tap's gradient
+    jumps at pixel borders, and the step is normalised by the largest
+    normal gradient), so ulps grow to a fraction of a step within 20 steps
+    (chip_smoke.py, TOL_REFINE_EDGE)."""
+    from deep3d_aerial_tpu_torch.mesh import refine
+
+    verts, faces, views = _refine_grid(n, seed=n)
+    cfg = refine.PhotoRefineConfig(energy=energy, scales=2, iterations=10)
+    card, v, mean_edge = refine.refine_setup(verts, faces, views, cfg, dev)
+    host, _, _ = refine.refine_setup(verts, faces, views, cfg, "cpu")
+    for s in range(cfg.scales):
+        for _ in range(cfg.iterations):
+            step = cfg.gradient_step * mean_edge * 0.5 ** s
+            got = refine.refine_update(card, v, step)
+            want = refine.refine_update(host, v.cpu(), step)
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * mean_edge)
+            v = got
+    out = refine.photometric_refine(verts, faces, views, cfg, device=dev)
+    assert np.isfinite(out).all() and np.abs(out - verts).max() > 1e-3

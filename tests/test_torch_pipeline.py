@@ -120,19 +120,6 @@ def test_config_copy_parses_like_the_jax_package(tmp_path):
         dataclasses.asdict(JConfig.from_yaml(path))
 
 
-@pytest.mark.parametrize("switch,method", [
-    ("run_create_mesh", "create_mesh"),
-    ("run_create_dsm", "create_dsm"),
-])
-def test_unported_stage_raises(tmp_path, switch, method):
-    pipe = AerialPipeline(str(tmp_path), PipelineConfig(**{**CFG, switch: True}),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(pipe, method)()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.run_dense()
-
-
 @pytest.mark.parametrize("setting,error", [
     ({"display_depth": True}, NotImplementedError),
     ({"infer_batch_size": 8}, NotImplementedError),
