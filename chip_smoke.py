@@ -10,7 +10,14 @@ kernel path with the plain path end to end, and runs one 1856x2752
 production frame. `[refine]` holds the photometric refine on the card
 against the CPU (on the AdaMVS path's mesh, and on a 183k-vertex plane),
 and `[main:fullres]` runs the default pipeline end to end on the
-1856x2752 survey.
+1856x2752 survey. Then training: `[train:grad]` holds each kernel's
+autograd Function (kernel forward, plain-VJP backward: ops/autograd.py)
+against plain autograd on the card, `[train:step:<model>]` one train step
+of each model through the kernels against the plain path,
+`[train:adamvs]` the trainer at its CLI's defaults (384x768, two epochs
+on a rendered WHU-layout folder, `--resume`, `--mode test`, the trained
+params.npz through the pipeline's dense_match), and
+`[train:<msrednet|casmvsnet|ucsnet>]` three steps of each other model.
 
     python3 chip_smoke.py
 
@@ -44,7 +51,11 @@ prints the CUDA-core bound beside it. Only K5 has a single PyTorch call
 that computes the same function (one cuDNN convolution), so `library_ms`
 is null for the others (projection + bilinear taps + channel reduction, or
 a whole GRU step); K3's entry carries `convs_cudnn_ms`, a yardstick of its
-8 convs alone, each as one cuDNN call.
+8 convs alone, each as one cuDNN call. Each entry also carries `backward`
+(the route of its gradient), `bwd_ms` (the plain VJP's device ms per map
+of the same path, from `[train:grad]`; null for K5, whose backward is
+K4's), `grad_err` (the largest Function-vs-plain-autograd gradient error
+over the max |grad|) and `train_launches_per_step` (per model trained).
 """
 
 from __future__ import annotations
@@ -1829,6 +1840,609 @@ def phase_production_frame(dev, camF, posesF, model_type="adamvs"):
     return took
 
 
+# ---------------------------------------------------------------------------
+# training: the kernels' autograd Functions, one step kernel vs plain, the
+# trainer at its CLI's defaults
+# ---------------------------------------------------------------------------
+
+# [train:grad], stated before measuring: a Function's backward is its plain
+# version's VJP on the same inputs as plain autograd's, so the two agree up
+# to the order in which the gathers' backward (index_add, atomic on the
+# card) adds: ~1e-7 of the largest gradient entry; 1e-5 leaves room
+TOL_GRAD_FN = 1e-5
+# [train:step:*], kernel path vs plain path, one step on the same weights
+# and batch: the forwards differ by ~1e-6 (the kernels' sums in another
+# order), which the loss shows at ~1e-6 relative: TOL_STEP_LOSS. The
+# gradient is another matter: the cascade's later stages sample depths
+# around the earlier stages' output and the bilinear taps' gradient steps
+# where a tap crosses a pixel border, so a 1e-6 change of the forward can
+# move a gradient by far more (on the CPU the JAX package's own UCSNet
+# gradient moves by 6.1e-3 of a leaf's largest entry when the images
+# change by one ulp). The phase measures that conditioning on the card:
+# the plain path again with the images scaled by (1 + 2^-22), cuDNN in its
+# deterministic algorithms so that the difference is the input's alone.
+# A leaf's gradient error is |g - g_plain| over its largest entry plus
+# 1e-3 of the model's largest gradient (a leaf ~0 by symmetry, the score
+# bias under the softmax over planes), and the kernel path's largest must
+# stay within TOL_STEP_GRAD or STEP_COND times the one-ulp run's. The
+# parameters after one rmsprop update (from nu = 0 a gradient g moves a
+# parameter by lr * u(g), u(g) = g / sqrt(0.1 g^2 + 1e-8)): each within
+# lr * (u(g + d) - u(g - d)) of the plain path's, d the gradient error
+# allowed for its leaf, plus 1e-6 for the update's own rounding.
+TOL_STEP_LOSS = 1e-4
+TOL_STEP_GRAD = 1e-3
+STEP_COND = 3.0
+TRAIN_LR = 1e-3
+# [train:adamvs]: the trainer CLI's defaults (5 views, num_depth 384,
+# ndepths 48/32/8, max_h 384, max_w 768, batch 1, rmsprop at 1e-3) on a
+# WHU-layout folder rendered here: 8 train and 2 val reference views of a
+# 4 x 3 survey at 384 x 768
+TRAIN_H, TRAIN_W = 384, 768
+TRAIN_REFS, VAL_REFS = list(range(8)), [9, 10]
+TRAIN_EPOCHS = 2
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def grad_case(dev, name, tag, fn, plain, tensors, calls, iters):
+    """One Function at one shape: gradients of a seeded random projection
+    of its outputs with respect to every tensor that requires one, through
+    the Function (the kernel forward, `fn`) and by plain autograd on the
+    card (`plain`); the max abs error over the max |grad| per input (raises
+    above TOL_GRAD_FN). Times (device ms a call): the Function's forward,
+    its backward (the plain version's recompute and VJP), and the plain
+    version's forward + backward. `calls`: the calls a map (a training
+    step's forward) makes at this shape."""
+    leaves = [t for t in tensors if t.requires_grad]
+    outs = _tuple(fn())
+    g = torch.Generator(device=dev).manual_seed(11)
+    proj = [torch.randn(o.shape, generator=g, device=dev) for o in outs]
+    got = torch.autograd.grad(outs, leaves, proj)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = torch.autograd.grad(_tuple(plain()), leaves, proj)
+    t1.record()
+    t1.synchronize()
+    est = t0.elapsed_time(t1)
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(got, want)]
+    err = max(errs)
+    if not all(bool(torch.isfinite(a).all()) for a in got) or not err <= TOL_GRAD_FN:
+        raise AssertionError(f"[train:grad] {name} {tag}: Function vs plain autograd "
+                             f"relative errors {errs} (tol {TOL_GRAD_FN})")
+    if not all(o.grad_fn is not None and "KernelFn" in type(o.grad_fn).__name__
+               for o in outs):
+        raise AssertionError(f"[train:grad] {name} {tag}: the outputs do not come "
+                             "from the kernel's Function")
+    fwd = device_ms(fn, iters)
+    held = _tuple(fn())
+
+    def backward():
+        torch.autograd.grad(held, leaves, proj, retain_graph=True)
+
+    def plain_fb():
+        torch.autograd.grad(_tuple(plain()), leaves, proj)
+    # the plain VJPs take up to seconds a call and launch hundreds of
+    # kernels: as many calls a session as fit in ~0.3 s, one to three
+    n = max(1, min(3, int(0.3e3 / max(est, 1e-3))))
+    bwd = device_ms(backward, n)
+    pfb = device_ms(plain_fb, n)
+    log(f"[train:grad] {name:10s} {tag:30s} grad err {err:.2e} over {len(leaves)} "
+        f"inputs (tol {TOL_GRAD_FN:g}); device ms: forward (kernel) {fwd:.4f}, "
+        f"backward (plain VJP) {bwd:.4f}, plain forward+backward {pfb:.4f}; "
+        f"calls a map {calls}")
+    del held
+    return {"name": name, "shape": tag, "grad_err": err, "fwd_ms": fwd,
+            "bwd_ms": bwd, "plain_fb_ms": pfb, "calls": calls}
+
+
+def phase_train_grad(dev, cam0, poses0):
+    """[train:grad]: each Function (K1, K2, K2v, K3, K4) against plain
+    autograd at the 384x512 main paths' stage shapes (K1 at stages 1 and
+    3), every input and parameter taking a gradient."""
+    from deep3d_aerial_tpu_torch.models.cost_reg import RedStep2, RedStep4
+    from deep3d_aerial_tpu_torch.ops import red_step4 as rs4
+    from deep3d_aerial_tpu_torch.ops.cf_conv import cf_conv3x3, cf_conv3x3_plain
+    from deep3d_aerial_tpu_torch.ops.red_step2 import red_step2, red_step2_plain
+    from deep3d_aerial_tpu_torch.ops.sweep import (
+        sweep_corr,
+        sweep_corr_plain,
+        sweep_cost,
+        sweep_cost_plain,
+        sweep_var,
+        sweep_var_plain,
+    )
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).requires_grad_()
+
+    V1 = VIEWS - 1
+    records = []
+    for stage, (C, D) in enumerate(zip(CHANNELS, NDEPTHS)):
+        s = 2 ** (2 - stage)
+        H, W = H0 // s, W0 // s
+        rel = stage_rel(cam0, poses0, stage, dev)
+        ref, srcs = rnd(H, W, C), rnd(V1, H, W, C)
+        d = stage_planes(cam0, poses0, stage, H, W, dev).requires_grad_()
+        wts = (torch.rand((V1, H, W), generator=g, device=dev) * 0.9 + 0.1).requires_grad_()
+        tag = f"stage{stage + 1} {H}x{W} C{C}"
+        if stage != 1:
+            # K1 runs at stage 1 only; at stage 3's shape a chunk of planes
+            nd = NDEPTHS[0] if stage == 0 else CHUNK
+            dp = stage_planes(cam0, poses0, 0, H, W, dev, n=nd).requires_grad_()
+            records.append(grad_case(
+                dev, "sweep_corr", tag + f" V{V1} D{nd}",
+                lambda: sweep_corr(ref, srcs, rel, dp),
+                lambda: sweep_corr_plain(ref, srcs, rel, dp), [ref, srcs, dp],
+                1 if stage == 0 else 0, 10))
+            del dp
+        records.append(grad_case(
+            dev, "sweep_cost", tag + f" V{V1} K{CHUNK}",
+            lambda: sweep_cost(ref, srcs, rel, d, wts),
+            lambda: sweep_cost_plain(ref, srcs, rel, d, wts), [ref, srcs, d, wts],
+            D // CHUNK, 10))
+        records.append(grad_case(
+            dev, "sweep_var", tag + f" V{V1} K{CHUNK}",
+            lambda: sweep_var(ref, srcs, rel, d), lambda: sweep_var_plain(ref, srcs, rel, d),
+            [ref, srcs, d], D // CHUNK, 10))
+        up = stage < 2
+        m2 = init_random_weights(RedStep2(C, up=up), seed=stage).to(dev)
+        p2 = dict(m2.named_parameters())
+        packed = m2._packed_params()
+        cost, s1 = rnd(C, H, W), rnd(8, H, W, scale=0.5)
+        s2 = rnd(16, (H + 1) // 2, (W + 1) // 2, scale=0.5)
+        records.append(grad_case(
+            dev, "red_step2", tag + (" up" if up else ""),
+            lambda: red_step2(p2, cost, s1, s2, up=up, packed=packed),
+            lambda: red_step2_plain(p2, cost, s1, s2, up=up),
+            [cost, s1, s2, *p2.values()], D, 10))
+        m4 = init_random_weights(RedStep4(C), seed=stage).to(dev)
+        p4 = dict(m4.named_parameters())
+        packed4 = m4._packed.get(m4)
+        states = [rnd(c, H >> l, W >> l, scale=0.5) for l, c in enumerate(rs4.HIDDEN)]
+        records.append(grad_case(
+            dev, "red_step4", tag,
+            lambda: rs4.red_step4(p4, cost, *states, packed=packed4),
+            lambda: rs4.red_step4_plain(p4, cost, *states),
+            [cost, *states, *p4.values()], D, 5))
+        del ref, srcs, d, wts, cost, s1, s2, states
+        torch.cuda.empty_cache()
+    # K5's own Function (no training path calls it alone: K4's covers the
+    # launches inside a RedStep4 step), at one of the step's conv shapes
+    x, w, b = rnd(16, H0, W0), rnd(16, 16, 3, 3, scale=1 / 12), rnd(16, scale=0.1)
+    records.append(grad_case(
+        dev, "cf_conv3x3", f"same 16->16 {H0}x{W0}", lambda: cf_conv3x3(x, w, b),
+        lambda: cf_conv3x3_plain(x, w, b), [x, w, b], 0, 10))
+    per_map = {}
+    for r in records:
+        e = per_map.setdefault(r["name"], {"bwd_ms": 0.0, "fwd_ms": 0.0,
+                                           "plain_fb_ms": 0.0, "grad_err": 0.0})
+        for k in ("bwd_ms", "fwd_ms", "plain_fb_ms"):
+            e[k] += r[k] * r["calls"]
+        e["grad_err"] = max(e["grad_err"], r["grad_err"])
+    for name, e in per_map.items():
+        log(f"[train:grad] {name}: per {H0}x{W0} map (calls a map x device ms a call, "
+            f"summed over stages): forward {e['fwd_ms']:.3f} ms, backward (plain VJP) "
+            f"{e['bwd_ms']:.3f} ms, plain forward+backward {e['plain_fb_ms']:.3f} ms; "
+            f"largest grad err {e['grad_err']:.2e}")
+    return per_map
+
+
+class StepTimer:
+    """A train step (train/step.py) with CUDA events at its marks: per step
+    the device-clock ms of its forward, backward and optimizer phases (the
+    gaps the host leaves included), and its logs."""
+
+    def __init__(self, step):
+        self.step = step
+        self.events = []
+        self.logs = []
+
+    def __call__(self, batch, mark=None):
+        marks = []
+
+        def rec(label):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((label, e))
+        rec("start")
+        logs = self.step(batch, mark=rec)
+        self.events.append(marks)
+        self.logs.append(logs)
+        return logs
+
+    def split(self, skip=2):
+        """Median ms of each phase and of the whole step over steps
+        skip+1..n."""
+        torch.cuda.synchronize()
+        per = {}
+        for marks in self.events[skip:] or self.events[-1:]:
+            for (_, a), (label, b) in zip(marks, marks[1:]):
+                per.setdefault(label, []).append(a.elapsed_time(b))
+            per.setdefault("step", []).append(marks[0][1].elapsed_time(marks[-1][1]))
+        return {k: float(np.median(v)) for k, v in per.items()}
+
+
+def idle_share(step, batch):
+    """(device busy ms, step wall ms between CUDA events, idle share) of
+    one profiled train step: the union of its device events' intervals
+    (torch.profiler, `device_events`, which must list one event of the
+    port's kernels for each launch the counters add) over the step's wall."""
+    from deep3d_aerial_tpu_torch.utils.profiling import device_events
+
+    walls = []
+
+    def run():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(batch)
+        b.record()
+        walls.append((a, b))
+
+    before = own_launches()
+    run()
+    torch.cuda.synchronize()
+    want = own_launches() - before
+    evs = device_events(run, lambda evs: sum(
+        1 for e in evs if OWN_KERNEL.search(e.name)) == want)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, cur = 0.0, None
+    for s, e in spans:
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    a, b = walls[-1]
+    wall = a.elapsed_time(b)
+    busy_ms = busy / 1e3
+    return busy_ms, wall, 1.0 - busy_ms / wall
+
+
+def train_model(model_type, impl="kernel", seed=21, **kw):
+    from deep3d_aerial_tpu_torch.models import build_model
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    if impl == "plain":
+        kw["warp_impl"] = "plain"
+        if model_type in ("adamvs", "msrednet"):
+            kw["red_impl"] = "plain"
+    return init_random_weights(build_model(model_type, **kw), seed=seed)
+
+
+def train_batch(cam, poses, dev, ref=0):
+    imgs, rel, dmin, dmax, depth = sample(cam, poses, dev, ref=ref)
+    return {"imgs": imgs[None], "rel_projs": rel[None],
+            "depth_min": torch.tensor([dmin], device=dev),
+            "depth_max": torch.tensor([dmax], device=dev),
+            "depth_gt": depth[None], "mask": (depth > 0).float()[None]}
+
+
+MODEL_NDEPTHS = {"adamvs": NDEPTHS, "msrednet": NDEPTHS, "casmvsnet": NDEPTHS,
+                 "ucsnet": UCS_NDEPTHS}
+
+
+def train_counters(model_type):
+    from deep3d_aerial_tpu_torch.ops.cf_conv import cf_conv3x3
+    from deep3d_aerial_tpu_torch.ops.red_step2 import red_step2
+    from deep3d_aerial_tpu_torch.ops.red_step4 import red_step4
+    from deep3d_aerial_tpu_torch.ops.sweep import sweep_corr, sweep_cost, sweep_var
+
+    nd = MODEL_NDEPTHS[model_type]
+    chunks = sum(d // CHUNK for d in nd)
+    return {"adamvs": {sweep_corr: 1, sweep_cost: chunks, red_step2: sum(nd)},
+            "msrednet": {sweep_var: chunks, red_step4: sum(nd),
+                         cf_conv3x3: RED4_CONVS * sum(nd)},
+            "casmvsnet": {sweep_var: chunks}, "ucsnet": {sweep_var: chunks}}[model_type]
+
+
+def phase_train_step_parity(dev, cam0, poses0, model_type):
+    """[train:step:<model>]: one train step on the same seeded weights and
+    batch through the kernel path and through the plain path
+    (warp_impl/red_impl 'plain') on the card at 384x512 and the model's
+    main-path planes, and the plain path again on images scaled by
+    (1 + 2^-22) to measure the gradient's conditioning: the loss, every
+    parameter's gradient and the parameters after one rmsprop update, each
+    within its stated tolerance. The kernel step must launch exactly the
+    main path's kernels (one forward's worth), the plain ones none."""
+    from deep3d_aerial_tpu_torch.train.optim import make_optimizer
+    from deep3d_aerial_tpu_torch.train.step import make_train_step
+
+    batch = train_batch(cam0, poses0, dev)
+    nudged = dict(batch, imgs=batch["imgs"] * (1 + 2.0 ** -22))
+    pair_w = 1.0 if model_type == "adamvs" else 0.0
+    counters = train_counters(model_type)
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for impl, b in (("kernel", batch), ("plain", batch), ("nudged", nudged)):
+            model = train_model(model_type, "plain" if impl == "nudged" else impl,
+                                ndepths=MODEL_NDEPTHS[model_type]).to(dev)
+            opt = make_optimizer(model.named_parameters(), TRAIN_LR)
+            grads = {}
+            update = opt.step
+            opt.step = lambda g, update=update, grads=grads: grads.update(
+                {n: t.clone() for n, t in g.items()}) or update(g)
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            logs = make_train_step(model, opt, pair_weight=pair_w)(b)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in counters}
+            want = {c.__name__: (k if impl == "kernel" else 0) for c, k in counters.items()}
+            if launches != want:
+                raise AssertionError(f"[train:step:{model_type}] {impl} step launched "
+                                     f"{launches}, expected {want}")
+            out[impl] = (logs, grads, {n: p.detach().clone()
+                                       for n, p in model.named_parameters()}, secs)
+            del model, opt
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (lk, gk, pk, sk), (lp, gp, pp, sp), (_, gu, _, _) = (
+        out["kernel"], out["plain"], out["nudged"])
+    loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
+    scale = max(float(g.abs().max()) for g in gp.values())
+
+    def rel(a, b):
+        return {n: float((a[n] - g).abs().max()) / (float(g.abs().max()) + 1e-3 * scale)
+                for n, g in b.items()}
+    rk, ru = rel(gk, gp), rel(gu, gp)
+    worst = max(rk, key=rk.get)
+    allowed = max(TOL_STEP_GRAD, STEP_COND * max(ru.values()))
+    def u(x):
+        return x / torch.sqrt(0.1 * x * x + 1e-8)
+    param_err = 0.0
+    for n, g in gp.items():
+        d = allowed * (float(g.abs().max()) + 1e-3 * scale)
+        atol = TRAIN_LR * (u(g + d) - u(g - d)) + 1e-6
+        param_err = max(param_err, float(((pk[n] - pp[n]).abs() / atol).max()))
+    log(f"[train:step:{model_type}] {H0}x{W0}, {VIEWS} views, ndepths "
+        f"{MODEL_NDEPTHS[model_type]}: loss kernel {lk['total']:.6f} plain "
+        f"{lp['total']:.6f} (largest log rel err {loss_err:.2e}, tol {TOL_STEP_LOSS:g}); "
+        f"gradient error, kernel vs plain: {rk[worst]:.3e} ({worst}); plain on images "
+        f"scaled by 1 + 2^-22 vs plain: {max(ru.values()):.3e}; allowed {allowed:.3e}; "
+        f"params after one rmsprop update at {param_err:.3f} of their tolerance; host s a "
+        f"step: kernel {sk:.3f}, plain {sp:.3f}")
+    if not (np.isfinite(lk["total"]) and loss_err <= TOL_STEP_LOSS
+            and rk[worst] <= allowed and param_err <= 1.0):
+        raise AssertionError(f"[train:step:{model_type}] kernel vs plain step: loss "
+                             f"{loss_err}, grad {rk[worst]} ({worst}) > {allowed}, "
+                             f"params {param_err}")
+    return rk[worst], max(ru.values())
+
+
+def phase_train_steps(dev, cam0, poses0, model_type, steps=3):
+    """[train:<model>]: `steps` train steps of the kernel path at 384x512
+    and the model's main-path planes (the batch cycling over three
+    reference views): ms a step split into forward, backward and optimizer
+    (CUDA events, median of steps 3..n), peak device memory, the loss per
+    step, and the idle share of one more, profiled, step. Every step must
+    launch exactly one forward's kernels."""
+    from deep3d_aerial_tpu_torch.train.optim import make_optimizer
+    from deep3d_aerial_tpu_torch.train.step import make_train_step
+
+    model = train_model(model_type, ndepths=MODEL_NDEPTHS[model_type]).to(dev)
+    opt = make_optimizer(model.named_parameters(), TRAIN_LR)
+    timer = StepTimer(make_train_step(model, opt, pair_weight=float(model_type == "adamvs")))
+    batches = [train_batch(cam0, poses0, dev, ref=r) for r in range(3)]
+    counters = train_counters(model_type)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.launches = 0
+    for i in range(steps):
+        timer(batches[i % 3])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    got = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: k * steps for c, k in counters.items()}
+    if got != want:
+        raise AssertionError(f"[train:{model_type}] {steps} steps launched {got}, "
+                             f"expected {want}")
+    split = timer.split()
+    losses = [l["total"] for l in timer.logs]
+    busy, wall, idle = idle_share(timer, batches[0])
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[train:{model_type}] non-finite loss: {losses}")
+    log(f"[train:{model_type}] {H0}x{W0}, {VIEWS} views, ndepths "
+        f"{MODEL_NDEPTHS[model_type]}, {steps} steps: ms a step {split['step']:.2f} = "
+        f"forward {split['forward']:.2f} + backward {split['backward']:.2f} + optimizer "
+        f"{split['optimizer']:.2f} (CUDA events, median of steps 3..{steps}); peak "
+        f"memory {peak:.2f} GiB; profiled step: device busy {busy:.2f} of {wall:.2f} ms, "
+        f"idle {idle:.3f}; losses {[round(l, 4) for l in losses]}; launches {got}")
+    return {"step_ms": split, "peak_gib": peak, "idle": idle,
+            "launches": {k: v // steps for k, v in got.items()}}
+
+
+def write_whu_folder(root: Path, cam, poses, dev, refs, views=VIEWS):
+    """A WHU-OMVS layout training folder of one scene rendered from the
+    survey (train/dataset_whu.py's layout, GT depth as PFM): images/*.png,
+    cams/*.txt ('Twc' in XrightYup axes, 'K_mat', 'dmin dmax interval'),
+    depths/*.pfm, info/image_path.txt and info/viewpair.txt with the
+    `refs` as reference views, each with its views-1 nearest as sources."""
+    from PIL import Image
+
+    from deep3d_aerial_tpu_torch.io.pfm import write_pfm
+
+    scene = root / "scene"
+    for sub in ("images", "cams", "depths", "info"):
+        (scene / sub).mkdir(parents=True)
+    (root / "index.txt").write_text("scene\n")
+    K = cam.K
+    for i, pose in enumerate(poses, start=1):
+        img, depth = render(cam, pose, dev)
+        name = f"v{i:03d}"
+        Image.fromarray(np.dstack([(img.cpu().numpy() * 255).astype(np.uint8)] * 3)
+                        ).save(scene / "images" / f"{name}.png")
+        d = depth.cpu().numpy()
+        write_pfm(scene / "depths" / f"{name}.pfm", d.astype(np.float32))
+        pad = (d.max() - d.min()) / 4 + 1.0
+        R, t = pose.to_convention(axes="xrightyup", rotation="Rwc", translation="twc")
+        with open(scene / "cams" / f"{name}.txt", "w") as f:
+            f.write("Twc\n")
+            for r in range(3):
+                f.write(f"{R[r, 0]:.9f} {R[r, 1]:.9f} {R[r, 2]:.9f} {t[r]:.9f}\n")
+            f.write("0 0 0 1\n\nK_mat\n")
+            f.write(f"{K[0, 0]:.6f} 0 {K[0, 2]:.6f}\n0 {K[1, 1]:.6f} {K[1, 2]:.6f}\n0 0 1\n\n")
+            f.write(f"{d.min() - pad:.6f} {d.max() + pad:.6f} 0.1\n")
+    with open(scene / "info" / "image_path.txt", "w") as f:
+        f.write(f"{len(poses)}\n")
+        for i in range(1, len(poses) + 1):
+            f.write(f"{i} v{i:03d}.png images/v{i:03d}.png\n")
+    centers = np.stack([p.center for p in poses])
+    with open(scene / "info" / "viewpair.txt", "w") as f:
+        f.write(f"{len(refs)}\n")
+        for r in refs:
+            dist = np.linalg.norm(centers - centers[r], axis=1)
+            srcs = [j for j in np.argsort(dist) if j != r][:views - 1]
+            f.write(f"{r + 1}\n{len(srcs)} "
+                    + " ".join(f"{j + 1} {1.0 / dist[j]:.4f}" for j in srcs) + "\n")
+
+
+def phase_train_adamvs(dev):
+    """[train:adamvs]: the slice's path at full width. AdaMVS at the
+    trainer CLI's defaults on a rendered WHU-layout folder (8 train, 2 val
+    samples at 384x768, GT depth as PFM): TRAIN_EPOCHS epochs through
+    Trainer.fit as the CLI builds it (train/__main__.py: build), then the
+    CLI with --resume for one more epoch, then --mode test. Gates: every
+    loss finite; the checkpoints named as the JAX package names them;
+    resume restores the parameters and the optimizer state bit for bit;
+    the exported params.npz, as pretrain_weight, drives the pipeline's
+    dense_match to finite maps; every step and eval map launches exactly a
+    forward's kernels. Returns (step split, peak GiB, idle share, launches
+    a step)."""
+    import re as _re
+
+    from deep3d_aerial_tpu_torch.io.pfm import read_pfm
+    from deep3d_aerial_tpu_torch.pipeline.config import PipelineConfig
+    from deep3d_aerial_tpu_torch.pipeline.orchestrator import AerialPipeline
+    from deep3d_aerial_tpu_torch.train.__main__ import build, main, parse_args
+
+    cam, poses = survey(TRAIN_W, TRAIN_H, nx=4, ny=3, seed=8)
+    counters = train_counters("adamvs")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_whu_folder(tmp / "train", cam, poses, dev, TRAIN_REFS)
+        write_whu_folder(tmp / "val", cam, poses, dev, VAL_REFS)
+        log(f"[train:adamvs] wrote the WHU-layout folders ({len(poses)} views at "
+            f"{TRAIN_H}x{TRAIN_W}, {len(TRAIN_REFS)} train / {len(VAL_REFS)} val "
+            f"samples) in {time.perf_counter() - t0:.1f} s")
+        logdir = tmp / "ckpt"
+        argv = ["--data_folder", str(tmp / "train"), "--val_folder", str(tmp / "val"),
+                "--gt_format", "pfm", "--logdir", str(logdir)]
+        trainer, train_ds, val_ds = build(parse_args(argv + ["--epochs", str(TRAIN_EPOCHS)]))
+        if (train_ds.view_num, trainer.model.num_depth, trainer.model.ndepths,
+                train_ds.max_h, train_ds.max_w, trainer.optimizer.kind) != (
+                VIEWS, 384, NDEPTHS, TRAIN_H, TRAIN_W, "rmsprop"):
+            raise AssertionError("[train:adamvs] the CLI's defaults changed")
+        timer = StepTimer(trainer.step_fn)
+        trainer.step_fn = timer
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        trainer.fit(lambda: train_ds.batches(1, shuffle=True),
+                    lambda: val_ds.batches(1, shuffle=False))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        got = {c.__name__: c.launches for c in counters}
+        n_steps = len(timer.logs)
+        maps = n_steps + TRAIN_EPOCHS * len(VAL_REFS)   # steps + eval maps
+        want = {c.__name__: k * maps for c, k in counters.items()}
+        if n_steps != TRAIN_EPOCHS * len(TRAIN_REFS) or got != want:
+            raise AssertionError(f"[train:adamvs] {n_steps} steps launched {got}, "
+                                 f"expected {want}")
+        losses = [l["total"] for l in timer.logs]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"[train:adamvs] non-finite losses {losses}")
+        names = sorted(p.name for p in logdir.iterdir() if p.name.startswith("model_"))
+        if (len(names) != TRAIN_EPOCHS or not all(
+                _re.fullmatch(rf"model_{e:06d}_\d+\.\d{{4}}", n)
+                for e, n in enumerate(names))):
+            raise AssertionError(f"[train:adamvs] checkpoint names {names}")
+        split = timer.split()
+        log(f"[train:adamvs] {TRAIN_EPOCHS} epochs, {n_steps} steps at {TRAIN_H}x{TRAIN_W}, "
+            f"{VIEWS} views, ndepths {NDEPTHS}, num_depth 384, rmsprop lr {TRAIN_LR:g}: "
+            f"fit {fit_s:.1f} s; ms a step {split['step']:.2f} = forward "
+            f"{split['forward']:.2f} + backward {split['backward']:.2f} + optimizer "
+            f"{split['optimizer']:.2f} (CUDA events, median of steps 3..{n_steps}); peak "
+            f"memory {peak:.2f} GiB")
+        log(f"[train:adamvs] loss per step: {[round(l, 4) for l in losses]}")
+        log(f"[train:adamvs] checkpoints {names}; launches {got} ({maps} forwards: "
+            f"{n_steps} steps + {TRAIN_EPOCHS * len(VAL_REFS)} eval maps)")
+
+        # resume: a fresh trainer restores the last checkpoint bit for bit
+        fresh, _, _ = build(parse_args(argv + ["--epochs", str(TRAIN_EPOCHS + 1)]))
+        if not fresh.resume() or fresh.epoch != TRAIN_EPOCHS:
+            raise AssertionError("[train:adamvs] resume found no checkpoint")
+        params = dict(trainer.model.named_parameters())
+        bad = [n for n, p in fresh.model.named_parameters() if not torch.equal(p, params[n])]
+        a, b = trainer.optimizer.state_dict(), fresh.optimizer.state_dict()
+        bad += [f"nu.{n}" for n, t in a["nu"].items() if not torch.equal(t, b["nu"][n])]
+        if bad or a["count"] != b["count"]:
+            raise AssertionError(f"[train:adamvs] resume differs: {bad[:5]}, count "
+                                 f"{a['count']} vs {b['count']}")
+        log(f"[train:adamvs] resume: a fresh trainer restores {names[-1]}: "
+            f"{len(params)} parameters, the optimizer's moments and count "
+            f"({a['count']}) bit for bit")
+        # one more step, profiled, for the idle share (after the checks above:
+        # it moves the parameters)
+        busy, wall, idle = idle_share(timer, next(iter(train_ds.batches(1, shuffle=False))))
+        log(f"[train:adamvs] profiled step: device busy {busy:.2f} of {wall:.2f} ms, "
+            f"idle {idle:.3f}")
+        del fresh, trainer
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed, _ = main(argv + ["--epochs", str(TRAIN_EPOCHS + 1), "--resume"])
+        names = sorted(p.name for p in logdir.iterdir() if p.name.startswith("model_"))
+        if len(names) != TRAIN_EPOCHS + 1 or resumed.optimizer.count != (
+                (TRAIN_EPOCHS + 1) * len(TRAIN_REFS)):
+            raise AssertionError(f"[train:adamvs] --resume: {names}, count "
+                                 f"{resumed.optimizer.count}")
+        _, metrics = main(argv + ["--resume", "--mode", "test"])
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"[train:adamvs] --mode test metrics {metrics}")
+        log(f"[train:adamvs] --resume: one more epoch, checkpoints {names}; --mode test "
+            f"on the val folder: " + json.dumps({k: round(v, 5) for k, v in metrics.items()})
+            + f" ({time.perf_counter() - t0:.1f} s)")
+        del resumed
+
+        # the exported params.npz as the pipeline's pretrain_weight
+        ws = tmp / "ws"
+        write_workspace(ws, cam, poses[:6], dev)
+        npz = logdir / names[-1] / "params.npz"
+        cfg = PipelineConfig(image_w=TRAIN_W, image_h=TRAIN_H, image_scale=1.0,
+                             view_num=VIEWS, pretrain_weight=str(npz))
+        AerialPipeline(str(ws), cfg, device=dev).dense_match()
+        maps_out = sorted((ws / "dense" / "MVS").glob("*_init.pfm"))
+        for p in maps_out:
+            d = read_pfm(p)[0]
+            if d.shape != (TRAIN_H, TRAIN_W) or not np.isfinite(d).all():
+                raise AssertionError(f"[train:adamvs] {p.name} from the trained "
+                                     f"params.npz: shape {d.shape}, finite "
+                                     f"{np.isfinite(d).mean()}")
+        if len(maps_out) != 6:
+            raise AssertionError(f"[train:adamvs] dense_match wrote {len(maps_out)} maps")
+        log(f"[train:adamvs] {names[-1]}/params.npz as pretrain_weight: dense_match wrote "
+            f"{len(maps_out)} finite {TRAIN_H}x{TRAIN_W} depth maps")
+    per_step = {k: v // maps for k, v in got.items()}
+    return {"step_ms": split, "peak_gib": peak, "idle": idle, "launches": per_step}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1944,6 +2558,28 @@ def main() -> int:
         phase_production_frame(dev, camF, posesF, model_type=model_type)
         log(f"[phase] production frame:{model_type} {time.perf_counter() - t:.1f} s")
 
+    # training: each kernel's autograd Function, one step kernel vs plain
+    # per model, the trainer at its CLI's defaults, three steps per model
+    t = time.perf_counter()
+    grads = phase_train_grad(dev, cam0, poses0)
+    log(f"[phase] train:grad {time.perf_counter() - t:.1f} s")
+    for model_type in MODEL_NDEPTHS:
+        t = time.perf_counter()
+        phase_train_step_parity(dev, cam0, poses0, model_type)
+        log(f"[phase] train:step:{model_type} {time.perf_counter() - t:.1f} s")
+    train = {}
+    t = time.perf_counter()
+    train["adamvs"] = phase_train_adamvs(dev)
+    log(f"[phase] train:adamvs {time.perf_counter() - t:.1f} s")
+    for model_type in ("msrednet", "casmvsnet", "ucsnet"):
+        t = time.perf_counter()
+        train[model_type] = phase_train_steps(dev, cam0, poses0, model_type)
+        log(f"[phase] train:{model_type} {time.perf_counter() - t:.1f} s")
+    log("[train] per model: " + json.dumps({m: {
+        "step_ms": {k: round(v, 3) for k, v in r["step_ms"].items()},
+        "peak_gib": round(r["peak_gib"], 3), "idle": round(r["idle"], 4)}
+        for m, r in train.items()}))
+
     adamvs, msred = f"AdaMVS {H0}x{W0} map", f"MSREDNet {H0}x{W0} map"
     src = {"sweep_corr": ("sweep.cu", "pallas_sweep.py:235", adamvs),
            "sweep_cost": ("sweep.cu", "pallas_sweep.py:520", adamvs),
@@ -1971,6 +2607,11 @@ def main() -> int:
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "per_map_of": path,
         })
+        kernels[-1].update({
+            "bwd_ms": grads[name]["bwd_ms"], "grad_err": grads[name]["grad_err"],
+            "backward": "plain VJP (ops/autograd.py KernelFn)",
+            "train_launches_per_step": {m: r["launches"][name] for m, r in train.items()
+                                        if name in r["launches"]}})
         if name == "red_step2":  # not a library call: the convs alone
             kernels[-1]["convs_cudnn_ms"] = red2_yard
         if name == "sweep_var":  # every main path it runs on, in its own run
@@ -1984,6 +2625,10 @@ def main() -> int:
         "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
         "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
         "per_map_of": msred + f" (inside red_step4, {RED4_CONVS} per step)",
+        "bwd_ms": None, "grad_err": grads["cf_conv3x3"]["grad_err"],
+        "backward": "inside red_step4's Function (its plain VJP); grad_err of its "
+                    "own Function at one conv shape",
+        "train_launches_per_step": {"msrednet": train["msrednet"]["launches"]["cf_conv3x3"]},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

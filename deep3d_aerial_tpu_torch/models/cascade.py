@@ -103,7 +103,9 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
     with `up` its scores and the plane depths are at 2H x 2W. A step that
     carries `folds_softmax` (RedStep2's on CUDA: kernel K3) takes the
     online-softmax state and the plane's depth and updates the state in
-    place, so no score and no eager update leave the step.
+    place, so no score and no eager update leave the step; it does so only
+    with grad disabled (no_grad, inference_mode), since autograd cannot
+    follow the in-place update.
     warp_impl 'kernel' builds each chunk's
     cost with the CUDA kernel (K2, K2v) on CUDA tensors, 'plain' always with
     its plain version.
@@ -134,7 +136,10 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
     osm = OnlineSoftmaxState.init(out_shape, device=dev)
     states = reg.init_states(H, W, device=dev)
     step = reg.plane_step(dev)
-    fold = getattr(step, "folds_softmax", False)
+    # the fold updates the softmax state in place, which autograd cannot
+    # follow: with grad enabled the step returns its score (through K3's
+    # KernelFn on CUDA) and the update is the out-of-place one
+    fold = getattr(step, "folds_softmax", False) and not torch.is_grad_enabled()
     # largest divisor of D not exceeding plane_chunk
     K = max(1, min(int(plane_chunk), D))
     while D % K:

@@ -18,7 +18,10 @@ RedStep4 step (ops/red_step4.py) launches it from C. `cf_conv3x3` launches
 it for CUDA tensors, with the scratch its input-channel splits need, and
 raises if the launch fails; it takes the plain version only for CPU
 tensors. It counts its launches in `cf_conv3x3.launches`, and red_step4
-adds the launches its step makes.
+adds the launches its step makes. Where autograd needs a gradient, the
+launch goes through ops/autograd.py's KernelFn (kernel forward,
+cf_conv3x3_plain's VJP backward); inside a RedStep4 step K4's Function
+covers it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .autograd import through_kernel
 from .conv import conv2d_same, conv_transpose2d_same
 
 MODES = ("same", "down", "up")
@@ -93,6 +97,14 @@ def cf_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     repacking per call); cf_conv3x3_plain on CPU tensors."""
     if not x.is_cuda:
         return cf_conv3x3_plain(x, w, b, mode=mode, relu=relu)
+    return through_kernel(
+        lambda x, w, b: _launch(x, w, b, mode, relu, packed),
+        lambda x, w, b: cf_conv3x3_plain(x, w, b, mode=mode, relu=relu),
+        (x, w, b))
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mode: str,
+            relu: bool, packed: Optional[torch.Tensor]) -> torch.Tensor:
     from .cuda_build import check, load, tickets
 
     if mode not in MODES:

@@ -21,6 +21,14 @@ csrc/red_step2.cu (3 launches a step); its weights are packed once into
 TF32 hi/lo fragments (`pack_params`). `red_step2` launches it for CUDA
 tensors and raises if the launch fails; it takes the plain version only for
 CPU tensors. It counts one call (one step) in `red_step2.launches`.
+
+Where autograd needs a gradient, the score entry goes through
+ops/autograd.py's KernelFn (the JAX package's `_fused_fn` custom VJP): K3
+forward, red_step2_plain's VJP backward, with gradients to cost, s1, s2 and
+every parameter. The fold writes into the softmax state in place, which
+autograd cannot follow, so it runs only where no gradient is needed (the
+streaming sweep folds under no_grad and inference_mode only) and raises
+otherwise.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .autograd import needs_grad, through_kernel
 from .cf_conv import pack_frags
 from .conv import conv2d_same, conv_transpose2d_same
 
@@ -130,6 +139,21 @@ def red_step2(params: Params, cost: torch.Tensor, s1: torch.Tensor,
         for t, new in zip(osm, online_softmax_update(osm, score, dv)):
             t.copy_(new)
         return None, r1, r2
+    if osm is None:
+        return through_kernel(
+            lambda p, c, a, b: _launch(p, c, a, b, up, packed, None, None),
+            lambda p, c, a, b: red_step2_plain(p, c, a, b, up=up),
+            (cost, s1, s2), params)
+    if needs_grad(cost, s1, s2, dv, *osm, *params.values()):
+        raise ValueError("red_step2: the softmax fold updates its state in place "
+                         "and has no gradient; fold under no_grad, or take the "
+                         "score (osm=None) where autograd needs one")
+    return _launch(params, cost, s1, s2, up, packed, osm, dv)
+
+
+def _launch(params: Params, cost: torch.Tensor, s1: torch.Tensor,
+            s2: torch.Tensor, up: bool, packed: Optional[torch.Tensor],
+            osm: Optional[State], dv: Optional[torch.Tensor]):
     from .cuda_build import check, load
 
     Cin, H, W = cost.shape

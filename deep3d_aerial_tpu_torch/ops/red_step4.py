@@ -17,6 +17,12 @@ csrc/red_step4.cu; its convolutions are the K5 template (ops/cf_conv.py).
 takes the plain version only for CPU tensors. It counts one launch per step
 in `red_step4.launches` and adds the step's conv-template launches to
 `cf_conv3x3.launches`.
+
+Where autograd needs a gradient, the step goes through ops/autograd.py's
+KernelFn (the JAX package's custom VJPs around red_step4_fused and
+red_step4_tiled): K4 forward, red_step4_plain's VJP backward, with
+gradients to cost, the four states and every parameter. The K5 launches
+inside the step are covered by it.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .autograd import through_kernel
 from .cf_conv import cf_conv3x3, pack_frags
 from .conv import conv2d_same, conv_transpose2d_same
 
@@ -151,6 +158,14 @@ def red_step4(params: Params, cost: torch.Tensor, s1: torch.Tensor,
     repacking per plane); red_step4_plain on CPU tensors."""
     if not cost.is_cuda:
         return red_step4_plain(params, cost, s1, s2, s3, s4)
+    return through_kernel(
+        lambda p, *xs: _launch(p, *xs, packed=packed), red_step4_plain,
+        (cost, s1, s2, s3, s4), params)
+
+
+def _launch(params: Params, cost: torch.Tensor, s1: torch.Tensor,
+            s2: torch.Tensor, s3: torch.Tensor, s4: torch.Tensor, *,
+            packed: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     from .cuda_build import check, load, tickets
 
     states = (s1, s2, s3, s4)

@@ -21,13 +21,17 @@ A wrapper launches the kernel for CUDA tensors, on their device (made the
 current one for the launch, since the C entries size their grids for the
 current device), and raises if the launch fails; it takes the plain
 version only for CPU tensors. Each wrapper counts
-its launches in `<wrapper>.launches`.
+its launches in `<wrapper>.launches`. Where autograd needs a gradient, the
+launch goes through ops/autograd.py's KernelFn: the kernel forward, the
+plain version's VJP backward (the JAX package's custom VJPs), with
+gradients to ref, srcs, weights and depths (and rels when they need one).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .autograd import through_kernel
 from .warp import bilinear_sample, sweep_coordinates
 
 # planes per step of sweep_corr_plain: bounds its [planes, H, W, C] warps
@@ -104,6 +108,10 @@ def sweep_corr(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
     [V, 4, 4], depths [D, H, W] -> [V, D, H, W], in one launch."""
     if not ref.is_cuda:
         return sweep_corr_plain(ref, srcs, rels, depths)
+    return through_kernel(_launch_corr, sweep_corr_plain, (ref, srcs, rels, depths))
+
+
+def _launch_corr(ref, srcs, rels, depths):
     from .cuda_build import check, load
 
     H, W, C = ref.shape
@@ -134,6 +142,11 @@ def sweep_cost(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
     [V, 4, 4], depths [K, H, W], weights [V, H, W] -> [K, C, H, W]."""
     if not ref.is_cuda:
         return sweep_cost_plain(ref, srcs, rels, depths, weights)
+    return through_kernel(_launch_cost, sweep_cost_plain,
+                          (ref, srcs, rels, depths, weights))
+
+
+def _launch_cost(ref, srcs, rels, depths, weights):
     from .cuda_build import check, load
 
     H, W, C = ref.shape
@@ -169,6 +182,10 @@ def sweep_var(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
     [V, 4, 4], depths [K, H, W] -> [K, C, H, W]."""
     if not ref.is_cuda:
         return sweep_var_plain(ref, srcs, rels, depths)
+    return through_kernel(_launch_var, sweep_var_plain, (ref, srcs, rels, depths))
+
+
+def _launch_var(ref, srcs, rels, depths):
     from .cuda_build import check, load
 
     H, W, C = ref.shape

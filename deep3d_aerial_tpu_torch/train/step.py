@@ -1,0 +1,114 @@
+"""One training step on one device (counterpart of the JAX package's
+parallel/train_step.py `make_train_step`, single device).
+
+The JAX step vmaps the model over the batch's B samples; here the samples
+run one after another, the loss is the mean of their totals and the logs
+are the means of their logs, and one backward pass differentiates that
+mean. The kernels run forward and their plain versions' VJPs backward
+(ops/autograd.py), as the JAX package's custom VJPs do. NaN guard: on a
+non-finite loss every gradient is zeroed and the optimizer update is still
+applied (its moments decay, its count advances), as in the JAX step.
+
+A mesh (dp > 1, depth shards on 'sp') is not ported: multi-GPU training is
+ROADMAP A.10.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .losses import cascade_depth_loss
+from .optim import Optimizer
+
+BATCH_KEYS = ("imgs", "rel_projs", "depth_min", "depth_max", "depth_gt", "mask")
+
+
+def resize_nearest(x: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.image.resize(x, shape, "nearest")` on the last two axes: output
+    index i reads input floor((i + 0.5) * n_in / n_out) (float32), the
+    half-pixel rule, which is not torch's 'nearest' (floor(i * n_in /
+    n_out))."""
+    for axis, n_out in zip((-2, -1), shape):
+        n_in = x.shape[axis]
+        if n_in == n_out:
+            continue
+        off = (torch.arange(n_out, dtype=torch.float32) + 0.5) * n_in / n_out
+        x = x.index_select(axis, torch.floor(off).to(torch.int64).to(x.device))
+    return x
+
+
+def _tensors(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v
+                               ).to(device=device, dtype=torch.float32)
+            for k, v in batch.items()}
+
+
+def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
+                    num_stages: int = 3,
+                    stage_weights: Sequence[float] = (0.5, 1.0, 2.0),
+                    pair_weight: float = 1.0, normal_weight: float = 0.0,
+                    gt_pyramid: bool = False, mesh=None) -> Callable:
+    """Returns step(batch, mark=None) -> logs (a dict of floats), which
+    updates `model`'s parameters in place through `optimizer`.
+
+    batch dict (leading dim B; numpy arrays or tensors):
+      imgs [B, V, H, W, 3], rel_projs [B, S, V-1, 4, 4],
+      depth_min [B], depth_max [B], depth_gt [B, H, W], mask [B, H, W]
+      (+ normal_gt [B, H, W, 3], K_inv [B, 3, 3] when normal_weight > 0)
+    `mark(label)`, when given, is called once the forward ('forward'), the
+    backward ('backward') and the update ('optimizer') have been enqueued.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "data- and depth-parallel training (a mesh, dp > 1) is not ported "
+            "yet: ROADMAP A.10 (multi-GPU)")
+
+    def loss_one(b: Dict[str, torch.Tensor], i: int, with_normals: bool):
+        out = model(b["imgs"][i], b["rel_projs"][i], b["depth_min"][i],
+                    b["depth_max"][i])
+        gt, mask = b["depth_gt"][i], b["mask"][i]
+        if gt_pyramid:
+            # multi-scale GT (/4, /2, x1), nearest as the JAX step resizes
+            gts, masks = [], []
+            for s in range(num_stages):
+                f = 2 ** (num_stages - 1 - s)
+                shp = (gt.shape[0] // f, gt.shape[1] // f)
+                gts.append(resize_nearest(gt, shp))
+                masks.append(resize_nearest(mask, shp))
+        else:
+            gts = [gt] * num_stages
+            masks = [mask] * num_stages
+        return cascade_depth_loss(
+            out, gts, masks, stage_weights=stage_weights,
+            pair_weight=pair_weight,
+            normal_gt=b["normal_gt"][i] if with_normals else None,
+            K_inv=b["K_inv"][i] if with_normals else None,
+            normal_weight=normal_weight if with_normals else 0.0)
+
+    def step(batch: Dict, mark: Optional[Callable[[str], None]] = None) -> Dict:
+        mark = mark or (lambda label: None)
+        device = next(model.parameters()).device
+        with_normals = (normal_weight > 0 and "normal_gt" in batch
+                        and "K_inv" in batch)
+        keys = BATCH_KEYS + (("normal_gt", "K_inv") if with_normals else ())
+        b = _tensors({k: batch[k] for k in keys}, device)
+        B = b["imgs"].shape[0]
+        for p in optimizer.params.values():
+            p.grad = None
+        logs = [loss_one(b, i, with_normals) for i in range(B)]
+        loss = torch.stack([l["total"] for l in logs]).mean()
+        mark("forward")
+        loss.backward()
+        mark("backward")
+        finite = bool(torch.isfinite(loss))
+        grads = {n: (p.grad if finite and p.grad is not None else torch.zeros_like(p))
+                 for n, p in optimizer.params.items()}
+        optimizer.step(grads)
+        mark("optimizer")
+        return {k: float(torch.stack([torch.as_tensor(l[k]).detach() for l in logs]).mean())
+                for k in logs[0]}
+
+    return step

@@ -13,7 +13,9 @@ OIDHW); transposed-conv kernels HWIO -> [in, out, kh, kw] (DHWIO -> [in,
 out, kd, kh, kw]), flipped on every spatial axis, because the JAX
 package's stride-2 'SAME' ConvTranspose does not flip its kernel and
 PyTorch's conv_transpose2d/3d does (ops/conv.py). Any leaf missing, left
-over or of the wrong shape raises.
+over or of the wrong shape raises. `state_dict_to_tree` is the inverse:
+the model's parameters as that flat `.npz` tree, exactly (a permutation
+and a flip of every array, no arithmetic).
 """
 
 from __future__ import annotations
@@ -95,11 +97,52 @@ def tree_to_state_dict(model: nn.Module, tree) -> Dict[str, torch.Tensor]:
             problems.append(f"shape: {fk} {a.shape} vs {tk} "
                             f"{tuple(own[tk].shape)}")
             continue
-        out[tk] = torch.from_numpy(np.ascontiguousarray(a))
+        out[tk] = torch.from_numpy(np.array(a, np.float32, order="C"))
     problems += [f"missing: {k}" for k in own if k not in out]
     if problems:
         raise ValueError("parameter tree does not fit the model:\n  "
                          + "\n  ".join(problems))
+    return out
+
+
+def _tree_key(model: nn.Module, name: str, ndim: int) -> str:
+    """The inverse of torch_key for parameter `name` of `model` (ndim, the
+    parameter's rank, tells a conv kernel from a norm scale):
+    a.convs.3.conv.weight -> `['params']['a']['ConvBlock_3']['Conv_0']['kernel']`."""
+    *path, leaf = name.split(".")
+    parts = []
+    for i, p in enumerate(path):
+        if p.isdigit() and i and path[i - 1] in ("convs", "deconvs"):
+            parts[-1] = ("ConvBlock_" if path[i - 1] == "convs" else "DeconvBlock_") + p
+        elif p == "conv" and i == len(path) - 1:
+            parts.append("ConvTranspose_0" if isinstance(_owner(model, name), _TRANSPOSED)
+                         else "Conv_0")
+        elif p == "norm" and i == len(path) - 1:
+            parts.append("GroupNorm_0")
+        else:
+            parts.append(p)
+    parts.append(("kernel" if ndim >= 2 else "scale") if leaf == "weight" else leaf)
+    return "".join(f"['{p}']" for p in ["params", *parts])
+
+
+def state_dict_to_tree(model: nn.Module) -> Dict[str, np.ndarray]:
+    """`model`'s parameters as the JAX package's flat parameter tree
+    ({keystr path: float32 array}, the layout `export_params_npz` writes
+    and `tree_to_state_dict` reads): conv kernels OIHW -> HWIO (3-D: OIDHW
+    -> DHWIO), transposed-conv kernels [in, out, *taps] unflipped ->
+    [*taps, in, out]."""
+    out = {}
+    for name, p in model.named_parameters():
+        a = p.detach().cpu().float().numpy()
+        if name.endswith("weight") and a.ndim in (4, 5):
+            sp = a.ndim - 2
+            taps = tuple(range(2, 2 + sp))
+            if isinstance(_owner(model, name), _TRANSPOSED):
+                a = a[(slice(None),) * 2 + (slice(None, None, -1),) * sp]
+                a = a.transpose(*taps, 0, 1)
+            else:
+                a = a.transpose(*taps, 1, 0)
+        out[_tree_key(model, name, a.ndim)] = np.ascontiguousarray(a)
     return out
 
 

@@ -30,7 +30,10 @@ def test_importing_every_module_pulls_no_jax():
               "sparse.view_selection", "mesh.reconstruct", "mesh.refine",
               "mesh.clean", "mesh.atlas", "mesh.texture", "mesh.trimesh_io",
               "mesh.openmvs_config", "dsm.rasterize", "io.mvs_interface",
-              "io.geotiff", "utils.native"):
+              "io.geotiff", "utils.native", "ops.autograd", "pipeline.augment",
+              "train", "train.__main__", "train.losses", "train.metrics",
+              "train.optim", "train.step", "train.checkpoint", "train.trainer",
+              "train.dataset_whu", "train.tb_writer"):
         assert f"deep3d_aerial_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -91,6 +94,16 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path, monkeypatch):
         main(["--workspace", str(tmp_path / "ws"), "--config", str(cfg)])
     # asked for explicitly, the CPU is fine
     AerialPipeline(str(tmp_path / "ws"), PipelineConfig(), device="cpu")
+
+    # training: the Trainer and the train CLI
+    from deep3d_aerial_tpu_torch.train.__main__ import main as train_main
+    from deep3d_aerial_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(torch.nn.Linear(1, 1), TrainerConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--data_folder", str(tmp_path / "data")])
+    Trainer(torch.nn.Linear(1, 1), TrainerConfig(), device="cpu")
 
 
 def test_cuda_wrappers_never_take_the_plain_path_for_a_cuda_tensor(monkeypatch):

@@ -579,3 +579,96 @@ def test_photometric_refine_on_the_card_matches_the_cpu(dev, energy, n):
             v = got
     out = refine.photometric_refine(verts, faces, views, cfg, device=dev)
     assert np.isfinite(out).all() and np.abs(out - verts).max() > 1e-3
+
+
+def _grad_inputs(dev, rng, kind):
+    """(Function call, plain call, tensors that take a gradient) of one
+    kernel at a small shape, every input and parameter requiring grad."""
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev, requires_grad=True)
+
+    C, H, W, V, K = 16, 24, 40, 3, 4
+    ref, srcs = t(rng.normal(size=(H, W, C))), t(rng.normal(size=(V, H, W, C)))
+    rels = torch.tensor(_rels(rng, V), device=dev)
+    depths = t(np.sort(rng.uniform(90, 110, size=(K, H, W)), 0))
+    wts = t(rng.uniform(0.1, 1.0, size=(V, H, W)))
+    if kind == "sweep_corr":
+        return (lambda: sw.sweep_corr(ref, srcs, rels, depths),
+                lambda: sw.sweep_corr_plain(ref, srcs, rels, depths), [ref, srcs, depths])
+    if kind == "sweep_cost":
+        return (lambda: sw.sweep_cost(ref, srcs, rels, depths, wts),
+                lambda: sw.sweep_cost_plain(ref, srcs, rels, depths, wts),
+                [ref, srcs, depths, wts])
+    if kind == "sweep_var":
+        return (lambda: sw.sweep_var(ref, srcs, rels, depths),
+                lambda: sw.sweep_var_plain(ref, srcs, rels, depths), [ref, srcs, depths])
+    cost = t(rng.normal(size=(C, H, W)))
+    if kind == "red_step2":
+        mod = init_random_weights(RedStep2(C, up=True), seed=4).to(dev)
+        p = dict(mod.named_parameters())
+        s1, s2 = t(rng.normal(size=(8, H, W))), t(rng.normal(size=(16, H // 2, W // 2)))
+        return (lambda: rs.red_step2(p, cost, s1, s2, up=True, packed=mod._packed_params()),
+                lambda: rs.red_step2_plain(p, cost, s1, s2, up=True),
+                [cost, s1, s2, *p.values()])
+    mod = init_random_weights(RedStep4(C), seed=4).to(dev)
+    p = dict(mod.named_parameters())
+    states = [t(rng.normal(scale=0.5, size=(c, H >> l, W >> l)))
+              for l, c in enumerate(rs4.HIDDEN)]
+    return (lambda: rs4.red_step4(p, cost, *states),
+            lambda: rs4.red_step4_plain(p, cost, *states), [cost, *states, *p.values()])
+
+
+@pytest.mark.parametrize("kind", ["sweep_corr", "sweep_cost", "sweep_var", "red_step2",
+                                  "red_step4"])
+def test_kernel_function_gradients_match_plain_autograd(dev, kind):
+    """The kernel's autograd Function (kernel forward, plain VJP backward)
+    against plain autograd on the card, for every input, depths and
+    parameters included: the same plain code differentiates both, so they
+    agree to the gathers' atomic summation order (1e-5 of the largest
+    entry, as chip_smoke.py's [train:grad])."""
+    rng = np.random.default_rng(len(kind))
+    fn, plain, leaves = _grad_inputs(dev, rng, kind)
+    outs = fn()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert all("KernelFn" in type(o.grad_fn).__name__ for o in outs)
+    proj = [torch.randn_like(o) for o in outs]
+    got = torch.autograd.grad(outs, leaves, proj)
+    ref = plain()
+    want = torch.autograd.grad(ref if isinstance(ref, tuple) else (ref,), leaves, proj)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_adamvs_trains_two_steps_on_the_card(dev):
+    """Two train steps of AdaMVS through the kernels (K1, K2 and K3 each
+    launched a forward's worth a step): finite losses, every parameter
+    moved or with a zero gradient, the packed K3 weights repacked after
+    each update."""
+    from deep3d_aerial_tpu_torch.models import build_model
+    from deep3d_aerial_tpu_torch.train.optim import make_optimizer
+    from deep3d_aerial_tpu_torch.train.step import make_train_step
+
+    rng = np.random.default_rng(2)
+    V, H, W = 3, 64, 96
+    nd = (8, 8, 4)
+    model = init_random_weights(build_model("adamvs", ndepths=nd, num_depth=32,
+                                            plane_chunk=4), seed=2).to(dev)
+    opt = make_optimizer(model.named_parameters(), 1e-3)
+    step = make_train_step(model, opt)
+    rel = np.stack([_rels(rng, V - 1)] * 3)
+    batch = {"imgs": rng.normal(size=(1, V, H, W, 3)).astype(np.float32),
+             "rel_projs": rel[None].astype(np.float32),
+             "depth_min": np.array([90.0], np.float32),
+             "depth_max": np.array([110.0], np.float32),
+             "depth_gt": rng.uniform(92, 108, (1, H, W)).astype(np.float32),
+             "mask": np.ones((1, H, W), np.float32)}
+    counts = (sw.sweep_corr.launches, sw.sweep_cost.launches, rs.red_step2.launches)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    packed = model.red0._packed_params()
+    losses = [step(batch)["total"] for _ in range(2)]
+    assert all(np.isfinite(losses))
+    assert (sw.sweep_corr.launches - counts[0], sw.sweep_cost.launches - counts[1],
+            rs.red_step2.launches - counts[2]) == (2, 2 * sum(d // 4 for d in nd), 2 * sum(nd))
+    moved = [n for n, p in model.named_parameters() if not torch.equal(p, before[n])]
+    assert len(moved) >= len(before) - 3
+    assert not torch.equal(model.red0._packed_params(), packed)
