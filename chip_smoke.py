@@ -10,7 +10,13 @@ kernel path with the plain path end to end, and runs one 1856x2752
 production frame. `[refine]` holds the photometric refine on the card
 against the CPU (on the AdaMVS path's mesh, and on a 183k-vertex plane),
 and `[main:fullres]` runs the default pipeline end to end on the
-1856x2752 survey. Then training: `[train:grad]` holds each kernel's
+1856x2752 survey. `[main:pipelined]` runs that survey in three scene
+blocks sharing views twice, run_dense one map at a time and
+run_dense_pipelined in batches of 2 with `.dmap` and depth previews, and
+holds the two to the same bytes in every product (maps, fused clouds,
+`.mvs` scenes, meshes, DSM); it times the forward alone and beside a
+fusing thread (the GIL's cost), and `[fusion:cli]` runs the standalone
+fusion CLI on its maps to PLY and LAS. Then training: `[train:grad]` holds each kernel's
 autograd Function (kernel forward, plain-VJP backward: ops/autograd.py)
 against plain autograd on the card, `[train:step:<model>]` one train step
 of each model through the kernels against the plain path,
@@ -62,6 +68,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -210,10 +217,14 @@ def render(cam, pose, dev):
     return texture(w[..., 0], w[..., 1]).clamp(0, 1).float(), depth.float()
 
 
-def write_workspace(ws: Path, cam, poses, dev):
+def write_workspace(ws: Path, cam, poses, dev, columns=0):
     """export/ of a survey, written with the port's own text formats:
     cameras, images (depth range from the rendered depths), image paths,
-    view pairs (nearest centres first) and one scene block."""
+    view pairs (nearest centres first) and one scene block; with `columns`
+    (the survey's nx) one block per column instead, each over its column's
+    footprint with that column's views as refs, and the view pairs listed
+    column by column, the order in which a block-by-block survey hands its
+    views over (dense matching takes them in that order)."""
     from PIL import Image
 
     from deep3d_aerial_tpu_torch.io import text_formats as tf
@@ -241,10 +252,17 @@ def write_workspace(ws: Path, cam, poses, dev):
         dist = np.linalg.norm(centers - centers[i], axis=1)
         order = [j for j in np.argsort(dist) if j != i]
         pairs.append((i + 1, [(j + 1, float(1.0 / dist[j])) for j in order]))
+    blocks = [([-200.0, 200.0, -200.0, 200.0, -50.0, 50.0],
+               list(range(1, len(poses) + 1)))]
+    if columns:
+        border = footprint(cam, poses)
+        hx = 0.5 * cam.width / cam.fx * centers[:, 2].mean()
+        col = [list(range(gx, len(poses), columns)) for gx in range(columns)]
+        blocks = [([float(centers[c[0], 0] - hx), float(centers[c[0], 0] + hx)]
+                   + border[2:], [j + 1 for j in c]) for c in col]
+        pairs = [pairs[j] for c in col for j in c]
     tf.write_view_pairs(export / "viewpair.txt", pairs)
-    tf.write_blocks(export / "blocks.txt",
-                    [([-200.0, 200.0, -200.0, 200.0, -50.0, 50.0],
-                      list(range(1, len(poses) + 1)))])
+    tf.write_blocks(export / "blocks.txt", blocks)
     tf.write_border(export / "scene_border.txt", footprint(cam, poses))
 
 
@@ -1614,6 +1632,248 @@ def phase_fullres_pipeline(dev, camF, posesF):
     log_mesh_dsm("fullres", stats, pipe.stage_seconds, cfg.recons_decimate_ratio)
 
 
+def same_files(a: Path, b: Path, sub: str, pattern="*"):
+    """(names, differing): the files matching `pattern` under a/sub and
+    b/sub, which must be the same names; those whose bytes differ."""
+    fa = sorted(p.name for p in (a / sub).glob(pattern) if p.is_file())
+    fb = sorted(p.name for p in (b / sub).glob(pattern) if p.is_file())
+    if fa != fb or not fa:
+        raise AssertionError(f"{sub}/{pattern}: {fa} against {fb}")
+    return fa, [n for n in fa if (a / sub / n).read_bytes() != (b / sub / n).read_bytes()]
+
+
+def forward_seconds(model, s, dev, n):
+    """Host seconds of n forwards of sample `s`, each through a sync."""
+    inputs = (torch.from_numpy(s.imgs).to(dev), torch.from_numpy(s.rel_projs).to(dev),
+              s.depth_min, s.depth_max)
+    took = []
+    with torch.inference_mode():
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(*inputs)
+            torch.cuda.synchronize()
+            took.append(time.perf_counter() - t0)
+    return took
+
+
+# cuDNN's default algorithms for the transposed convolutions (F.conv_transpose2d
+# and 3d: the feature nets, AdaMVS's pair hourglass, CostRegNet3D) sum in an
+# order that varies from run to run on the card: one forward of any model,
+# run three times, gave maps up to 1e-4 m apart, and with the deterministic
+# algorithms (for those convolutions alone, or for all) none; the
+# deterministic ones cost CasMVSNet and UCSNet ~4.5 ms of ~22 a 384x512
+# forward and AdaMVS 34 ms of 251 at 1856x2752 on an H100 80GB HBM3 at
+# 700 W (scripts/cudnn_determinism_probe.py), so the pipeline keeps the
+# default and [main:pipelined], which holds two runs to the same bytes,
+# runs under these
+
+
+def phase_pipelined(dev, camF, posesF, counters, per_map):
+    """[main:pipelined] the 1856x2752 survey in three scene blocks, one per
+    column, that share source views (fusion_num 2), AdaMVS with seeded
+    random weights, every default stage (the graph cut's input capped),
+    normals saved; two runs on copies of one workspace: run_dense one map
+    at a time, and run_dense_pipelined with infer_batch_size 2, `.dmap` and
+    depth previews. The two must write the same bytes: depth, confidence
+    and normal maps, the fused PLYs, `.mvs` scenes, meshes and DSM; so the
+    cell runs under torch.backends.cudnn.deterministic (see above). Each
+    `.dmap` reads back as its PFMs; each preview is at the map's size.
+    Then what the GIL costs a forward: forwards timed alone and while a
+    thread fuses the maps, and `[fusion:cli]`. Returns the pipelined run's
+    kernel launches."""
+    # the main path's fusion thresholds, the position threshold (pixels)
+    # scaled with the focal length from 384x512: random weights give each
+    # map a near-constant depth that misses its neighbours' by up to ~1 m,
+    # which moves a reprojection by ~12 px at f = 3727 (by ~2 px at 384x512),
+    # and at 2 px two of the three blocks fused 0 and 5 points
+    settings = dict(
+        image_w=FULL_W, image_h=FULL_H, image_scale=1.0, view_num=VIEWS,
+        allow_random_weights=True, run_view_selection=False, save_normals=True,
+        fusion_num=2, geo_consist_num=2, photomatric_threshold=0.0,
+        position_threshold=2.0 * FULL_W / W0, depth_threshold=0.05,
+        normal_threshold=180.0)
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _pipelined_runs(dev, camF, posesF, counters, per_map, settings)
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _pipelined_runs(dev, camF, posesF, counters, per_map, settings):
+    import threading
+
+    from deep3d_aerial_tpu_torch.io.dmap import read_dmap
+    from deep3d_aerial_tpu_torch.io.pfm import read_pfm
+    from deep3d_aerial_tpu_torch.pipeline.config import PipelineConfig
+    from deep3d_aerial_tpu_torch.pipeline.orchestrator import AerialPipeline
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_workspace(tmp / "src", camF, posesF, dev, columns=3)
+        runs = {}
+        for tag, kw in (("sequential", {}),
+                        ("pipelined", {"infer_batch_size": 2, "save_dmap": True,
+                                       "display_depth": True})):
+            ws = tmp / tag
+            shutil.copytree(tmp / "src" / "export", ws / "export")
+            pipe = AerialPipeline(str(ws), PipelineConfig(**settings, **kw), device=dev)
+            cap_graphcut_input(pipe)
+            model = runs["sequential"]["model"] if runs else pipe.build_model()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            with GraphCutCount() as graphcut:
+                if tag == "pipelined":
+                    pipe.run_dense_pipelined(model=model)
+                else:
+                    pipe.run_dense(model=model)
+                torch.cuda.synchronize()
+            runs[tag] = {"ws": ws, "pipe": pipe, "model": model,
+                         "wall": time.perf_counter() - t0,
+                         "peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+                         "launches": {c.__name__: c.launches for c in counters},
+                         "graphcut": graphcut, "cfg": pipe.cfg}
+        seq, pip = runs["sequential"], runs["pipelined"]
+        n_maps = len(posesF)
+        for tag, r in runs.items():
+            for name, k in per_map.items():
+                if r["launches"][name] != k * n_maps:
+                    raise AssertionError(f"[main:pipelined] {tag}: {name} launched "
+                                         f"{r['launches'][name]} times, expected {k} x {n_maps}")
+        stats = check_mesh_dsm(pip["ws"], pip["cfg"], pip["graphcut"])
+        if stats["blocks"] != 3:
+            raise AssertionError(f"[main:pipelined] {stats['blocks']} fused blocks, expected 3")
+        compared = {}
+        for sub, pattern in (("dense/MVS", "*.pfm"), ("dense/MVS", "*.txt"),
+                             ("dense/fusion", "*"), ("mesh", "*"), ("dsm", "*"),
+                             ("production/Point_Cloud", "*"), ("production/Mesh", "*"),
+                             ("production/DSM", "*")):
+            names, differ = same_files(seq["ws"], pip["ws"], sub, pattern)
+            if differ:
+                raise AssertionError(f"[main:pipelined] {sub}: {differ} differ between "
+                                     "run_dense and run_dense_pipelined")
+            compared[f"{sub}/{pattern}"] = len(names)
+        mvs = pip["ws"] / "dense" / "MVS"
+        for i in range(1, n_maps + 1):
+            name = f"im_{i:02d}"
+            d = read_dmap(mvs / f"{name}.dmap")
+            depth, conf = read_pfm(mvs / f"{name}_init.pfm")[0], read_pfm(mvs / f"{name}_prob.pfm")[0]
+            normal = read_pfm(mvs / f"{name}_normal.pfm")[0] * 2.0 - 1.0
+            if not (np.array_equal(d.depth, depth) and np.array_equal(d.confidence, conf)
+                    and np.abs(d.normal - normal).max() <= 1e-6):
+                raise AssertionError(f"[main:pipelined] {name}.dmap does not read back as its PFMs")
+            for suffix in ("init", "prob"):
+                png = mvs / "color" / f"{name}_{suffix}.png"
+                if Image.open(png).size != (FULL_W, FULL_H):
+                    raise AssertionError(f"[main:pipelined] {png.name}: {Image.open(png).size}")
+        t = pip["pipe"].timeline
+        log(f"[main:pipelined] {n_maps} maps at {FULL_H}x{FULL_W}, 3 blocks sharing views "
+            f"(fusion_num 2, position_threshold {settings['position_threshold']:.3f} px), "
+            f"fused points {stats['points']}, graph cut on {stats['graphcut_points']}: "
+            f"byte-equal between the runs " + json.dumps(compared)
+            + f"; {n_maps} .dmap read back as their PFMs, {2 * n_maps} previews at "
+            f"{FULL_W}x{FULL_H}")
+        for tag, r in runs.items():
+            pipe = r["pipe"]
+            log(f"[main:pipelined] {tag}: wall {r['wall']:.2f} s, stages "
+                + json.dumps({k: round(v, 3) for k, v in pipe.stage_seconds.items()})
+                + f"; forwards through the copy {sum(pipe.map_seconds):.3f} s of dense "
+                f"matching (the rest: waits for the loader and file writes)"
+                + f"; per batch {json.dumps([round(x, 3) for x in pipe.map_seconds])} s "
+                f"({json.dumps(pipe.map_batches)}); peak device memory {r['peak']:.2f} GiB; "
+                f"launches {json.dumps(r['launches'])}")
+        log(f"[main:pipelined] timeline (s from the start) " + json.dumps(
+            {k: round(v, 3) for k, v in t.items()}) + f": the worker began block 0 at "
+            f"{t['first_block']:.3f} s, the last map was written at {t['last_map']:.3f} s: "
+            f"{max(0.0, t['last_map'] - t['first_block']):.3f} s of fusion overlapped dense "
+            f"matching; wall {pip['wall']:.2f} s against run_dense's {seq['wall']:.2f} s "
+            f"({pip['wall'] / seq['wall']:.3f})")
+
+        # the GIL: the forward alone, then while a thread fuses run_dense's
+        # maps into a scratch directory
+        model = seq["model"]
+        probe = AerialPipeline(str(seq["ws"]), seq["cfg"], device=dev)
+        probe.fusion_path = str(tmp / "gil")
+        Path(probe.fusion_path).mkdir()
+        s = probe.eval_dataset().build(0)
+        forward_seconds(model, s, dev, 2)
+        alone = forward_seconds(model, s, dev, 8)
+        stop, fused = threading.Event(), [0]
+
+        def fuse():  # one block at a time, so that the join waits less
+            with torch.no_grad():
+                while not stop.is_set():
+                    probe.fuse_depth_map(block_indices=[fused[0] % 3])
+                    fused[0] += 1
+
+        worker = threading.Thread(target=fuse)
+        worker.start()
+        try:
+            time.sleep(1.0)
+            busy = forward_seconds(model, s, dev, 8)
+        finally:
+            stop.set()
+            worker.join()
+        a, b = float(np.median(alone)), float(np.median(busy))
+        log(f"[main:pipelined] GIL: forward at {FULL_H}x{FULL_W} (host clock through a "
+            f"sync, median of 8) {a * 1e3:.1f} ms alone, {b * 1e3:.1f} ms while a thread "
+            f"fuses the maps, block by block ({b / a:.3f}x; {fused[0]} blocks fused; alone {json.dumps([round(x * 1e3, 1) for x in alone])}, "
+            f"beside fusion {json.dumps([round(x * 1e3, 1) for x in busy])} ms)")
+        t0 = time.perf_counter()
+        phase_fusion_cli(pip["ws"], settings)
+        log(f"[phase] fusion:cli {time.perf_counter() - t0:.1f} s")
+    return pip["launches"]
+
+
+def phase_fusion_cli(ws: Path, settings):
+    """[fusion:cli] python -m deep3d_aerial_tpu_torch.fusion, in-process, on
+    a workspace's dense/MVS, with --pc_format las and ply (on the card, its
+    default): the same point counts per block, the LAS within its 0.001 m
+    storage step of the PLY (half a step, plus float32's resolution of the
+    PLY's coordinates), the same borders, also as the pipeline's."""
+    from deep3d_aerial_tpu_torch.fusion.__main__ import main as fusion_main
+    from deep3d_aerial_tpu_torch.io.las import read_las
+    from deep3d_aerial_tpu_torch.io.ply import read_ply
+
+    args = ["--project_folder", str(ws / "export"), "--mvs_path", str(ws / "dense" / "MVS"),
+            "--fusion_num", str(settings["fusion_num"]),
+            "--min_geo_consist_num", str(settings["geo_consist_num"]),
+            "--photomatric_threshold", str(settings["photomatric_threshold"]),
+            "--position_threshold", str(settings["position_threshold"]),
+            "--depth_threshold", str(settings["depth_threshold"]),
+            "--normal_threshold", str(settings["normal_threshold"])]
+    secs = {}
+    for fmt in ("ply", "las"):
+        t0 = time.perf_counter()
+        fusion_main(args + ["--output_path", str(ws / f"cli_{fmt}"), "--pc_format", fmt])
+        torch.cuda.synchronize()
+        secs[fmt] = time.perf_counter() - t0
+    counts, worst = [], 0.0
+    for ply in sorted((ws / "cli_ply").glob("scene_*.ply")):
+        p = read_ply(ply)[0]
+        las, colors, header = read_las(ws / "cli_las" / ply.with_suffix(".las").name)
+        err = np.abs(las - p) - (0.0005 + 1e-6 * np.abs(p))
+        if len(las) != len(p) or (len(p) and err.max() > 0) or colors is None:
+            raise AssertionError(f"[fusion:cli] {ply.stem}: LAS {len(las)} points, PLY "
+                                 f"{len(p)}, worst excess {err.max() if len(p) else 0}")
+        worst = max(worst, float(np.abs(las - p).max()) if len(p) else 0.0)
+        for border in (ws / "cli_las" / f"{ply.stem}.txt",
+                       ws / "dense" / "fusion" / f"{ply.stem}.txt"):
+            if border.read_bytes() != ply.with_suffix(".txt").read_bytes():
+                raise AssertionError(f"[fusion:cli] {border} differs from {ply.stem}.txt")
+        counts.append(len(p))
+    if len(counts) != 3 or sum(counts) == 0:
+        raise AssertionError(f"[fusion:cli] blocks fused: {counts}")
+    log(f"[fusion:cli] {len(counts)} blocks, points {counts} in PLY and LAS alike (LAS "
+        f"within {worst:.2e} m of the PLY), borders equal; ply {secs['ply']:.2f} s, "
+        f"las {secs['las']:.2f} s (host clock, views loaded included)")
+
+
 def phase_end_to_end(dev, cam0, poses0):
     """One sample through the forward with the kernels and with their plain
     versions (same weights)."""
@@ -2515,6 +2775,12 @@ def main() -> int:
     t = time.perf_counter()
     phase_fullres_pipeline(dev, camF, posesF)
     log(f"[phase] main:fullres {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    pipelined_launches = phase_pipelined(
+        dev, camF, posesF, (sweep_corr, sweep_cost, red_step2),
+        {"sweep_corr": 1, "sweep_cost": sum(d // CHUNK for d in NDEPTHS),
+         "red_step2": sum(NDEPTHS)})
+    log(f"[phase] main:pipelined {time.perf_counter() - t:.1f} s")
 
     # MSREDNet: K2v, K4, K5
     t = time.perf_counter()
@@ -2617,6 +2883,9 @@ def main() -> int:
         if name == "sweep_var":  # every main path it runs on, in its own run
             kernels[-1]["launches_by_path"] = {"msrednet": launches[name],
                                                **volume_launches}
+        elif name in pipelined_launches:  # and AdaMVS's pipelined full-res run
+            kernels[-1]["launches_by_path"] = {"adamvs": launches[name],
+                                               "pipelined": pipelined_launches[name]}
     kernels.append({
         "name": "cf_conv3x3", "route": "cuda",
         "source": "deep3d_aerial_tpu_torch/csrc/red_step4.cu",

@@ -1,5 +1,6 @@
 """CLI: python -m deep3d_aerial_tpu_torch.pipeline --workspace WS --config cfg.yaml
-[--data_folder IMAGES] [--device cuda|cpu]
+[--data_folder IMAGES] [--pipelined] [--device cuda|cpu]
+(`python -m deep3d_aerial_tpu_torch` is the same CLI)
 
 Runs the config's stages: view selection from the COLMAP model in
 WS/sparse, dense matching, fusion (PLY + OpenMVS .mvs), the mesh and the
@@ -7,7 +8,9 @@ DSM, then copies the products into WS/production (Point_Cloud, Mesh, DSM).
 `--data_folder` is the image root that builds
 export/image_path.txt when it is absent. `--device` defaults to cuda and
 raises when there is no CUDA device; `--device cpu` runs the plain PyTorch
-path on the CPU.
+path on the CPU. `--pipelined` fuses and meshes each scene block on a
+host thread while dense matching runs (AerialPipeline.run_dense_pipelined),
+with the same products as the sequential run.
 """
 
 import argparse
@@ -22,13 +25,19 @@ def main(argv=None):
     ap.add_argument("--config", required=True, help="pipeline YAML config")
     ap.add_argument("--data_folder", default=None,
                     help="image root (builds export/image_path.txt if absent)")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="overlap host fusion with device inference")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' for the plain path)")
     args = ap.parse_args(argv)
 
     cfg = PipelineConfig.from_yaml(args.config)
-    AerialPipeline(args.workspace_folder, cfg, device=args.device,
-                   data_folder=args.data_folder).run_dense()
+    pipe = AerialPipeline(args.workspace_folder, cfg, device=args.device,
+                          data_folder=args.data_folder)
+    if args.pipelined:
+        pipe.run_dense_pipelined()
+    else:
+        pipe.run_dense()
 
 
 if __name__ == "__main__":

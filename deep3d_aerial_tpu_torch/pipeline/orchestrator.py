@@ -13,13 +13,17 @@ deep3d_aerial_tpu/pipeline/orchestrator.py), with the same file artifacts:
     production/           copied final products
 
 Ported: view selection from a COLMAP model, dense matching with AdaMVS,
-CasMVSNet, UCSNet or MSREDNet, depth fusion with the OpenMVS `.mvs`
-handoff, the mesh stage (graph-cut surface from the `.mvs` scene through
-the native core, Taubin refine, the photometric refine in PyTorch autograd
-on the pipeline's device when switched on, the UV atlas texture) and the
-DSM. The `.dmap` output, the pipelined run, batched inference and depth
-previews are not: switching one on raises NotImplementedError naming its
-ROADMAP item.
+CasMVSNet, UCSNet or MSREDNet (batched with `infer_batch_size`, with the
+`.dmap` container and colour previews when switched on, and the
+multi-host arguments `view_filter`, `view_order`, `on_view_done`), depth
+fusion with the OpenMVS `.mvs` handoff, the mesh stage (graph-cut surface
+from the `.mvs` scene through the native core, Taubin refine, the
+photometric refine in PyTorch autograd on the pipeline's device when
+switched on, the UV atlas texture), the DSM, and the pipelined run
+(`run_dense_pipelined`: fusion and mesh on a host thread while dense
+matching runs). `compute_dtype: bfloat16` and `warp_precision:
+compensated` are not: each raises NotImplementedError naming its ROADMAP
+item.
 
 The pipeline runs on a CUDA device unless the caller asks for the CPU
 (`device="cpu"`); with no CUDA device and no such request it raises.
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import os
 import shutil
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
@@ -40,11 +45,13 @@ from ..dsm import DSMConfig, DSMFromMesh, DSMFromPointCloud
 from ..fusion import DepthFusion, FusionConfig, ViewGeometry
 from ..fusion.fuse import ViewData
 from ..io import text_formats as tf
+from ..io.dmap import DepthDataRaw, write_dmap
 from ..io.geotiff import write_geotiff, write_tfw
 from ..io.pfm import read_pfm, write_pfm
 from ..io.ply import read_ply, write_ply
 from ..sparse import view_selection
 from ..sparse.export import export_predef
+from .colormaps import save_png
 from .config import PipelineConfig
 from .dataset import EvalDataset
 
@@ -54,7 +61,7 @@ def _join(*parts):
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP A: "
+        f"{what} is not ported to the PyTorch package yet (ROADMAP "
         f"{item}); switch it off in the config or run deep3d_aerial_tpu")
 
 
@@ -66,17 +73,10 @@ def _check_dense_config(cfg: PipelineConfig) -> None:
 
     check_model_type(cfg.model_type)
     if cfg.compute_dtype != "float32":
-        raise _not_ported(f"compute_dtype {cfg.compute_dtype!r}", "bf16")
+        raise _not_ported(f"compute_dtype {cfg.compute_dtype!r}", "A.7, bf16")
     if cfg.warp_precision != "float32":
         raise _not_ported(f"warp_precision {cfg.warp_precision!r}",
-                          "compensated warp")
-    if cfg.save_dmap:
-        raise _not_ported("save_dmap", ".dmap/normals/run_dense_pipelined")
-    if cfg.infer_batch_size != 1:
-        raise _not_ported(f"infer_batch_size {cfg.infer_batch_size}",
-                          "batched inference")
-    if cfg.display_depth:
-        raise _not_ported("display_depth", "depth previews")
+                          "A.6, compensated warp")
     for key in ("warp_impl", "red_impl"):
         if getattr(cfg, key) != "pallas":
             raise ValueError(
@@ -123,11 +123,16 @@ class AerialPipeline:
         self.ws = workspace
         self.cfg = config
         self.data_folder = data_folder
-        # seconds per depth map of the last dense_match, host clock around
-        # a forward that ends in a device->host copy
+        # seconds per batch of infer_batch_size maps (one map when 1) of the
+        # last dense_match, host clock around the forwards through the
+        # device->host copy; map_batches names the maps of each entry
         self.map_seconds: List[float] = []
-        # host seconds of each stage of the last run_dense, by label
+        self.map_batches: List[List[str]] = []
+        # host seconds of each stage of the last run_dense or
+        # run_dense_pipelined, by label; timeline: run_dense_pipelined's
+        # events in seconds from its start
         self.stage_seconds: Dict[str, float] = {}
+        self.timeline: Dict[str, float] = {}
 
         self.sparse_path = _join(workspace, "sparse")
         self.export_path = _join(workspace, "export")
@@ -223,9 +228,41 @@ class AerialPipeline:
                 "capability/shape testing.")
         return model.to(self.device).eval()
 
-    def dense_match(self, model=None) -> None:
+    def eval_dataset(self, view_filter=None, view_order=None) -> EvalDataset:
+        """The reference views dense_match infers, in its order: those of
+        export/ (viewpair.txt), kept if `view_filter` holds their id, sorted
+        by rank in `view_order` (ids it does not name last, in their order)."""
+        cfg = self.cfg
+        ds = EvalDataset(
+            self.export_path,
+            view_num=cfg.view_num,
+            num_depth=cfg.num_depth,
+            resize_scale=cfg.image_scale,
+            max_h=cfg.max_h, max_w=cfg.max_w,
+        )
+        if view_filter is not None:
+            ds.samples = [s for s in ds.samples if s[0] in view_filter]
+        if view_order is not None:
+            rank = {v: i for i, v in enumerate(view_order)}
+            ds.samples.sort(key=lambda s: rank.get(s[0], 1 << 30))
+        return ds
+
+    def dense_match(self, model=None, view_filter=None, on_view_done=None,
+                    view_order=None) -> None:
         """Infer and write one depth map per reference view. `model`
-        defaults to build_model()."""
+        defaults to build_model(). `view_filter`: optional set of ref image
+        ids to process (multi-host ownership). `on_view_done(ref_id)`:
+        called once every file of that view is written. `view_order`:
+        optional ref-id order (see eval_dataset).
+
+        `infer_batch_size` B > 1 runs the B forwards of a batch back to
+        back on the device, then the batch's normals, then one
+        device->host copy, and writes the files in sample order: the same
+        kernels on the same inputs as B = 1, so the same files (on the card
+        under torch.backends.cudnn.deterministic: cuDNN's default
+        algorithms for the transposed convolutions sum in an order that
+        varies from run to run). The last batch is not padded (the JAX
+        package pads it for its compiled shape and discards the copies)."""
         cfg = self.cfg
         _check_dense_config(cfg)
         if self.device.type == "cuda":
@@ -234,56 +271,111 @@ class AerialPipeline:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
             print("[mvs] compute_dtype float32: TF32 off for cuDNN and matmul")
-        ds = EvalDataset(
-            self.export_path,
-            view_num=cfg.view_num,
-            num_depth=cfg.num_depth,
-            resize_scale=cfg.image_scale,
-            max_h=cfg.max_h, max_w=cfg.max_w,
-        )
+        ds = self.eval_dataset(view_filter, view_order)
+        # host seconds of each batch (a forward per map through one
+        # device->host copy), and the names of the maps in it
         self.map_seconds = []
+        self.map_batches = []
         if len(ds) == 0:
             return
         if model is None:
             model = self.build_model()
+        B = max(1, int(cfg.infer_batch_size))
+        with ThreadPoolExecutor(max_workers=2) as loader:
+            futures = {i: loader.submit(ds.build, i)
+                       for i in range(min(2 * B, len(ds)))}
+            for start in range(0, len(ds), B):
+                samples = []
+                for i in range(start, min(start + B, len(ds))):
+                    samples.append(futures.pop(i).result())
+                    if i + 2 * B < len(ds):
+                        futures[i + 2 * B] = loader.submit(ds.build, i + 2 * B)
+                t0 = time.perf_counter()
+                depth, conf, normals, n_bad = self._infer_batch(model, samples)
+                took = time.perf_counter() - t0
+                names = [s.ref_name for s in samples]
+                self.map_seconds.append(took)
+                self.map_batches.append(names)
+                for k, s in enumerate(samples):
+                    if n_bad[k]:
+                        print(f"[mvs] WARNING: {n_bad[k]} non-finite depth px "
+                              f"in {s.ref_name}; zeroed")
+                    self._write_view(s, depth[k], conf[k],
+                                     None if normals is None else normals[k])
+                    if on_view_done is not None:
+                        on_view_done(s.ref_id)
+                print(f"[mvs] {names}: {took:.3f}s")
+
+    def _infer_batch(self, model, samples):
+        """The forwards of `samples`, back to back on the device, each map
+        cleaned by zero_non_finite, the normals when switched on, and one
+        device->host copy: (depth [B, H, W], conf [B, H, W], normals
+        [B, H, W, 3] or None, non-finite depth pixels zeroed per map)."""
         from ..ops.normals import normals_from_depth
 
         dev = self.device
-        with ThreadPoolExecutor(max_workers=2) as loader:
-            futures = {i: loader.submit(ds.build, i)
-                       for i in range(min(2, len(ds)))}
-            for i in range(len(ds)):
-                s = futures.pop(i).result()
-                if i + 2 < len(ds):
-                    futures[i + 2] = loader.submit(ds.build, i + 2)
-                t0 = time.perf_counter()
-                with torch.inference_mode():
-                    out = model(torch.from_numpy(s.imgs).to(dev),
-                                torch.from_numpy(s.rel_projs).to(dev),
-                                s.depth_min, s.depth_max)
-                    depth_t, conf_t, n_bad = zero_non_finite(
-                        out["depth"], out["photometric_confidence"])
-                    normals = None
-                    if cfg.save_normals:
-                        K_inv = torch.from_numpy(np.linalg.inv(
-                            s.ref_cam.K).astype(np.float32)).to(dev)
-                        normals = normals_from_depth(depth_t, K_inv).cpu().numpy()
-                    depth = depth_t.cpu().numpy().astype(np.float32)
-                    conf = conf_t.cpu().numpy().astype(np.float32)
-                took = time.perf_counter() - t0
-                self.map_seconds.append(took)
-                if n_bad:
-                    print(f"[mvs] WARNING: {n_bad} non-finite depth px in "
-                          f"{s.ref_name}; zeroed")
-                write_pfm(_join(self.mvs_path, f"{s.ref_name}_init.pfm"), depth)
-                write_pfm(_join(self.mvs_path, f"{s.ref_name}_prob.pfm"), conf)
-                if normals is not None:
-                    # stored in [0, 1]; fusion reads *2 - 1
-                    write_pfm(_join(self.mvs_path, f"{s.ref_name}_normal.pfm"),
-                              (normals + 1.0) * 0.5)
-                tf.write_mvs_cam(_join(self.mvs_path, f"{s.ref_name}.txt"),
-                                 s.ref_cam)
-                print(f"[mvs] {s.ref_name}: {took:.3f}s")
+        with torch.inference_mode():
+            outs = [model(torch.from_numpy(s.imgs).to(dev),
+                          torch.from_numpy(s.rel_projs).to(dev),
+                          s.depth_min, s.depth_max) for s in samples]
+            parts, n_bad = [], []
+            for s, out in zip(samples, outs):
+                d, c, bad = zero_non_finite(out["depth"],
+                                            out["photometric_confidence"])
+                n_bad.append(bad)
+                part = [d[..., None], c[..., None]]
+                if self.cfg.save_normals:
+                    K_inv = torch.from_numpy(np.linalg.inv(
+                        s.ref_cam.K).astype(np.float32)).to(dev)
+                    part.append(normals_from_depth(d, K_inv))
+                parts.append(torch.cat(part, -1))
+            host = torch.stack(parts).cpu().numpy()
+        normals = host[..., 2:] if self.cfg.save_normals else None
+        return host[..., 0], host[..., 1], normals, n_bad
+
+    def _write_view(self, s, depth, conf, normals) -> None:
+        """A view's files, in the JAX package's order: _init.pfm,
+        _prob.pfm, [_normal.pfm], <name>.txt, [.dmap], [colour previews]."""
+        cfg = self.cfg
+        depth = np.ascontiguousarray(depth, np.float32)
+        conf = np.ascontiguousarray(conf, np.float32)
+        write_pfm(_join(self.mvs_path, f"{s.ref_name}_init.pfm"), depth)
+        write_pfm(_join(self.mvs_path, f"{s.ref_name}_prob.pfm"), conf)
+        if normals is not None:
+            normals = np.ascontiguousarray(normals, np.float32)
+            # stored in [0, 1]; fusion reads *2 - 1
+            write_pfm(_join(self.mvs_path, f"{s.ref_name}_normal.pfm"),
+                      (normals + 1.0) * 0.5)
+        tf.write_mvs_cam(_join(self.mvs_path, f"{s.ref_name}.txt"), s.ref_cam)
+        if cfg.save_dmap:
+            # the OpenMVS raw container for DensifyPointCloud interop, with
+            # the raw normals in [-1, 1] when they are saved
+            cam = s.ref_cam
+            R = cam.T_cw[:3, :3]
+            C = -R.T @ cam.T_cw[:3, 3]
+            write_dmap(_join(self.mvs_path, f"{s.ref_name}.dmap"), DepthDataRaw(
+                image_file_name=s.ref_image_path,
+                neighbor_ids=list(s.src_ids),
+                image_size=(cam.height, cam.width),
+                K=cam.K, R=R, C=C,
+                d_min=float(s.depth_min), d_max=float(s.depth_max),
+                depth=depth, normal=normals, confidence=conf))
+        if cfg.display_depth:
+            self._save_depth_preview(s.ref_name, depth, conf)
+
+    def _save_depth_preview(self, name: str, depth: np.ndarray,
+                            conf: np.ndarray) -> None:
+        """Colour previews of depth (viridis, of -depth, non-finite pixels
+        at the finite minimum) and confidence (magma, clipped to [0, 1]) in
+        dense/MVS/color/, each scaled by its own range: the pixels of the
+        JAX package's plt.imsave, written with PIL (pipeline/colormaps.py)."""
+        color_dir = _join(self.mvs_path, "color")
+        os.makedirs(color_dir, exist_ok=True)
+        d = depth.copy()
+        d[~np.isfinite(d)] = np.nanmin(d[np.isfinite(d)]) if np.isfinite(d).any() else 0
+        save_png(_join(color_dir, f"{name}_init.png"), -d, "viridis")
+        save_png(_join(color_dir, f"{name}_prob.png"),
+                 np.nan_to_num(conf).clip(0, 1), "magma")
 
     # ---------------- stage 3: fusion ---------------------------------
     def fusion_session(self) -> "FusionSession":
@@ -519,6 +611,134 @@ class AerialPipeline:
                 if fname.endswith((".ply", ".tif", ".tfw")):
                     shutil.copy2(_join(src, fname), _join(dst, fname))
 
+    # ---------------- pipelined run -----------------------------------
+    def run_dense_pipelined(self, model=None) -> None:
+        """Dense matching on this thread while a host worker fuses each
+        scene block, in index order, as soon as its views are written, then
+        meshes; then the DSM and the products, as run_dense.
+
+        One fusion session serves every block, so the consumption state
+        that keeps overlapping blocks from emitting a point twice spans
+        them as in run_dense, and the products are run_dense's byte for
+        byte. (The JAX package's worker fuses each block in a session of its
+        own and duplicates points where blocks share views.) A view is
+        final once dense_match has called on_view_done for it, i.e. after
+        every file of it is written, or when dense_match is not to write it;
+        the worker waits for a block's views (FusionSession.block_ready),
+        writes a block's .mvs once the views it lists are final, and meshes
+        once dense matching has ended (the texture takes every view). An
+        exception of either thread fails the run.
+
+        Sets stage_seconds (dense matching, depth fusion: the worker's time
+        fusing blocks and writing their files, mesh, dsm, wall) and
+        timeline: seconds from the start to the first block's fusion
+        (first_block), to the last map written (last_map), to the end of
+        dense matching (dense_done), of fusion (fusion_done) and of the
+        worker (worker_done)."""
+        cfg = self.cfg
+        t_start = time.perf_counter()
+        self.stage_seconds = {}
+        timeline = self.timeline = {}
+
+        def mark(key):
+            timeline[key] = time.perf_counter() - t_start
+
+        if cfg.run_view_selection:
+            self.select_view()
+            self.stage_seconds["view selection"] = time.perf_counter() - t_start
+        _, names = tf.read_image_paths(_join(self.export_path, "image_path.txt"))
+        name_of = {i: os.path.splitext(n)[0] for i, n in names.items()}
+        pending = set()
+        if cfg.run_mvs:
+            _check_dense_config(cfg)
+            pending = {name_of.get(r) for r, _ in self.eval_dataset().samples}
+        done = set()
+        dense_done = threading.Event()
+        abort = threading.Event()
+        changed = threading.Event()
+        errors: List[BaseException] = []
+
+        def ready(name):
+            return dense_done.is_set() or name not in pending or name in done
+
+        def on_view_done(ref_id):
+            done.add(name_of.get(ref_id))
+            mark("last_map")
+            changed.set()
+            if errors:  # the worker failed: stop dense matching too
+                raise errors[0]
+
+        def wait_until(cond):
+            """Until cond() holds (True) or the run aborts (False)."""
+            while not abort.is_set():
+                changed.clear()
+                if cond():
+                    return True
+                changed.wait()
+            return False
+
+        def host_worker():
+            try:
+                fusing = 0.0
+                if cfg.run_depth_fusion:
+                    # grad mode is per thread: fusion takes no gradients
+                    with torch.no_grad():
+                        session = FusionSession(self, ready=ready)
+                        for bi in range(len(session.blocks)):
+                            if not wait_until(lambda: session.block_ready(bi)):
+                                return
+                            t0 = time.perf_counter()
+                            timeline.setdefault("first_block", t0 - t_start)
+                            session.fuse_block_index(bi)
+                            fusing += time.perf_counter() - t0
+                        if not wait_until(dense_done.is_set):
+                            return
+                        t0 = time.perf_counter()
+                        session.write_scenes()
+                        fusing += time.perf_counter() - t0
+                    self.stage_seconds["depth fusion"] = fusing
+                    mark("fusion_done")
+                if cfg.run_create_mesh:
+                    if not wait_until(dense_done.is_set):
+                        return
+                    t0 = time.perf_counter()
+                    self.create_mesh()
+                    self.stage_seconds["mesh"] = time.perf_counter() - t0
+                mark("worker_done")
+            except BaseException as e:  # surfaces in the caller's thread
+                errors.append(e)
+                changed.set()
+
+        worker = threading.Thread(target=host_worker, name="fusion-worker")
+        worker.start()
+        try:
+            t0 = time.perf_counter()
+            if cfg.run_mvs:
+                self.dense_match(model=model, on_view_done=on_view_done)
+                self.stage_seconds["dense matching"] = time.perf_counter() - t0
+            mark("dense_done")
+            dense_done.set()
+        except BaseException as e:
+            abort.set()
+            changed.set()
+            worker.join()
+            if errors and errors[0] is not e:
+                e.add_note(f"the fusion worker failed too: {errors[0]!r}")
+            raise
+        changed.set()
+        worker.join()
+        if errors:
+            raise errors[0]
+        if cfg.run_create_dsm:
+            t0 = time.perf_counter()
+            self.create_dsm()
+            self.stage_seconds["dsm"] = time.perf_counter() - t0
+        self.move_production()
+        self.stage_seconds["wall"] = time.perf_counter() - t_start
+        print("[pipeline] pipelined: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in self.stage_seconds.items())
+            + "; timeline " + ", ".join(f"{k} {v:.2f} s" for k, v in timeline.items()))
+
     # ---------------- full run ----------------------------------------
     def run_dense(self, model=None) -> None:
         """Every switched-on stage in order; `model` as for dense_match."""
@@ -546,9 +766,18 @@ class AerialPipeline:
 class FusionSession:
     """Stateful fusion over scene blocks with lazy view loading: views are
     read from disk on first use and shared across fuse_block calls, so the
-    consumption-mask dedup persists across blocks."""
+    consumption-mask dedup persists across blocks.
 
-    def __init__(self, pipe: AerialPipeline):
+    `ready(name)`, when given, says whether a view's files are final (the
+    pipelined run: a view dense matching has still to write is not). A view
+    that is not is treated as absent and probed again later; so is one
+    found absent at an earlier block (its map may have landed since), where
+    the JAX session remembers it as missing for good. Each block's `.mvs`
+    lists the views that the blocks fused so far probe, as a session over
+    maps that are all on disk loads them; it is written once all of those
+    are final (`write_scenes`)."""
+
+    def __init__(self, pipe: AerialPipeline, ready=None):
         cfg = pipe.cfg
         self.pipe = pipe
         self.fusion = DepthFusion(FusionConfig(
@@ -568,11 +797,14 @@ class FusionSession:
         self.pair_of = {ref: [s for s, _ in plist] for ref, plist in pairs}
         self.views: Dict[str, ViewData] = {}
         self._missing: set = set()
+        self._ready = ready if ready is not None else (lambda name: True)
+        self._probed: set = set()  # names the blocks fused so far probe
+        self._scenes: Dict[int, tuple] = {}  # block -> (.mvs views, fused)
 
     def _get_view(self, name: str) -> Optional[ViewData]:
         if name in self.views:
             return self.views[name]
-        if name in self._missing:
+        if name in self._missing or not self._ready(name):
             return None
         pipe = self.pipe
         dpath = _join(pipe.mvs_path, f"{name}_init.pfm")
@@ -601,21 +833,50 @@ class FusionSession:
         )
         return self.views[name]
 
-    def fuse_block_index(self, bi: int) -> Optional[str]:
-        """Fuse one scene block -> fused PLY path (None if it has no
-        available ref views)."""
-        pipe = self.pipe
-        bbx, refs = self.blocks[bi]
-        view_list = []
-        for r in refs:
-            if r not in self.name_of or r not in self.pair_of:
-                continue
-            rname = self.name_of[r]
+    def _refs(self, bi: int):
+        """(id, name) of block `bi`'s reference views that have view pairs."""
+        return [(r, self.name_of[r]) for r in self.blocks[bi][1]
+                if r in self.name_of and r in self.pair_of]
+
+    def _src_names(self, r: int):
+        return [self.name_of[s] for s in self.pair_of[r] if s in self.name_of]
+
+    def block_ready(self, bi: int) -> bool:
+        """Whether fusing block `bi` now gives what it gives once every map
+        is written: each ref is final and, for a ref with a map, so is each
+        source up to the fusion_num-th distinct one with a map (fusion takes
+        the first fusion_num sources that have one, in view-pair order)."""
+        self._missing.clear()
+        for r, rname in self._refs(bi):
+            if not self._ready(rname):
+                return False
             if self._get_view(rname) is None:
                 continue
-            srcs = [self.name_of[s] for s in self.pair_of[r]
-                    if s in self.name_of and self._get_view(self.name_of[s])]
-            view_list.append((rname, srcs))
+            found = set()
+            for sname in self._src_names(r):
+                if len(found) == self.fusion.cfg.fusion_num:
+                    break
+                if not self._ready(sname):
+                    return False
+                if sname != rname and self._get_view(sname) is not None:
+                    found.add(sname)
+        return True
+
+    def fuse_block_index(self, bi: int) -> Optional[str]:
+        """Fuse one scene block -> fused PLY path (None if it has no
+        available ref views). Writes scene_<bi>.ply and .txt, and the
+        block's .mvs once its views are final (write_scenes)."""
+        pipe = self.pipe
+        bbx, _ = self.blocks[bi]
+        self._missing.clear()
+        view_list = []
+        for r, rname in self._refs(bi):
+            self._probed.add(rname)
+            if self._get_view(rname) is None:
+                continue
+            names = self._src_names(r)
+            self._probed.update(names)
+            view_list.append((rname, [s for s in names if self._get_view(s)]))
         if not view_list:
             return None
         fused = self.fusion.fuse_block(self.views, view_list, scene_range=bbx)
@@ -623,7 +884,22 @@ class FusionSession:
         out_ply = _join(pipe.fusion_path, f"{scene}.ply")
         write_ply(out_ply, fused.xyz, fused.normals, fused.colors)
         tf.write_border(_join(pipe.fusion_path, f"{scene}.txt"), bbx)
-        pipe._write_mvs_scene(
-            _join(pipe.fusion_path, f"{scene}.mvs"), self.views, fused)
+        self._scenes[bi] = (set(self._probed), fused)
+        self.write_scenes()
         print(f"[fusion] {scene}: {fused.xyz.shape[0]} points")
         return out_ply
+
+    def write_scenes(self) -> List[int]:
+        """Write the `.mvs` of each fused block whose views are all final;
+        returns the blocks written."""
+        written = []
+        for bi in sorted(self._scenes):
+            names, fused = self._scenes[bi]
+            if not all(self._ready(n) for n in names):
+                continue
+            views = {n: v for n in names if (v := self._get_view(n)) is not None}
+            self.pipe._write_mvs_scene(
+                _join(self.pipe.fusion_path, f"scene_{bi}.mvs"), views, fused)
+            del self._scenes[bi]
+            written.append(bi)
+        return written

@@ -33,7 +33,9 @@ def test_importing_every_module_pulls_no_jax():
               "io.geotiff", "utils.native", "ops.autograd", "pipeline.augment",
               "train", "train.__main__", "train.losses", "train.metrics",
               "train.optim", "train.step", "train.checkpoint", "train.trainer",
-              "train.dataset_whu", "train.tb_writer"):
+              "train.dataset_whu", "train.tb_writer", "__main__", "io.dmap",
+              "io.las", "io.tiles", "fusion.__main__", "fusion.evaluate",
+              "utils.logging", "pipeline.colormaps"):
         assert f"deep3d_aerial_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -92,6 +94,20 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path, monkeypatch):
     PipelineConfig().to_yaml(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--workspace", str(tmp_path / "ws"), "--config", str(cfg)])
+    # the pipelined run, through its CLI flag and the top-level alias
+    from deep3d_aerial_tpu_torch.__main__ import main as alias_main
+
+    for cli in (main, alias_main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli(["--workspace", str(tmp_path / "ws"), "--config", str(cfg),
+                 "--pipelined"])
+    # the standalone fusion CLI, before it reads anything
+    from deep3d_aerial_tpu_torch.fusion.__main__ import main as fusion_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fusion_main(["--project_folder", str(tmp_path / "none"), "--mvs_path",
+                     str(tmp_path / "none"), "--output_path", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
     # asked for explicitly, the CPU is fine
     AerialPipeline(str(tmp_path / "ws"), PipelineConfig(), device="cpu")
 

@@ -672,3 +672,40 @@ def test_adamvs_trains_two_steps_on_the_card(dev):
     moved = [n for n, p in model.named_parameters() if not torch.equal(p, before[n])]
     assert len(moved) >= len(before) - 3
     assert not torch.equal(model.red0._packed_params(), packed)
+
+
+def test_batched_inference_is_bit_equal_through_the_kernels(dev, tmp_path, monkeypatch):
+    """dense_match with infer_batch_size 2 against 1 on the card, AdaMVS
+    with seeded random weights on chip_smoke.py's survey at 128x192 (six
+    maps, three blocks): the same kernels on the same inputs, so the same
+    depth, confidence and normal bytes; K1, K2 and K3 launched a map's
+    worth per map either way. Under cuDNN's deterministic algorithms: its
+    default ones for the transposed convolutions vary from run to run."""
+    import shutil
+
+    import chip_smoke as cs
+    from deep3d_aerial_tpu_torch.pipeline.config import PipelineConfig
+    from deep3d_aerial_tpu_torch.pipeline.orchestrator import AerialPipeline
+
+    cam, poses = cs.survey(192, 128)
+    cs.write_workspace(tmp_path / "src", cam, poses, dev, columns=3)
+    model, files = None, {}
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    for batch in (1, 2):
+        ws = tmp_path / f"b{batch}"
+        shutil.copytree(tmp_path / "src" / "export", ws / "export")
+        pipe = AerialPipeline(str(ws), PipelineConfig(
+            image_w=192, image_h=128, image_scale=1.0, view_num=5,
+            allow_random_weights=True, run_view_selection=False, save_normals=True,
+            infer_batch_size=batch), device=dev)
+        model = model or pipe.build_model()
+        counts = (sw.sweep_corr.launches, sw.sweep_cost.launches, rs.red_step2.launches)
+        pipe.dense_match(model=model)
+        nd = model.ndepths
+        assert (sw.sweep_corr.launches - counts[0], sw.sweep_cost.launches - counts[1],
+                rs.red_step2.launches - counts[2]) == (6, 6 * sum(d // 8 for d in nd),
+                                                       6 * sum(nd))
+        assert [len(b) for b in pipe.map_batches] == [batch] * (6 // batch)
+        files[batch] = {p.name: p.read_bytes()
+                        for p in (ws / "dense" / "MVS").glob("*.pfm")}
+    assert len(files[1]) == 18 and files[1] == files[2]

@@ -121,9 +121,6 @@ def test_config_copy_parses_like_the_jax_package(tmp_path):
 
 
 @pytest.mark.parametrize("setting,error", [
-    ({"display_depth": True}, NotImplementedError),
-    ({"infer_batch_size": 8}, NotImplementedError),
-    ({"save_dmap": True}, NotImplementedError),
     ({"compute_dtype": "bfloat16"}, NotImplementedError),
     ({"warp_precision": "compensated"}, NotImplementedError),
     ({"warp_impl": "xla"}, ValueError),
