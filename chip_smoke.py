@@ -24,6 +24,15 @@ of each model through the kernels against the plain path,
 on a rendered WHU-layout folder, `--resume`, `--mode test`, the trained
 params.npz through the pipeline's dense_match), and
 `[train:<msrednet|casmvsnet|ucsnet>]` three steps of each other model.
+Between the inference phases and training, the bfloat16 operating point
+(compute_dtype bfloat16): `[kernel:bf16]` holds each kernel's bfloat16 mode
+against its plain bfloat16 version at every stage shape of the 384x512
+point (in bfloat16 ulps, TOL_BF16_ULPS_*), `[main:bf16:<model>]` runs each
+model's main path to fusion in bfloat16 with every bfloat16 kernel of the
+path counted, `[e2e:bf16:<model>]` holds each bfloat16 forward's kernels
+against its plain versions (within 2x bfloat16's own distance from
+float32) and profiles it, and `[fullres:bf16:adamvs]` runs one 1856x2752
+bfloat16 map (finite share 100%).
 
     python3 chip_smoke.py
 
@@ -33,10 +42,12 @@ standard output are: the `kernels` JSON line, the card's name and power
 limit as nvidia-smi gives them, and the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Kernel numbers (one entry per kernel): `ms`, `plain_ms`, `bound_ms` and
-`library_ms` are per depth map of the main path at 384x512 of the model
-that `per_map_of` names, i.e. the per-launch time at each stage's shape
-times that stage's launches per map, summed over stages. `ms` and
+Kernel numbers (one entry per kernel, then one per kernel's bfloat16
+mode, named `<kernel>:bf16`, from the bfloat16 phases, with `max_ulps`):
+`ms`, `plain_ms`, `bound_ms` and `library_ms` are per depth map of the
+main path at 384x512 of the model that `per_map_of` names, i.e. the
+per-launch time at each stage's shape times that stage's launches per
+map, summed over stages. `ms` and
 `plain_ms` are device time: the durations of the device work one call
 launches, read from torch.profiler (CUPTI), so the host's time to issue the
 launches is not in them (the `[kernel]` lines also print the CUDA-event
@@ -67,6 +78,7 @@ over the max |grad|) and `train_launches_per_step` (per model trained).
 from __future__ import annotations
 
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -85,6 +97,8 @@ import torch
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_TF32X3 = 495e12 / 3
+# bfloat16 products on the dense tensor cores (the bf16 modes' MMAs)
+PEAK_BF16 = 989e12
 
 # main path: the default AdaMVS configuration at 384x512
 H0, W0 = 384, 512
@@ -133,6 +147,23 @@ TOL_RED4 = 1e-4
 # range, confidence within 1e-4
 TOL_DEPTH_FRAC = 1e-3
 TOL_CONF = 1e-4
+# bfloat16 modes, kernel against its plain bfloat16 version on the same
+# inputs, stated before measuring, in bfloat16 ulps of each output's largest
+# magnitude (one ulp of M: 2^(floor(log2 M) - 7)). Both compute the same
+# float32 value up to the order of its sums and round it to bfloat16 at
+# the same places, so a value that falls near a rounding boundary can round
+# the other way: one ulp of that value. The sweeps and K5 round once (2
+# ulps); K3 and K4, over 3 chained planes, round at every layer and carry
+# a flipped rounding through the GRU into the next plane (8 ulps).
+TOL_BF16_ULPS_SWEEP = 2
+TOL_BF16_ULPS_CONV = 2
+TOL_BF16_ULPS_RED = 8
+# a bfloat16 forward, kernels against plain versions (same weights and
+# inputs): within 2x the distance bfloat16 itself puts between the plain
+# bfloat16 forward and the plain float32 one, measured in the same run
+# (the CPU tests' rule against the JAX package), or the float32 tolerances
+# above where those are larger
+BF16_GAP_FACTOR = 2.0
 # photometric refine, card against CPU, within this x the mesh's mean edge,
 # for every step taken from the same vertices: the two compute the vertex
 # normals alike (mesh/refine.py: `_cross`, `_corner_passes`), so a vertex
@@ -469,21 +500,23 @@ def bound_ms(nbytes, flops, peak=PEAK_FP32):
 GEOM_FLOPS = 30
 
 
-def sweep_corr_work(V, K, H, W, C):
-    nbytes = 4 * ((V + 1) * H * W * C + K * H * W + V * K * H * W + 12 * V)
+# `fb`: bytes of a feature and output element (4 float32, 2 bfloat16);
+# projections, depths and weights stay float32
+def sweep_corr_work(V, K, H, W, C, fb=4):
+    nbytes = fb * ((V + 1) * H * W * C + V * K * H * W) + 4 * (K * H * W + 12 * V)
     flops = V * K * H * W * (GEOM_FLOPS + 8 * C + 2 * C)  # 4 taps, dot, mean
     return nbytes, flops
 
 
-def sweep_cost_work(V, K, H, W, C):
-    nbytes = 4 * ((V + 1) * H * W * C + K * H * W + V * H * W + K * C * H * W
-                  + 12 * V)
+def sweep_cost_work(V, K, H, W, C, fb=4):
+    nbytes = (fb * ((V + 1) * H * W * C + K * C * H * W)
+              + 4 * (K * H * W + V * H * W + 12 * V))
     flops = K * H * W * (V * (GEOM_FLOPS + 11 * C + 1) + C)  # taps, *ref*w+, /
     return nbytes, flops
 
 
-def sweep_var_work(V, K, H, W, C):
-    nbytes = 4 * ((V + 1) * H * W * C + K * H * W + K * C * H * W + 12 * V)
+def sweep_var_work(V, K, H, W, C, fb=4):
+    nbytes = fb * ((V + 1) * H * W * C + K * C * H * W) + 4 * (K * H * W + 12 * V)
     flops = K * H * W * (V * (GEOM_FLOPS + 11 * C) + 5 * C)  # taps, s, q; var
     return nbytes, flops
 
@@ -536,79 +569,101 @@ def red_step2_convs(cin, H, W, up):
             ("score", 8, 1, H, W, "up" if up else "same")]
 
 
-def conv_work(ci, co, H, W, mode):
-    """One 3x3 conv: input, output and weights once; multiply-adds x 2
-    (a transposed conv: 9 taps per input pixel)."""
+def conv_work(ci, co, H, W, mode, eb=4):
+    """One 3x3 conv: input, output and weights once (`eb` bytes an element;
+    the bias float32); multiply-adds x 2 (a transposed conv: 9 taps per
+    input pixel)."""
     Ho, Wo = {"same": (H, W), "down": ((H + 1) // 2, (W + 1) // 2),
               "up": (2 * H, 2 * W)}[mode]
     macs = ci * co * 9 * (H * W if mode == "up" else Ho * Wo)
-    return 4 * (ci * H * W + co * Ho * Wo + ci * 9 * co + co), 2 * macs
+    return eb * (ci * H * W + co * Ho * Wo + ci * 9 * co) + 4 * co, 2 * macs
 
 
-def red_step4_work(cin, H, W, n_weights):
+def red_step4_work(cin, H, W, n_weights, eb=4):
     """The 15 convs' multiply-adds x 2 (GroupNorm and GRU pointwise math
-    are ~1% and left out); bytes: cost and the four states in, the states
-    and the score out, and the weights."""
+    are ~1% and left out); bytes (`eb` an element): cost and the four
+    states in, the states and the score out, and the weights."""
     flops = sum(conv_work(*c[1:])[1] for c in red_step4_convs(cin, H, W))
     states = sum(c * (H >> l) * (W >> l) for l, c in enumerate((8, 16, 32, 64)))
-    return 4 * (cin * H * W + 2 * states + H * W + n_weights), flops
+    return eb * (cin * H * W + 2 * states + H * W + n_weights), flops
 
 
-def red_step2_work(cin, H, W, up, n_weights, fold=False):
+def red_step2_work(cin, H, W, up, n_weights, fold=False, eb=4):
     """Convolution multiply-adds x 2 (the pointwise GRU and softmax math is
-    ~1% of it and left out); bytes: cost and both states in, states out,
-    the weights, and the score out, or with `fold` the online-softmax state
-    (4 maps) in and out and the plane's depth in, at the score's shape."""
+    ~1% of it and left out); bytes (`eb` an element): cost and both states
+    in, states out, the weights, and the score out, or with `fold` the
+    float32 online-softmax state (4 maps) in and out and the plane's depth
+    in, at the score's shape."""
     H2, W2 = (H + 1) // 2, (W + 1) // 2
     macs = (H * W * 9 * (cin * 8 + 16 * 16 + 16 * 8)
             + H2 * W2 * 9 * (8 * 16 + 32 * 32 + 32 * 16 + 16 * 8)
             + H * W * 9 * 8)
     score = 4 * H * W if up else H * W
-    nbytes = 4 * (cin * H * W + 2 * 8 * H * W + 2 * 16 * H2 * W2 + n_weights
-                  + (9 * score if fold else score))
+    nbytes = (eb * (cin * H * W + 2 * 8 * H * W + 2 * 16 * H2 * W2 + n_weights)
+              + (4 * 9 * score if fold else eb * score))
     return nbytes, 2 * macs
+
+
+def bf16_ulps(outs_k, outs_p):
+    """The largest kernel-vs-plain difference of any output, in bfloat16
+    ulps of that output's largest magnitude (TOL_BF16_ULPS_*)."""
+    worst = 0.0
+    for a, b in zip(outs_k, outs_p):
+        top = float(b.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 2.0 ** -133
+        worst = max(worst, float((a.float() - b.float()).abs().max()) / ulp)
+    return worst
 
 
 def compare_kernel(records, name, shape_tag, kernel_fn, plain_fn, tol, work,
                    per_map, iters, n_calls=1, library_fn=None, conv=False,
-                   time_fns=None):
+                   time_fns=None, ulps=None):
     """Kernel against its plain version on the same inputs: max abs error
-    (raises above `tol`), device ms of both (and of `library_fn`, one
-    PyTorch call computing the same function), the bound from `work`
+    (raises above `tol`; for a bfloat16 mode, `ulps`, above that many
+    bfloat16 ulps, `bf16_ulps`), device ms of both (and of `library_fn`,
+    one PyTorch call computing the same function), the bound from `work`
     (bytes, flops; `conv`: the flops at the tensor cores' fp32-exact rate,
-    the CUDA-core bound printed beside it). Raises if a time is below its
-    bound. Times are per call of the kernel's function, which is
-    `kernel_fn` over `n_calls`; `time_fns` (kernel, plain) are timed
-    instead where the checked functions do set-up work of their own."""
+    or with `ulps` at their bfloat16 rate, the CUDA-core bound printed
+    beside it). Raises if a time is below its bound. Times are per call of
+    the kernel's function, which is `kernel_fn` over `n_calls`; `time_fns`
+    (kernel, plain) are timed instead where the checked functions do
+    set-up work of their own."""
     out_k = kernel_fn()
     out_p = plain_fn()
     torch.cuda.synchronize()
     outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
     outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
-    err = max(float((a - b).abs().max()) for a, b in zip(outs_k, outs_p))
-    rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-3)).max())
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(outs_k, outs_p))
+    rel = max(float(((a.float() - b.float()).abs() / b.float().abs().clamp_min(1e-3)).max())
               for a, b in zip(outs_k, outs_p))
     finite = all(bool(torch.isfinite(a).all()) for a in outs_k)
+    n_ulps = bf16_ulps(outs_k, outs_p) if ulps is not None else None
     time_k, time_p = time_fns or (kernel_fn, plain_fn)
     ms = device_ms(time_k, iters) / n_calls
     loop = loop_ms(time_k, iters) / n_calls
     plain_ms = device_ms(time_p, max(1, iters // 4)) / n_calls
     lib_ms = device_ms(library_fn, iters) if library_fn is not None else None
-    b_ms, b_by = bound_ms(*work, PEAK_TF32X3 if conv else PEAK_FP32)
+    peak = (PEAK_BF16 if ulps is not None else PEAK_TF32X3) if conv else PEAK_FP32
+    b_ms, b_by = bound_ms(*work, peak)
     old = f" (fp32 CUDA cores: {bound_ms(*work)[0]:.4f})" if conv else ""
     rec = dict(name=name, shape=shape_tag, max_abs_err=err,
-               max_rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
+               max_rel_err=rel, tol=tol if ulps is None else f"{ulps} bf16 ulps",
+               ulps=n_ulps, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                per_map=per_map)
     records.append(rec)
     lib = "" if lib_ms is None else f" library {lib_ms:.4f}"
+    check = (f"tol {tol:g}" if ulps is None
+             else f"{n_ulps:.2f} bf16 ulps of the largest output, tol {ulps}")
     log(f"[kernel] {name:10s} {shape_tag:28s} err {err:.3e} (rel {rel:.3e}, "
-        f"tol {tol:g}) device ms: kernel {ms:.4f} plain {plain_ms:.4f}{lib} "
+        f"{check}) device ms: kernel {ms:.4f} plain {plain_ms:.4f}{lib} "
         f"bound {b_ms:.4f}{old} ({b_by}, {b_ms / ms:.1%} of it reached); "
         f"host-issued loop {loop:.4f} ms/call; launches/map {per_map}")
-    if not finite or not err <= tol:
+    ok = err <= tol if ulps is None else n_ulps <= ulps
+    if not finite or not ok:
         raise AssertionError(f"{name} {shape_tag}: kernel vs plain "
-                             f"max abs err {err} > {tol} (finite={finite})")
+                             f"max abs err {err} ({n_ulps} bf16 ulps) over its "
+                             f"tolerance (finite={finite})")
     if ms < b_ms:
         raise AssertionError(f"{name} {shape_tag}: {ms} ms is below its "
                              f"{b_ms} ms bound: the work count is wrong")
@@ -1005,6 +1060,214 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
     return records, k5
 
 
+def phase_kernels_bf16(dev, cam0, poses0):
+    """Each kernel's bfloat16 mode against its plain bfloat16 version at
+    every stage shape of the 384x512 point (tolerances TOL_BF16_ULPS_*):
+    K1 at stage 1, K2 and K2v per stage (a chunk), K3 by both entries (one
+    step; the fold over 3 chained planes) with its 8 convs in cuDNN
+    bfloat16 as the yardstick, K4 over 3 chained planes, and K5 per
+    MSREDNet map (every conv shape of the step, each checked once, then
+    launched as often as a map launches it, beside one cuDNN bfloat16 call
+    each). Bounds: 2-byte features, states and outputs at the memory rate;
+    the products at the tensor cores' bfloat16 rate (the sweeps'
+    arithmetic, float32 in both modes, at the CUDA cores'). Returns
+    (records, K5 per map, K3's conv yardstick per AdaMVS map)."""
+    from deep3d_aerial_tpu_torch.models.cascade import OnlineSoftmaxState
+    from deep3d_aerial_tpu_torch.models.cost_reg import RedStep2, RedStep4
+    from deep3d_aerial_tpu_torch.ops.cf_conv import (
+        cf_conv3x3,
+        cf_conv3x3_plain,
+        pack_weight,
+    )
+    from deep3d_aerial_tpu_torch.ops.red_step2 import red_step2, red_step2_plain
+    from deep3d_aerial_tpu_torch.ops.red_step4 import red_step4, red_step4_plain
+    from deep3d_aerial_tpu_torch.ops.sweep import (
+        sweep_corr,
+        sweep_corr_plain,
+        sweep_cost,
+        sweep_cost_plain,
+        sweep_var,
+        sweep_var_plain,
+    )
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(2)
+    records = []
+    V1 = VIEWS - 1
+
+    def rnd(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def compare(*args, **kw):
+        compare_kernel(records, *args, **kw)
+
+    def conv_operands(ci, co, H, W, mode):
+        x = rnd(ci, H, W)
+        w = rnd(*((ci, co, 3, 3) if mode == "up" else (co, ci, 3, 3)),
+                scale=(9 * ci) ** -0.5, dtype=torch.float32)
+        b = rnd(co, scale=0.1, dtype=torch.float32)
+        return x, w, b, pack_weight(w, mode, bf)
+
+    def cudnn_bf16(x, w, b, mode):
+        return cudnn_conv(x, w.to(bf), b.to(bf), mode)
+
+    yard = 0.0
+    with torch.no_grad():
+        for stage, (C, D) in enumerate(zip(CHANNELS, NDEPTHS)):
+            H, W = H0 >> (2 - stage), W0 >> (2 - stage)
+            tag = f"bf16 stage{stage + 1} {H}x{W} C{C}"
+            rel = stage_rel(cam0, poses0, stage, dev)
+            ref, srcs = rnd(H, W, C), rnd(V1, H, W, C)
+            d = stage_planes(cam0, poses0, stage, H, W, dev)
+            if stage == 0:
+                dpair = stage_planes(cam0, poses0, 0, H, W, dev, n=NDEPTHS[0])
+                compare("sweep_corr:bf16", tag + f" V{V1} D{NDEPTHS[0]}",
+                        lambda: sweep_corr(ref, srcs, rel, dpair),
+                        lambda: sweep_corr_plain(ref, srcs, rel, dpair), 0.0,
+                        sweep_corr_work(V1, NDEPTHS[0], H, W, C, fb=2), 1, 10,
+                        ulps=TOL_BF16_ULPS_SWEEP)
+                del dpair
+            wts = torch.rand((V1, H, W), generator=g, device=dev) * 0.9 + 0.1
+            compare("sweep_cost:bf16", tag + f" V{V1} K{CHUNK}",
+                    lambda: sweep_cost(ref, srcs, rel, d, wts),
+                    lambda: sweep_cost_plain(ref, srcs, rel, d, wts), 0.0,
+                    sweep_cost_work(V1, CHUNK, H, W, C, fb=2), D // CHUNK, 10,
+                    ulps=TOL_BF16_ULPS_SWEEP)
+            compare("sweep_var:bf16", tag + f" V{V1} K{CHUNK}",
+                    lambda: sweep_var(ref, srcs, rel, d),
+                    lambda: sweep_var_plain(ref, srcs, rel, d), 0.0,
+                    sweep_var_work(V1, CHUNK, H, W, C, fb=2), D // CHUNK, 10,
+                    ulps=TOL_BF16_ULPS_SWEEP)
+
+            # K3: one step by the score entry, then the fold over 3 planes
+            up = stage < 2
+            mod = init_random_weights(RedStep2(C, up=up), seed=stage).to(dev)
+            params = dict(mod.named_parameters())
+            packed = mod._packed_params(bf)
+            n_w = sum(p.numel() for p in params.values())
+            cost, s1 = rnd(C, H, W), rnd(8, H, W, scale=0.5)
+            s2 = rnd(16, (H + 1) // 2, (W + 1) // 2, scale=0.5)
+            shape = (2 * H, 2 * W) if up else (H, W)
+            costs = [rnd(C, H, W) for _ in range(3)]
+            dvs = [dd + torch.rand(shape, generator=g, device=dev) for dd in (95.0, 100.0, 105.0)]
+            dscale = max(float(dv.max()) for dv in dvs)
+
+            def planes(fold, osm, params=params, packed=packed, costs=costs, dvs=dvs,
+                       s1=s1, s2=s2, up=up):
+                a, b = s1, s2
+                for c, dv in zip(costs, dvs):
+                    if fold:
+                        _, a, b = red_step2(params, c, a, b, up=up, packed=packed,
+                                            osm=osm, dv=dv)
+                    else:
+                        sc, a, b = red_step2_plain(params, c, a, b, up=up)
+                        osm = OnlineSoftmaxState.update(osm, sc, dv)
+                return osm, a, b
+
+            def checked(fold, planes=planes, shape=shape, dscale=dscale):
+                (m, s_, acc, pmax), a, b = planes(
+                    fold, OnlineSoftmaxState.init(shape, device=dev))
+                return m, s_, acc / dscale, pmax, a, b
+
+            osm_t = OnlineSoftmaxState.init(shape, device=dev)
+            # the score entry checked only (the main path takes the fold)
+            got = red_step2(params, cost, s1, s2, up=up, packed=packed)
+            n_ulps = bf16_ulps(got, red_step2_plain(params, cost, s1, s2, up=up))
+            log(f"[kernel:bf16] red_step2 {tag} score entry: {n_ulps:.2f} bf16 ulps of "
+                f"the largest output (tol {TOL_BF16_ULPS_RED})")
+            if not (n_ulps <= TOL_BF16_ULPS_RED and all(bool(torch.isfinite(t).all())
+                                                        for t in got)):
+                raise AssertionError(f"red_step2:bf16 {tag} score entry: {n_ulps} ulps")
+            compare("red_step2:bf16", tag + (" up" if up else "") + " softmax fold",
+                    lambda: checked(True), lambda: checked(False), 0.0,
+                    red_step2_work(C, H, W, up, n_w, fold=True, eb=2), D, 10,
+                    n_calls=3, conv=True, ulps=TOL_BF16_ULPS_RED,
+                    time_fns=(lambda: planes(True, osm_t), lambda: planes(False, osm_t)))
+            convs = []
+            for _, ci, co, h, w, mode in red_step2_convs(C, H, W, up):
+                x, wt, b, _ = conv_operands(ci, co, h, w, mode)
+                convs.append(cudnn_bf16(x, wt, b, mode))
+
+            def run_convs(convs=convs):
+                for f in convs:
+                    f()
+            yard_s = device_ms(run_convs, 10)
+            yard += D * yard_s
+            log(f"[kernel:bf16] red_step2 {tag}: yardstick of the convs alone (8 cuDNN "
+                f"bfloat16 calls) {yard_s:.4f} device ms a step")
+
+            # K4 over 3 chained planes (MSREDNet's stage shapes)
+            mod4 = init_random_weights(RedStep4(C), seed=C).to(dev)
+            params4 = dict(mod4.named_parameters())
+            packed4 = mod4._packed.get(mod4, bf)
+            costs4 = [rnd(C, H, W) for _ in range(3)]
+            s0 = [rnd(c, H >> l, W >> l, scale=0.5) for l, c in enumerate((8, 16, 32, 64))]
+            n_w4 = sum(p.numel() for p in params4.values())
+
+            def chain(step, costs4=costs4, s0=s0):
+                states = s0
+                for c in costs4:
+                    score, *states = step(c, *states)
+                return (score, *states)
+
+            compare("red_step4:bf16", tag + " 3 planes",
+                    lambda: chain(lambda *a: red_step4(params4, *a, packed=packed4)),
+                    lambda: chain(lambda *a: red_step4_plain(params4, *a)), 0.0,
+                    red_step4_work(C, H, W, n_w4, eb=2), D, 5, n_calls=3, conv=True,
+                    ulps=TOL_BF16_ULPS_RED)
+        del ref, srcs
+
+        # K5 per map: the 15 convs of each stage's step, D_stage times each
+        items, err, worst, b_by = [], 0.0, 0.0, {}
+        for stage, (C, D) in enumerate(zip(MSRED_CHANNELS, NDEPTHS)):
+            H, W = H0 >> (2 - stage), W0 >> (2 - stage)
+            for _, ci, co, h, w, mode in red_step4_convs(C, H, W):
+                x, wt, b, pk = conv_operands(ci, co, h, w, mode)
+                k = cf_conv3x3(x, wt, b, mode=mode, relu=False, packed=pk)
+                p = cf_conv3x3_plain(x, wt, b, mode=mode, relu=False)
+                err = max(err, float((k.float() - p.float()).abs().max()))
+                worst = max(worst, bf16_ulps((k,), (p,)))
+                bms, by = bound_ms(*conv_work(ci, co, h, w, mode, eb=2), PEAK_BF16)
+                b_by[by] = b_by.get(by, 0.0) + bms * D
+                items.append((D, x, wt, b, pk, mode))
+        if not worst <= TOL_BF16_ULPS_CONV:
+            raise AssertionError(f"cf_conv3x3:bf16 at the step's shapes: {worst} bf16 "
+                                 f"ulps > {TOL_BF16_ULPS_CONV}")
+
+        def per_map(make):
+            calls = [(D, make(x, w, b, pk, mode)) for D, x, w, b, pk, mode in items]
+
+            def run():
+                for D, fn in calls:
+                    for _ in range(D):
+                        fn()
+            return device_ms(run, 1)
+
+        k5 = {
+            "ms": per_map(lambda x, w, b, pk, m: lambda: cf_conv3x3(
+                x, w, b, mode=m, relu=False, packed=pk)),
+            "plain_ms": per_map(lambda x, w, b, pk, m: lambda: cf_conv3x3_plain(
+                x, w, b, mode=m, relu=False)),
+            "library_ms": per_map(lambda x, w, b, pk, m: cudnn_bf16(x, w, b, m)),
+            "bound_ms": sum(b_by.values()), "bound_by": max(b_by, key=b_by.get),
+            "max_abs_err": err, "ulps": worst,
+        }
+        if k5["ms"] < k5["bound_ms"]:
+            raise AssertionError(f"cf_conv3x3:bf16 per map: {k5['ms']} ms is below "
+                                 f"its {k5['bound_ms']} ms bound")
+        log(f"[kernel:bf16] cf_conv3x3 per MSREDNet 384x512 map ({len(items)} shapes, max "
+            f"abs err {err:.3e}, {worst:.2f} bf16 ulps, tol {TOL_BF16_ULPS_CONV}): device ms "
+            f"kernel {k5['ms']:.4f} plain {k5['plain_ms']:.4f} library (cuDNN bfloat16) "
+            f"{k5['library_ms']:.4f} bound {k5['bound_ms']:.4f} ({k5['bound_by']}, "
+            f"{k5['bound_ms'] / k5['ms']:.1%} of it reached)")
+        del items
+    torch.cuda.empty_cache()
+    log(f"[kernel:bf16] red_step2 per AdaMVS {H0}x{W0} map: yardstick of the convs alone "
+        f"(8 cuDNN bfloat16 calls a step x {sum(NDEPTHS)} steps) {yard:.4f} device ms")
+    return records, k5, yard
+
+
 class _PerPlane:
     """A regularizer whose step is the module's whole forward, so every
     plane gathers its parameters and checks its packed-weight cache again."""
@@ -1015,7 +1278,7 @@ class _PerPlane:
     def init_states(self, *args, **kw):
         return self.module.init_states(*args, **kw)
 
-    def plane_step(self, device):
+    def plane_step(self, device, dtype=torch.float32):
         return self.module
 
 
@@ -1099,8 +1362,8 @@ class _Unfused:
     def init_states(self, *args, **kw):
         return self.module.init_states(*args, **kw)
 
-    def plane_step(self, device):
-        step = self.module.plane_step(device)
+    def plane_step(self, device, dtype=torch.float32):
+        step = self.module.plane_step(device, dtype)
         return lambda *a: step(*a)
 
 
@@ -1172,7 +1435,8 @@ class _Marked(torch.nn.Module):
 
 
 def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
-                    eager_updates=0, colmap=False, after=None):
+                    eager_updates=0, colmap=False, after=None,
+                    compute_dtype="float32", mesh=True):
     """AerialPipeline(...).run_dense() on a synthetic workspace: dense
     matching, fusion with the .mvs handoff, and the default mesh and DSM
     stages at 384x512, the model's default configuration (the graph cut's
@@ -1184,7 +1448,9 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
     the regularizer's step folds the softmax). With `colmap` the workspace
     holds a COLMAP model and the images only, and the run starts with the
     default view selection (image paths from `data_folder`); every
-    selected reference view must get a depth map. Returns (launches, median
+    selected reference view must get a depth map. `compute_dtype` is the
+    config's (`[main:bf16:<model>]` for bfloat16); without `mesh` the run
+    stops after fusion (no mesh, no DSM). Returns (launches, median
     seconds per map, median ms between the forward's marks by label)."""
     from deep3d_aerial_tpu_torch.io import text_formats as tf
     from deep3d_aerial_tpu_torch.io.pfm import read_pfm
@@ -1205,6 +1471,7 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
             fusion_num=4, geo_consist_num=2, photomatric_threshold=0.0,
             position_threshold=2.0, depth_threshold=0.05,
             normal_threshold=180.0, model_type=model_type,
+            compute_dtype=compute_dtype, run_create_mesh=mesh, run_create_dsm=mesh,
         )
         pipe = AerialPipeline(str(ws), cfg, device=dev,
                               data_folder=str(ws / "images") if colmap else None)
@@ -1220,15 +1487,22 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
         cascade.OnlineSoftmaxState.update = staticmethod(counted)
         try:
             for c in counters:
-                c.launches = 0
+                c.launches = c.launches_bf16 = 0
             t0 = time.perf_counter()
             with GraphCutCount() as graphcut:
                 pipe.run_dense(model=model)
                 torch.cuda.synchronize()
             total = time.perf_counter() - t0
             launches = {c.__name__: c.launches for c in counters}
+            launches_bf16 = {c.__name__: c.launches_bf16 for c in counters}
         finally:
             cascade.OnlineSoftmaxState.update = staticmethod(update)
+        # every launch of a bfloat16 run went to a kernel's bfloat16 entry,
+        # and none of a float32 run did
+        want_bf16 = launches if compute_dtype == "bfloat16" else dict.fromkeys(launches, 0)
+        if launches_bf16 != want_bf16:
+            raise AssertionError(f"[main:{model_type}] {compute_dtype}: bfloat16-entry "
+                                 f"launches {launches_bf16}, want {want_bf16}")
 
         maps = sorted((ws / "dense" / "MVS").glob("*_init.pfm"))
         n = len(maps)
@@ -1259,12 +1533,15 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
         if not plys:
             raise AssertionError("fusion wrote no PLY")
         points = sum(read_ply(p)[0].shape[0] for p in plys)
-        stats = check_mesh_dsm(ws, cfg, graphcut)
-        log_mesh_dsm(model_type, stats, pipe.stage_seconds, cfg.recons_decimate_ratio)
+        if mesh:
+            stats = check_mesh_dsm(ws, cfg, graphcut)
+            log_mesh_dsm(model_type, stats, pipe.stage_seconds, cfg.recons_decimate_ratio)
         if after is not None:
             after(pipe, ws)
 
     tag = "main" if model_type == "adamvs" else f"main:{model_type}"
+    if compute_dtype != "float32":
+        tag = f"main:bf16:{model_type}"
     for name, k in per_map.items():
         if launches[name] != k * n:
             raise AssertionError(f"{name}: {launches[name]} launches on the "
@@ -1279,11 +1556,13 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
     secs = pipe.map_seconds
     steady = float(np.median(secs[1:])) if len(secs) > 1 else secs[0]
     log(f"[{tag}] {n} maps at {H0}x{W0}, {VIEWS} views, ndepths {model.model.ndepths}: "
-        f"run_dense {total:.2f} s (mesh and DSM included); per map first {secs[0]:.3f} s, "
+        f"run_dense {total:.2f} s ({'mesh and DSM included' if mesh else 'to fusion'}); "
+        f"per map first {secs[0]:.3f} s, "
         f"median after {steady * 1e3:.2f} ms = {1.0 / steady:.2f} maps/s; "
         f"fused points {points}")
     log(f"[{tag}] launches " + json.dumps(launches) + " per map "
-        + json.dumps(per_map) + f"; eager online-softmax updates {updates[0]} "
+        + json.dumps(per_map) + "; of them at a bfloat16 entry "
+        + json.dumps(launches_bf16) + f"; eager online-softmax updates {updates[0]} "
         f"({eager_updates} per map)")
     med = {k: float(np.median(v)) for k, v in stage_ms.items()}
     log(f"[{tag}] per-stage ms between CUDA events, idle gaps included "
@@ -2028,6 +2307,52 @@ def phase_end_to_end_volume(dev, cam0, poses0, model_type):
     return busy
 
 
+def phase_end_to_end_bf16(dev, cam0, poses0, model_type):
+    """One sample through the model's bfloat16 forward with the kernels and
+    with their plain versions, and through the plain float32 forward (same
+    weights): kernel vs plain within BF16_GAP_FACTOR x the plain bfloat16
+    vs float32 distance (or the float32 tolerances, where larger), per
+    stage, depth and confidence. Then the kernel forward profiled: device
+    busy against wall, device ms by family (`[profile:bf16:<model>]`)."""
+    from deep3d_aerial_tpu_torch.models import build_model
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    imgs, rel, dmin, dmax, _ = sample(cam0, poses0, dev, ref=1)
+    plain = {"warp_impl": "plain"}
+    if model_type in ("adamvs", "msrednet"):
+        plain["red_impl"] = "plain"
+    mk = init_random_weights(build_model(model_type, dtype="bfloat16"),
+                             seed=0).to(dev).eval()
+    outs = {}
+    with torch.no_grad():
+        outs["kernel"] = mk(imgs, rel, dmin, dmax)
+        for name, dt in (("plain", "bfloat16"), ("plain32", "float32")):
+            m = build_model(model_type, dtype=dt, **plain).to(dev).eval()
+            m.load_state_dict(mk.state_dict())
+            outs[name] = m(imgs, rel, dmin, dmax)
+            del m
+    res = {}
+    for s in ("stage1", "stage2", "stage3"):
+        row = {}
+        for key, floor in (("depth", TOL_DEPTH_FRAC * (dmax - dmin)),
+                           ("photometric_confidence", TOL_CONF)):
+            k, p, p32 = (outs[n][s][key].float() for n in ("kernel", "plain", "plain32"))
+            diff, gap = float((k - p).abs().max()), float((p - p32).abs().max())
+            tol = max(BF16_GAP_FACTOR * gap, floor)
+            row[key] = (diff, gap)
+            log(f"[e2e:bf16:{model_type}] {s} {key}: kernel vs plain bf16 max |diff| "
+                f"{diff:.3e}; plain bf16 vs plain fp32 {gap:.3e}; tol {tol:.3e}")
+            if not diff <= tol:
+                raise AssertionError(f"bf16 end to end {model_type} {s} {key}: {diff} > {tol}")
+        res[s] = row
+    # where a bfloat16 forward's device time goes, by family
+    fams = {"sweep_pair": "K1", "sweep_cost": "K2", "sweep_var": "K2v", "red2_level": "K3",
+            "conv_mma": "K5 (in K4)", "gru_": "K4 GRU passes"}
+    fams.update({k: "cuDNN convs" for k in CONV_FAMILY})
+    profile_forward(mk, (imgs, rel, dmin, dmax), fams, f"profile:bf16:{model_type}")
+    return res
+
+
 def profile_forward(model, inputs, fams, tag="profile", calls=1):
     """Device busy time of a 384x512 forward (torch.profiler, CUPTI; the
     mean over `calls` profiled forwards), by kernel family (`fams`: name
@@ -2071,15 +2396,19 @@ def profile_forward(model, inputs, fams, tag="profile", calls=1):
     return busy, counts
 
 
-def phase_production_frame(dev, camF, posesF, model_type="adamvs"):
+def phase_production_frame(dev, camF, posesF, model_type="adamvs",
+                           compute_dtype="float32"):
     """One 1856x2752 map through the model's kernel forward at the f=3727
-    survey geometry: every pixel finite."""
+    survey geometry, in `compute_dtype`: every pixel finite."""
     from deep3d_aerial_tpu_torch.models import build_model
     from deep3d_aerial_tpu_torch.weights import init_random_weights
 
     imgs, rel, dmin, dmax, _ = sample(camF, posesF, dev, ref=1)
-    model = init_random_weights(build_model(model_type), seed=0).to(dev).eval()
+    model = init_random_weights(build_model(model_type, dtype=compute_dtype),
+                                seed=0).to(dev).eval()
     tag = "fullres" if model_type == "adamvs" else f"fullres:{model_type}"
+    if compute_dtype != "float32":
+        tag = f"fullres:bf16:{model_type}"
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         model(imgs, rel, dmin, dmax)  # warm
@@ -2135,10 +2464,11 @@ STEP_COND = 3.0
 TRAIN_LR = 1e-3
 # [train:adamvs]: the trainer CLI's defaults (5 views, num_depth 384,
 # ndepths 48/32/8, max_h 384, max_w 768, batch 1, rmsprop at 1e-3) on a
-# WHU-layout folder rendered here: 8 train and 2 val reference views of a
-# 4 x 3 survey at 384 x 768
+# WHU-layout folder rendered here: 4 train and 2 val reference views of a
+# 4 x 3 survey at 384 x 768 (8 train views until the bfloat16 phases
+# needed the script's time)
 TRAIN_H, TRAIN_W = 384, 768
-TRAIN_REFS, VAL_REFS = list(range(8)), [9, 10]
+TRAIN_REFS, VAL_REFS = list(range(4)), [9, 10]
 TRAIN_EPOCHS = 2
 
 
@@ -2703,6 +3033,92 @@ def phase_train_adamvs(dev):
     return {"step_ms": split, "peak_gib": peak, "idle": idle, "launches": per_step}
 
 
+def phase_bf16(dev, cam0, poses0, camF, posesF):
+    """The bfloat16 operating point: every kernel's bfloat16 mode against
+    its plain version (`[kernel:bf16]`), each model's main path to fusion in
+    compute_dtype bfloat16 (`[main:bf16:<model>]`: the wrappers' counters
+    set to 0 just before and read just after, each bfloat16 kernel of the
+    path launched), its forward kernel vs plain (`[e2e:bf16:<model>]`), and
+    one 1856x2752 AdaMVS map (`[fullres:bf16:adamvs]`). Returns the
+    bfloat16 rows of the `kernels` line."""
+    from deep3d_aerial_tpu_torch.ops.cf_conv import cf_conv3x3
+    from deep3d_aerial_tpu_torch.ops.red_step2 import red_step2
+    from deep3d_aerial_tpu_torch.ops.red_step4 import red_step4
+    from deep3d_aerial_tpu_torch.ops.sweep import sweep_corr, sweep_cost, sweep_var
+
+    t = time.perf_counter()
+    records, k5, yard = phase_kernels_bf16(dev, cam0, poses0)
+    log(f"[phase] kernels:bf16 {time.perf_counter() - t:.1f} s")
+    N = NDEPTHS
+    cases = [
+        ("adamvs", (sweep_corr, sweep_cost, red_step2),
+         {"sweep_corr": 1, "sweep_cost": sum(d // CHUNK for d in N), "red_step2": sum(N)}, 0),
+        ("msrednet", (sweep_var, red_step4, cf_conv3x3),
+         {"sweep_var": sum(d // CHUNK for d in N), "red_step4": sum(N),
+          "cf_conv3x3": RED4_CONVS * sum(N)}, sum(N)),
+        ("casmvsnet", (sweep_var,), {"sweep_var": sum(d // CHUNK for d in N)}, 0),
+        ("ucsnet", (sweep_var,), {"sweep_var": sum(d // CHUNK for d in UCS_NDEPTHS)}, 0),
+    ]
+    launches = {}
+    for model_type, counters, per_map, eager in cases:
+        t = time.perf_counter()
+        got, _, _ = phase_main_path(dev, cam0, poses0, counters, per_map,
+                                    model_type=model_type, eager_updates=eager,
+                                    compute_dtype="bfloat16", mesh=False)
+        launches[model_type] = got
+        log(f"[phase] main:bf16:{model_type} {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_end_to_end_bf16(dev, cam0, poses0, model_type)
+        log(f"[phase] e2e:bf16:{model_type} {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_production_frame(dev, camF, posesF, compute_dtype="bfloat16")
+    log(f"[phase] fullres:bf16:adamvs {time.perf_counter() - t:.1f} s")
+
+    adamvs, msred = f"AdaMVS {H0}x{W0} bf16 map", f"MSREDNet {H0}x{W0} bf16 map"
+    src = {"sweep_corr": ("sweep.cu", "pallas_sweep.py:235", adamvs, "adamvs"),
+           "sweep_cost": ("sweep.cu", "pallas_sweep.py:520", adamvs, "adamvs"),
+           "red_step2": ("red_step2.cu", "pallas_red.py:250", adamvs, "adamvs"),
+           "sweep_var": ("sweep.cu", "pallas_sweep.py:520", msred, "msrednet"),
+           "red_step4": ("red_step4.cu", "pallas_red4.py:138", msred, "msrednet")}
+    kernels = []
+    for name, (source, replaces, path, model) in src.items():
+        rs = [r for r in records if r["name"] == f"{name}:bf16" and r["per_map"]]
+        bms = sum(r["bound_ms"] * r["per_map"] for r in rs)
+        kernels.append({
+            "name": f"{name}:bf16", "route": "cuda",
+            "source": f"deep3d_aerial_tpu_torch/csrc/{source}",
+            "replaces": f"deep3d_aerial_tpu/ops/{replaces}",
+            "launches": launches[model][name],
+            "max_abs_err": max(r["max_abs_err"] for r in records
+                               if r["name"] == f"{name}:bf16"),
+            "max_ulps": max(r["ulps"] for r in records if r["name"] == f"{name}:bf16"),
+            "ms": sum(r["ms"] * r["per_map"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] * r["per_map"] for r in rs),
+            "bound_ms": bms,
+            "bound_by": max(rs, key=lambda r: r["bound_ms"] * r["per_map"])["bound_by"],
+            "library_ms": None, "per_map_of": path,
+        })
+        if name == "red_step2":  # not a library call: the convs alone
+            kernels[-1]["convs_cudnn_ms"] = yard
+        if name == "sweep_var":
+            kernels[-1]["launches_by_path"] = {m: launches[m]["sweep_var"]
+                                               for m in ("msrednet", "casmvsnet", "ucsnet")}
+    kernels.append({
+        "name": "cf_conv3x3:bf16", "route": "cuda",
+        "source": "deep3d_aerial_tpu_torch/csrc/red_step4.cu",
+        "replaces": "deep3d_aerial_tpu/ops/pallas_cf_conv.py:150",
+        "launches": launches["msrednet"]["cf_conv3x3"], "max_abs_err": k5["max_abs_err"],
+        "max_ulps": k5["ulps"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": k5["library_ms"],
+        "per_map_of": msred + f" (inside red_step4, {RED4_CONVS} per step)",
+    })
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']}: no launch on its bfloat16 main path")
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2747,7 +3163,6 @@ def main() -> int:
 
     cam0, poses0 = survey(W0, H0)
     camF, posesF = survey(FULL_W, FULL_H)
-
     # AdaMVS: K1, K2, K3
     t = time.perf_counter()
     records, red2_yard = phase_kernels(dev, cam0, poses0, camF, posesF)
@@ -2824,6 +3239,9 @@ def main() -> int:
         phase_production_frame(dev, camF, posesF, model_type=model_type)
         log(f"[phase] production frame:{model_type} {time.perf_counter() - t:.1f} s")
 
+    # the bfloat16 operating point: every kernel's bfloat16 mode
+    bf16_kernels = phase_bf16(dev, cam0, poses0, camF, posesF)
+
     # training: each kernel's autograd Function, one step kernel vs plain
     # per model, the trainer at its CLI's defaults, three steps per model
     t = time.perf_counter()
@@ -2899,6 +3317,7 @@ def main() -> int:
                     "own Function at one conv shape",
         "train_launches_per_step": {"msrednet": train["msrednet"]["launches"]["cf_conv3x3"]},
     })
+    kernels += bf16_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,8 +27,9 @@
 // full-res pixel against ~160 B of cost, state and softmax traffic; done
 // fp32-exact on the tensor cores (3xTF32: 495 / 3 TFLOP/s) the 384x512
 // Cin 8 step's 3.2 GFLOP take 0.019 ms, above its ~0.010 ms of memory
-// traffic. What holds it back in practice is instruction issue and
-// latency, not the tensor cores: with the MMAs compiled out a launch keeps
+// traffic (bfloat16 mode: 0.003 ms of MMAs, ~0.006 ms of traffic). What
+// holds it back in practice is instruction issue and latency, not the
+// tensor cores: with the MMAs compiled out a launch keeps
 // 70-99% of its time (scripts/red_step2_probe.py). The design:
 //   - Three launches a step, one per level, each owning spatial tiles and
 //     keeping every intermediate in shared memory; only s1' and s2' reach
@@ -70,16 +71,35 @@
 // No float atomics; every sum runs in an order fixed by the layer shapes
 // and the device's SM count (chunk, then tap, then the fragment's K), so a
 // plane gives the same bits from run to run.
+//
+// bfloat16 mode (red_step2_bf16; the JAX package's dtype=bfloat16, its
+// kernel's precision='bf16'): cost, states and score in bfloat16 in device
+// memory, upcast as they are staged; the intermediates stay float32 in
+// shared memory, as the TPU kernel's scratch does. Each product is one
+// mma.sync m16n8k16 bf16 (float32 sums) over 16 input channels (two of the
+// float32 mode's 8-channel chunks; the second is zero past the layer) in
+// place of 3xTF32's three m16n8k8 per 8: the A fragment's channel pairs
+// are rounded to bfloat16 as they are read, and the weights are packed
+// once as bfloat16 B fragments (ops/cf_conv.py:pack_frags_bf16). Values
+// round to bfloat16 where `_red_kernel` rounds them: the operands of each
+// product, the transposed conv's output (up1 + bias), the score, and the
+// new states as they are stored. The skip sum f = relu(up1 + s1') takes s1'
+// before its rounding, as the TPU kernel reads it from its float32
+// scratch: L1 writes a float32 copy of s1' for L3. The score runs on the
+// CUDA cores on the rounded f and weights, and the softmax fold stays
+// float32.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bf16.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kFrag = 128;           // floats of one packed (chunk, tap, n8) fragment
+constexpr int kFragB = 64;           // words of one bfloat16 (chunk of 16, tap, n8) fragment
 constexpr int kSmemMax = 232448;     // bytes of shared memory a block may use
 constexpr int kUnsupported = 10000;  // cost channel count without an instance
 constexpr int kBadArgs = 10001;
@@ -96,12 +116,22 @@ constexpr int kDecThreads = 256;
 //   L2: conv2 [8 -> 16], gates2 [32 -> 32], cand2 [32 -> 16]
 //   L3: upconv1 [16 -> 8], then the score conv [8][3][3] and its bias
 //       (padded to 8), read on the CUDA cores
-__host__ __device__ constexpr int frag_floats(int ci, int co) { return ci * co * 18; }
-__host__ __device__ constexpr int w1_floats(int cin) {
-  return frag_floats(cin, 8) + 8 + frag_floats(16, 16) + 16 + frag_floats(16, 8) + 8;
+// (bfloat16 fragments: per 16 input channels (zero-padded) 9 taps x co/8
+// fragments x 64 words)
+__host__ __device__ constexpr int frag_floats(int ci, int co, bool b16) {
+  return b16 ? (ci + 15) / 16 * 16 * co * 9 / 2 : ci * co * 18;
 }
-constexpr int kW2 = frag_floats(8, 16) + 16 + frag_floats(32, 32) + 32 + frag_floats(32, 16) + 16;
-constexpr int kW3 = frag_floats(16, 8) + 8 + 72 + 8;
+__host__ __device__ constexpr int w1_floats(int cin, bool b16) {
+  return frag_floats(cin, 8, b16) + 8 + frag_floats(16, 16, b16) + 16 +
+         frag_floats(16, 8, b16) + 8;
+}
+__host__ __device__ constexpr int w2_floats(bool b16) {
+  return frag_floats(8, 16, b16) + 16 + frag_floats(32, 32, b16) + 32 +
+         frag_floats(32, 16, b16) + 16;
+}
+__host__ __device__ constexpr int w3_floats(bool b16) {
+  return frag_floats(16, 8, b16) + 8 + 72 + 8;
+}
 
 // Tile sizes (rows, columns), largest first: L1 and L3 at full res, L2 at
 // half res (a size whose shared memory exceeds a block's is passed over).
@@ -131,22 +161,25 @@ constexpr int kSlotsF = slots((16 + 2) * (32 + 2));                 // L3 f wind
 constexpr int kSlotsG = slots((16 / 2 + 3) * (32 / 2 + 3));         // L3 s2' window
 
 // shared-memory floats of each level at a tile size
-__host__ __device__ constexpr int l1_floats(int th, int tw, int cin) {
-  return w1_floats(cin) + ((cin > 16 ? cin : 16) + 16) * plane((th + 6) * (tw + 6));
+__host__ __device__ constexpr int l1_floats(int th, int tw, int cin, bool b16) {
+  return w1_floats(cin, b16) + ((cin > 16 ? cin : 16) + 16) * plane((th + 6) * (tw + 6));
 }
-__host__ __device__ constexpr int l2_floats(int th, int tw) {
-  return kW2 + 32 * plane((th + 4) * (tw + 4)) +
+__host__ __device__ constexpr int l2_floats(int th, int tw, bool b16) {
+  return w2_floats(b16) + 32 * plane((th + 4) * (tw + 4)) +
          (8 * plane((2 * th + 9) * (2 * tw + 9)) > 32 * plane((th + 4) * (tw + 4))
               ? 8 * plane((2 * th + 9) * (2 * tw + 9))
               : 32 * plane((th + 4) * (tw + 4)));
 }
-__host__ __device__ constexpr int l3_floats(int th, int tw) {
-  return kW3 + 8 * plane((th + 2) * (tw + 2)) + 16 * plane((th / 2 + 3) * (tw / 2 + 3));
+__host__ __device__ constexpr int l3_floats(int th, int tw, bool b16) {
+  return w3_floats(b16) + 8 * plane((th + 2) * (tw + 2)) +
+         16 * plane((th / 2 + 3) * (tw / 2 + 3));
 }
-static_assert(l1_floats(16, 32, 32) * 4 <= kSmemMax, "L1 tile too large at Cin 32");
-static_assert(l1_floats(32, 32, 16) * 4 <= kSmemMax, "L1 tile too large at Cin 16");
-static_assert(l2_floats(16, 16) * 4 <= kSmemMax, "L2 tile too large");
+static_assert(l1_floats(16, 32, 32, false) * 4 <= kSmemMax, "L1 tile too large at Cin 32");
+static_assert(l1_floats(32, 32, 16, false) * 4 <= kSmemMax, "L1 tile too large at Cin 16");
+static_assert(l2_floats(16, 16, false) * 4 <= kSmemMax, "L2 tile too large");
 
+// (the tensors' pointers carry bfloat16 bits in the bfloat16 mode, all but
+// the softmax state, dv and s1f)
 struct Step {
   const float* cost;  // [Cin, H, W]
   const float* s1;    // [8, H, W]
@@ -156,6 +189,7 @@ struct Step {
   const float* w3;
   float* s1o;         // [8, H, W]
   float* s2o;         // [16, H2, W2]
+  float* s1f;         // bfloat16 mode: s1' in float32 [8, H, W], for L3
   float* score;       // [2H, 2W] if up else [H, W], or null
   float* m;           // softmax state at the score's shape, or null
   float* s;
@@ -188,7 +222,9 @@ __device__ __forceinline__ void load_weights(float* dst, const float* src, int n
 // Channels [0, nch) of a [nch, H, W] tensor, window rows [y0, y0 + R) x
 // columns [x0, x0 + C), into planes of `cs` floats (row pitch C); zeros
 // outside the image. Each thread's window positions are worked out once.
-template <int S>
+// B16: the tensor is bfloat16, upcast with plain loads (cp.async copies 4
+// bytes at least).
+template <int S, bool B16>
 __device__ __forceinline__ void load_window(float* dst, int cs, const float* src, int H, int W,
                                             int nch, int y0, int x0, int R, int C) {
   const long long HW = (long long)H * W;
@@ -201,6 +237,17 @@ __device__ __forceinline__ void load_window(float* dst, int cs, const float* src
     spos[k] = idx < R * C ? idx : -1;
     goff[k] = iy >= 0 && iy < H && ix >= 0 && ix < W ? iy * W + ix : -1;
   }
+  if constexpr (B16) {
+    const bf16_t* sb = reinterpret_cast<const bf16_t*>(src);
+#pragma unroll 1
+    for (int ch = 0; ch < nch; ++ch) {
+      const bf16_t* sc = sb + ch * HW;
+#pragma unroll
+      for (int k = 0; k < S; ++k)
+        if (spos[k] >= 0) dst[ch * cs + spos[k]] = goff[k] >= 0 ? bf2f(__ldg(sc + goff[k])) : 0.f;
+    }
+    return;
+  }
 #pragma unroll 1
   for (int ch = 0; ch < nch; ++ch) {
     const float* sc = src + ch * HW;
@@ -211,20 +258,25 @@ __device__ __forceinline__ void load_window(float* dst, int cs, const float* src
   }
 }
 
-// One 3x3 conv on the tensor cores in 3xTF32. The output pixels are
-// flattened into m16 fragments; the work is dealt to the block's warps in
-// items of MI fragments x NFI n8 fragments of output channels (of the
-// layer's nfr), the MI fragments' MMAs interleaved. loc(p) places output
-// pixel p (any p: Loc); tap(mf, j, d) says whether tap j (ky * 3 + kx)
-// applies to fragment mf (the same for the MI fragments of an item) and
-// sets its offset d; chunk(k) is the plane of the first of input chunk k's
-// 8 channels (planes `cs` apart); w the layer's packed fragments
-// ([chunk][tap][nfr][128]); epi(loc, co, v) gets every output element of
-// the mfrags fragments. The three products of 3xTF32 go to three sums (no
-// MMA waits on another's result within a tap), each run chunk by chunk,
-// tap by tap, whatever MI and NFI are, and added as hi*hi + (lo*hi +
-// hi*lo).
-template <int MI, int NFI, class Place, class Tap, class Chunk, class Epi>
+// One 3x3 conv on the tensor cores. The output pixels are flattened into
+// m16 fragments; the work is dealt to the block's warps in items of MI
+// fragments x NFI n8 fragments of output channels (of the layer's nfr),
+// the MI fragments' MMAs interleaved. loc(p) places output pixel p (any p:
+// Loc); tap(mf, j, d) says whether tap j (ky * 3 + kx) applies to fragment
+// mf (the same for the MI fragments of an item) and sets its offset d;
+// chunk(k) is the plane of the first of input chunk k's 8 channels (planes
+// `cs` apart); epi(loc, co, v) gets every output element of the mfrags
+// fragments.
+//   float32 (3xTF32): w the layer's packed fragments ([chunk][tap][nfr]
+//   [128]); the three products of 3xTF32 go to three sums (no MMA waits on
+//   another's result within a tap), each run chunk by chunk, tap by tap,
+//   whatever MI and NFI are, and added as hi*hi + (lo*hi + hi*lo).
+//   B16: one mma.sync m16n8k16 bf16 a tap over 16 input channels, the
+//   8-channel chunks 2k and 2k+1 (zero past the layer); the A fragment's
+//   channel pairs (2t, 2t+1) of each chunk are read from the float32
+//   planes and rounded to bfloat16 as they are packed; w the layer's
+//   bfloat16 fragments ([chunk of 16][tap][nfr][64 words]).
+template <bool B16, int MI, int NFI, class Place, class Tap, class Chunk, class Epi>
 __device__ __forceinline__ void conv_items(int mfrags, int nfr, int nchunks, int cs,
                                            const float* w, Place loc, Tap tap, Chunk chunk,
                                            Epi epi) {
@@ -240,7 +292,7 @@ __device__ __forceinline__ void conv_items(int mfrags, int nfr, int nchunks, int
       oa[i] = loc((mf0 + i) * 16 + g).a;
       ob[i] = loc((mf0 + i) * 16 + g + 8).a;
     }
-    // three independent sums: hi*hi, lo*hi and hi*lo
+    // three independent sums: hi*hi, lo*hi and hi*lo (B16: the first only)
     float acc[MI][NFI][4], alh[MI][NFI][4], ahl[MI][NFI][4];
 #pragma unroll
     for (int i = 0; i < MI; ++i)
@@ -248,34 +300,65 @@ __device__ __forceinline__ void conv_items(int mfrags, int nfr, int nchunks, int
       for (int n = 0; n < NFI; ++n)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[i][n][q] = alh[i][n][q] = ahl[i][n][q] = 0.f;
+    if constexpr (B16) {
+      const uint32_t* wu = reinterpret_cast<const uint32_t*>(w);
 #pragma unroll 1
-    for (int k = 0; k < nchunks; ++k) {
-      const float* in = chunk(k) + t * cs;
-      const float* wk = w + ((long long)k * 9 * nfr + nf0) * kFrag + lane * 4;
+      for (int k = 0; k < (nchunks + 1) / 2; ++k) {
+        const bool two = 2 * k + 1 < nchunks;
+        const float* c0 = chunk(2 * k) + 2 * t * cs;
+        const float* c1 = two ? chunk(2 * k + 1) + 2 * t * cs : c0;
+        const uint32_t* wk = wu + ((long long)k * 9 * nfr + nf0) * kFragB + lane * 2;
 #pragma unroll
-      for (int j = 0; j < 9; ++j) {
-        int d = 0;
-        if (!tap(mf0, j, d)) continue;
-        float4 b[NFI];
+        for (int j = 0; j < 9; ++j) {
+          int d = 0;
+          if (!tap(mf0, j, d)) continue;
+          uint2 b[NFI];
 #pragma unroll
-        for (int n = 0; n < NFI; ++n)
-          b[n] = *reinterpret_cast<const float4*>(wk + (j * nfr + n) * kFrag);
+          for (int n = 0; n < NFI; ++n)
+            b[n] = *reinterpret_cast<const uint2*>(wk + (j * nfr + n) * kFragB);
 #pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          // A: (pixel g, channel t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
-          const float* pa = in + oa[i] + d;
-          const float* pb = in + ob[i] + d;
-          const float x[4] = {pa[0], pb[0], pa[4 * cs], pb[4 * cs]};
-          uint32_t ah[4], al[4];
+          for (int i = 0; i < MI; ++i) {
+            // A: (pixel g, channels 2t, 2t+1), (g + 8, ..), then 2t+8, 2t+9
+            const float *pa = c0 + oa[i] + d, *pb = c0 + ob[i] + d;
+            const float *qa = c1 + oa[i] + d, *qb = c1 + ob[i] + d;
+            const uint32_t a[4] = {pack_bf16x2(pa[0], pa[cs]), pack_bf16x2(pb[0], pb[cs]),
+                                   two ? pack_bf16x2(qa[0], qa[cs]) : 0u,
+                                   two ? pack_bf16x2(qb[0], qb[cs]) : 0u};
 #pragma unroll
-          for (int q = 0; q < 4; ++q) split_tf32(x[q], ah[q], al[q]);
+            for (int n = 0; n < NFI; ++n) mma_bf16(acc[i][n], a, b[n].x, b[n].y);
+          }
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int k = 0; k < nchunks; ++k) {
+        const float* in = chunk(k) + t * cs;
+        const float* wk = w + ((long long)k * 9 * nfr + nf0) * kFrag + lane * 4;
 #pragma unroll
-          for (int n = 0; n < NFI; ++n) {
-            const uint32_t bh0 = __float_as_uint(b[n].x), bh1 = __float_as_uint(b[n].y);
-            const uint32_t bl0 = __float_as_uint(b[n].z), bl1 = __float_as_uint(b[n].w);
-            mma_tf32(alh[i][n], al, bh0, bh1);
-            mma_tf32(ahl[i][n], ah, bl0, bl1);
-            mma_tf32(acc[i][n], ah, bh0, bh1);
+        for (int j = 0; j < 9; ++j) {
+          int d = 0;
+          if (!tap(mf0, j, d)) continue;
+          float4 b[NFI];
+#pragma unroll
+          for (int n = 0; n < NFI; ++n)
+            b[n] = *reinterpret_cast<const float4*>(wk + (j * nfr + n) * kFrag);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            // A: (pixel g, channel t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+            const float* pa = in + oa[i] + d;
+            const float* pb = in + ob[i] + d;
+            const float x[4] = {pa[0], pb[0], pa[4 * cs], pb[4 * cs]};
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) split_tf32(x[q], ah[q], al[q]);
+#pragma unroll
+            for (int n = 0; n < NFI; ++n) {
+              const uint32_t bh0 = __float_as_uint(b[n].x), bh1 = __float_as_uint(b[n].y);
+              const uint32_t bl0 = __float_as_uint(b[n].z), bl1 = __float_as_uint(b[n].w);
+              mma_tf32(alh[i][n], al, bh0, bh1);
+              mma_tf32(ahl[i][n], ah, bl0, bl1);
+              mma_tf32(acc[i][n], ah, bh0, bh1);
+            }
           }
         }
       }
@@ -289,7 +372,8 @@ __device__ __forceinline__ void conv_items(int mfrags, int nfr, int nchunks, int
         const int co = (nf0 + n) * 8 + 2 * t;
         float v[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) v[q] = acc[i][n][q] + (alh[i][n][q] + ahl[i][n][q]);
+        for (int q = 0; q < 4; ++q)
+          v[q] = B16 ? acc[i][n][q] : acc[i][n][q] + (alh[i][n][q] + ahl[i][n][q]);
         if (la.ok) {
           epi(la, co, v[0]);
           epi(la, co + 1, v[1]);
@@ -308,21 +392,21 @@ __device__ __forceinline__ void conv_items(int mfrags, int nfr, int nchunks, int
 // else one fragment by one n8 fragment (the most items). An A fragment
 // (4 loads, 4 splits) costs ~7x a B fragment (one 16-byte load), so the
 // order is 1 x 4, 2 x 2, 1 x 2, 2 x 1.
-template <class Place, class Tap, class Chunk, class Epi>
+template <bool B16, class Place, class Tap, class Chunk, class Epi>
 __device__ __forceinline__ void conv_mma(int mfrags, int nfr, int nchunks, int cs,
                                          const float* w, Place loc, Tap tap, Chunk chunk,
                                          Epi epi) {
   const int pairs = (mfrags + 1) / 2, nwarps = blockDim.x >> 5;
   if (nfr % 4 == 0 && mfrags * (nfr / 4) >= nwarps)
-    conv_items<1, 4>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
+    conv_items<B16, 1, 4>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
   else if (nfr % 2 == 0 && pairs * (nfr / 2) >= nwarps)
-    conv_items<2, 2>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
+    conv_items<B16, 2, 2>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
   else if (nfr % 2 == 0 && mfrags * (nfr / 2) >= nwarps)
-    conv_items<1, 2>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
+    conv_items<B16, 1, 2>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
   else if (pairs * nfr >= nwarps)
-    conv_items<2, 1>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
+    conv_items<B16, 2, 1>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
   else
-    conv_items<1, 1>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
+    conv_items<B16, 1, 1>(mfrags, nfr, nchunks, cs, w, loc, tap, chunk, epi);
 }
 
 // The output region of a stride-1 conv over a frame of FR x FC (row
@@ -346,11 +430,12 @@ struct Ring {
 
 // L1: x1, the gates and the candidate of the full-res GRU over a tile of
 // s1'. Frame: the tile + a 3-px ring, origin (y0 - 3, x0 - 3).
+template <bool B16>
 __global__ void __launch_bounds__(kGruThreads) red2_level1_kernel(const __grid_constant__ Step p,
                                                                   const Tiling t) {
   extern __shared__ __align__(16) float smem[];
   const int Cin = p.Cin;
-  const int nw = w1_floats(Cin);
+  const int nw = w1_floats(Cin, B16);
   const int FR = t.th + 6, FC = t.tw + 6, CS = plane(FR * FC);
   float* wts = smem;
   float* cst = smem + nw;                    // cost; then r*h1 | u1
@@ -359,11 +444,11 @@ __global__ void __launch_bounds__(kGruThreads) red2_level1_kernel(const __grid_c
   float* rh = cst;
   float* u1 = cst + 8 * CS;
   const float* wc = wts;
-  const float* bc = wc + frag_floats(Cin, 8);
+  const float* bc = wc + frag_floats(Cin, 8, B16);
   const float* wg = bc + 8;
-  const float* bg = wg + frag_floats(16, 16);
+  const float* bg = wg + frag_floats(16, 16, B16);
   const float* wd = bg + 16;
-  const float* bd = wd + frag_floats(16, 8);
+  const float* bd = wd + frag_floats(16, 8, B16);
   load_weights(wts, p.w1, nw);
   cp_async_commit();
 
@@ -375,15 +460,15 @@ __global__ void __launch_bounds__(kGruThreads) red2_level1_kernel(const __grid_c
   for (int tile = blockIdx.x; tile < t.ntiles; tile += gridDim.x) {
     const int fy = (tile / t.tiles_x) * t.th - 3, fx = (tile % t.tiles_x) * t.tw - 3;
     const Ring r1(FR, FC, 1, fy, fx), r2(FR, FC, 2, fy, fx), r3(FR, FC, 3, fy, fx);
-    load_window<kSlots1>(cst, CS, p.cost, p.H, p.W, Cin, fy, fx, FR, FC);
-    load_window<kSlots1>(h1, CS, p.s1, p.H, p.W, 8, fy, fx, FR, FC);
+    load_window<kSlots1, B16>(cst, CS, p.cost, p.H, p.W, Cin, fy, fx, FR, FC);
+    load_window<kSlots1, B16>(h1, CS, p.s1, p.H, p.W, 8, fy, fx, FR, FC);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
 
     // x1 = relu(conv1(cost) + b) over the 2-px ring (0 outside the image:
     // the GRU convs pad x1 with zeros)
-    conv_mma(r1.frags(), 1, Cin / 8, CS, wc, [&](int q) { return r1.loc(q); }, tap,
+    conv_mma<B16>(r1.frags(), 1, Cin / 8, CS, wc, [&](int q) { return r1.loc(q); }, tap,
              [&](int k) { return cst + k * 8 * CS; },
              [&](const Loc& l, int co, float v) {
                const bool in = l.y >= 0 && l.y < p.H && l.x >= 0 && l.x < p.W;
@@ -393,7 +478,7 @@ __global__ void __launch_bounds__(kGruThreads) red2_level1_kernel(const __grid_c
 
     // gates over the 1-px ring: r*h1 (0 outside the image, where h1 is 0)
     // and u1; the cost planes are free now
-    conv_mma(r2.frags(), 2, 2, CS, wg, [&](int q) { return r2.loc(q); }, tap,
+    conv_mma<B16>(r2.frags(), 2, 2, CS, wg, [&](int q) { return r2.loc(q); }, tap,
              [&](int k) { return k == 0 ? x1 : h1; },
              [&](const Loc& l, int co, float v) {
                const float gv = sigmoidf(v + bg[co]);
@@ -403,14 +488,20 @@ __global__ void __launch_bounds__(kGruThreads) red2_level1_kernel(const __grid_c
     __syncthreads();
 
     // candidate over the tile -> s1' = u1*h1 + (1-u1)*tanh(.)
-    conv_mma(r3.frags(), 1, 2, CS, wd, [&](int q) { return r3.loc(q); }, tap,
+    conv_mma<B16>(r3.frags(), 1, 2, CS, wd, [&](int q) { return r3.loc(q); }, tap,
              [&](int k) { return k == 0 ? x1 : rh; },
              [&](const Loc& l, int co, float v) {
                if (l.y >= p.H || l.x >= p.W) return;
                const int o = co * CS + l.o;
                const float u = u1[o], h = h1[o];
-               p.s1o[(long long)co * p.H * p.W + l.y * p.W + l.x] =
-                   u * h + (1.f - u) * tanhf(v + bd[co]);
+               const float r = u * h + (1.f - u) * tanhf(v + bd[co]);
+               const long long e = (long long)co * p.H * p.W + l.y * p.W + l.x;
+               if constexpr (B16) {
+                 reinterpret_cast<bf16_t*>(p.s1o)[e] = f2bf(r);
+                 p.s1f[e] = r;
+               } else {
+                 p.s1o[e] = r;
+               }
              });
     __syncthreads();  // the next tile's copies overwrite the planes
   }
@@ -419,24 +510,25 @@ __global__ void __launch_bounds__(kGruThreads) red2_level1_kernel(const __grid_c
 // L2: x2, the gates and the candidate of the half-res GRU over a tile of
 // s2'. Frame: the tile + a 2-px ring at half res, origin (q0y - 2, q0x - 2);
 // s1' over the full-res window that frame's x2 reads (2 * rows + 1).
+template <bool B16>
 __global__ void __launch_bounds__(kGruThreads) red2_level2_kernel(const __grid_constant__ Step p,
                                                                   const Tiling t) {
   extern __shared__ __align__(16) float smem[];
   const int FR = t.th + 4, FC = t.tw + 4, CS = plane(FR * FC);
   const int SR = 2 * FR + 1, SC = 2 * FC + 1, CSS = plane(SR * SC);
   float* wts = smem;
-  float* x2 = smem + kW2;
+  float* x2 = smem + w2_floats(B16);
   float* h2 = x2 + 16 * CS;
   float* un = h2 + 16 * CS;  // s1' window; then r*h2 | u2
   float* rh = un;
   float* u2 = un + 16 * CS;
   const float* wc = wts;
-  const float* bc = wc + frag_floats(8, 16);
+  const float* bc = wc + frag_floats(8, 16, B16);
   const float* wg = bc + 16;
-  const float* bg = wg + frag_floats(32, 32);
+  const float* bg = wg + frag_floats(32, 32, B16);
   const float* wd = bg + 32;
-  const float* bd = wd + frag_floats(32, 16);
-  load_weights(wts, p.w2, kW2);
+  const float* bd = wd + frag_floats(32, 16, B16);
+  load_weights(wts, p.w2, w2_floats(B16));
   cp_async_commit();
 
   auto tap = [FC](int, int j, int& d) {
@@ -447,16 +539,16 @@ __global__ void __launch_bounds__(kGruThreads) red2_level2_kernel(const __grid_c
   for (int tile = blockIdx.x; tile < t.ntiles; tile += gridDim.x) {
     const int fy = (tile / t.tiles_x) * t.th - 2, fx = (tile % t.tiles_x) * t.tw - 2;
     const Ring r0(FR, FC, 0, fy, fx), r1(FR, FC, 1, fy, fx), r2(FR, FC, 2, fy, fx);
-    load_window<kSlotsS>(un, CSS, p.s1o, p.H, p.W, 8, 2 * fy - p.pad_y, 2 * fx - p.pad_x,
-                         SR, SC);
-    load_window<kSlotsH>(h2, CS, p.s2, p.H2, p.W2, 16, fy, fx, FR, FC);
+    load_window<kSlotsS, B16>(un, CSS, p.s1o, p.H, p.W, 8, 2 * fy - p.pad_y,
+                              2 * fx - p.pad_x, SR, SC);
+    load_window<kSlotsH, B16>(h2, CS, p.s2, p.H2, p.W2, 16, fy, fx, FR, FC);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
 
     // x2 = relu(conv2 stride 2 (s1') + b) over the whole frame: frame
     // pixel (r, c) reads window (2r + ky, 2c + kx)
-    conv_mma(r0.frags(), 2, 1, CSS, wc,
+    conv_mma<B16>(r0.frags(), 2, 1, CSS, wc,
              [&](int q) {
                Loc l = r0.loc(q);
                const int r = l.y - fy, c = l.x - fx;
@@ -475,7 +567,7 @@ __global__ void __launch_bounds__(kGruThreads) red2_level2_kernel(const __grid_c
     __syncthreads();
 
     // gates over the 1-px ring: r*h2 and u2 (the s1' window is free now)
-    conv_mma(r1.frags(), 4, 4, CS, wg, [&](int q) { return r1.loc(q); }, tap,
+    conv_mma<B16>(r1.frags(), 4, 4, CS, wg, [&](int q) { return r1.loc(q); }, tap,
              [&](int k) { return k < 2 ? x2 + k * 8 * CS : h2 + (k - 2) * 8 * CS; },
              [&](const Loc& l, int co, float v) {
                const float gv = sigmoidf(v + bg[co]);
@@ -485,14 +577,16 @@ __global__ void __launch_bounds__(kGruThreads) red2_level2_kernel(const __grid_c
     __syncthreads();
 
     // candidate over the tile -> s2'
-    conv_mma(r2.frags(), 2, 4, CS, wd, [&](int q) { return r2.loc(q); }, tap,
+    conv_mma<B16>(r2.frags(), 2, 4, CS, wd, [&](int q) { return r2.loc(q); }, tap,
              [&](int k) { return k < 2 ? x2 + k * 8 * CS : rh + (k - 2) * 8 * CS; },
              [&](const Loc& l, int co, float v) {
                if (l.y >= p.H2 || l.x >= p.W2) return;
                const int o = co * CS + l.o;
                const float u = u2[o], h = h2[o];
-               p.s2o[(long long)co * p.H2 * p.W2 + l.y * p.W2 + l.x] =
-                   u * h + (1.f - u) * tanhf(v + bd[co]);
+               const float r = u * h + (1.f - u) * tanhf(v + bd[co]);
+               const long long e = (long long)co * p.H2 * p.W2 + l.y * p.W2 + l.x;
+               if constexpr (B16) reinterpret_cast<bf16_t*>(p.s2o)[e] = f2bf(r);
+               else p.s2o[e] = r;
              });
     __syncthreads();
   }
@@ -502,18 +596,24 @@ __global__ void __launch_bounds__(kGruThreads) red2_level2_kernel(const __grid_c
 // (origin (y0 - 1, x0 - 1)), the score over the tile, the softmax update.
 // s2' window: half-res rows from y0/2 - 2, th/2 + 3 of them (the rows the
 // transposed conv reads for f's rows y0 - 1 .. y0 + th).
+template <bool B16>
 __global__ void __launch_bounds__(kDecThreads, 2) red2_level3_kernel(const __grid_constant__ Step p,
                                                                      const Tiling t) {
   extern __shared__ __align__(16) float smem[];
   const int FR = t.th + 2, FC = t.tw + 2, CS = plane(FR * FC);
   const int HR = t.th / 2 + 3, HC = t.tw / 2 + 3, CSH = plane(HR * HC);
   float* wts = smem;
-  float* f = smem + kW3;  // s1', then f in place
+  float* f = smem + w3_floats(B16);  // s1', then f in place
   float* g2 = f + 8 * CS;
   const float* wu = wts;
-  const float* bu = wu + frag_floats(16, 8);
+  const float* bu = wu + frag_floats(16, 8, B16);
   const float* ws = bu + 8;  // [8][3][3], then the bias
-  load_weights(wts, p.w3, kW3);
+  load_weights(wts, p.w3, w3_floats(B16));
+  // the score conv reads f rounded to bfloat16 in the bfloat16 mode
+  auto fr = [](float x) {
+    if constexpr (B16) return bf16_round(x);
+    else return x;
+  };
   cp_async_commit();
 
   // upconv1 by output phase: frame pixel (r, c) = (2a + ry, 2b + rx); the
@@ -527,8 +627,10 @@ __global__ void __launch_bounds__(kDecThreads, 2) red2_level3_kernel(const __gri
 #pragma unroll 1
   for (int tile = blockIdx.x; tile < t.ntiles; tile += gridDim.x) {
     const int y0 = (tile / t.tiles_x) * t.th, x0 = (tile % t.tiles_x) * t.tw;
-    load_window<kSlotsF>(f, CS, p.s1o, p.H, p.W, 8, y0 - 1, x0 - 1, FR, FC);
-    load_window<kSlotsG>(g2, CSH, p.s2o, p.H2, p.W2, 16, y0 / 2 - 2, x0 / 2 - 2, HR, HC);
+    // s1' as float32: in the bfloat16 mode its copy before rounding
+    load_window<kSlotsF, false>(f, CS, B16 ? p.s1f : p.s1o, p.H, p.W, 8, y0 - 1, x0 - 1, FR,
+                                FC);
+    load_window<kSlotsG, B16>(g2, CSH, p.s2o, p.H2, p.W2, 16, y0 / 2 - 2, x0 / 2 - 2, HR, HC);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -541,7 +643,7 @@ __global__ void __launch_bounds__(kDecThreads, 2) red2_level3_kernel(const __gri
     // Y = y0 - 1 + r with y0 even: Y is even where r is odd. Output Y takes
     // the taps ky = Y (mod 2), input row (Y - ky) / 2, window row
     // a + (ry + 3 - ky) / 2; columns alike.
-    conv_mma(4 * fpp, 1, 2, CSH, wu,
+    conv_mma<B16>(4 * fpp, 1, 2, CSH, wu,
              [&](int q) {
                const int ph = q / (16 * fpp);
                const int e = q - ph * 16 * fpp;
@@ -567,7 +669,9 @@ __global__ void __launch_bounds__(kDecThreads, 2) red2_level3_kernel(const __gri
              [&](const Loc& l, int co, float v) {
                const bool in = l.y >= 0 && l.y < p.H && l.x >= 0 && l.x < p.W;
                const int o = co * CS + l.o;
-               f[o] = in ? fmaxf(v + bu[co] + f[o], 0.f) : 0.f;
+               // up1 + bias, rounded in the bfloat16 mode (the TPU kernel
+               // selects its phases with bfloat16 one-hot products)
+               f[o] = in ? fmaxf(fr(v + bu[co]) + f[o], 0.f) : 0.f;
              });
     __syncthreads();
 
@@ -588,7 +692,7 @@ __global__ void __launch_bounds__(kDecThreads, 2) red2_level3_kernel(const __gri
             if ((xs - kx) & 1) continue;
             const float* fo = f + r * FC + ((xs - kx) >> 1) - x0 + 1;
 #pragma unroll
-            for (int ci = 0; ci < 8; ++ci) v = fmaf(wr[(ci * 3 + ky) * 3 + kx], fo[ci * CS], v);
+            for (int ci = 0; ci < 8; ++ci) v = fmaf(wr[(ci * 3 + ky) * 3 + kx], fr(fo[ci * CS]), v);
           }
         }
       } else {
@@ -599,11 +703,14 @@ __global__ void __launch_bounds__(kDecThreads, 2) red2_level3_kernel(const __gri
           for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
             for (int ci = 0; ci < 8; ++ci)
-              v = fmaf(wr[(ci * 3 + ky) * 3 + kx], fo[ci * CS + ky * FC + kx], v);
+              v = fmaf(wr[(ci * 3 + ky) * 3 + kx], fr(fo[ci * CS + ky * FC + kx]), v);
       }
-      v += ws[72];
+      v = fr(v + ws[72]);
       const long long o = (long long)ys * SW + xs;
-      if (p.score) p.score[o] = v;
+      if (p.score) {
+        if constexpr (B16) reinterpret_cast<bf16_t*>(p.score)[o] = f2bf(v);
+        else p.score[o] = v;
+      }
       if (p.m) {
         const float m = p.m[o], mn = fmaxf(m, v);
         const float scale = expf(m - mn), e = expf(v - mn);
@@ -628,18 +735,18 @@ using Kernel = void (*)(Step, Tiling);
 
 // Blocks of a level one SM holds at once at a tile size, read once per
 // device (the kernels' dynamic shared-memory limit is raised first).
-int resident(Kernel k, int level, int threads, int opt, int cin, int bytes) {
-  static int cached[64][3][2][kMaxOpts][3] = {};
-  static bool raised[64][3] = {};
+int resident(Kernel k, int level, int b16, int threads, int opt, int cin, int bytes) {
+  static int cached[64][2][3][2][kMaxOpts][3] = {};
+  static bool raised[64][2][3] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
-  int& n = cached[dev][level][threads == kDecThreads][opt][cin == 8 ? 0 : cin == 16 ? 1 : 2];
+  int& n = cached[dev][b16][level][threads == kDecThreads][opt][cin == 8 ? 0 : cin == 16 ? 1 : 2];
   if (n == 0) {
-    if (!raised[dev][level]) {
+    if (!raised[dev][b16][level]) {
       if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax) !=
           cudaSuccess)
         return 1;
-      raised[dev][level] = true;
+      raised[dev][b16][level] = true;
     }
     int got = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got, k, threads, bytes);
@@ -659,8 +766,8 @@ constexpr bool kFullWaves[3] = {true, false, false};
 // of blocks at least half full), else the smallest; persistent blocks of
 // `threads`, or of kDecThreads where only those take every tile at once.
 template <class Bytes>
-cudaError_t launch(Kernel k, int level, int threads, const TileOpts& opts, int h, int w,
-                   int cin, Bytes bytes, const Step& p, cudaStream_t s) {
+cudaError_t launch(Kernel k, int level, int b16, int threads, const TileOpts& opts, int h,
+                   int w, int cin, Bytes bytes, const Step& p, cudaStream_t s) {
   const int sms = sm_count() > 0 ? sm_count() : 132;
   int opt = 0;
   Tiling t{};
@@ -672,7 +779,7 @@ cudaError_t launch(Kernel k, int level, int threads, const TileOpts& opts, int h
     t.tiles_x = (w + t.tw - 1) / t.tw;
     t.ntiles = ((h + t.th - 1) / t.th) * t.tiles_x;
     cap = (long long)sms *
-          resident(k, level, threads, opt, cin, bytes(t.th, t.tw) * (int)sizeof(float));
+          resident(k, level, b16, threads, opt, cin, bytes(t.th, t.tw) * (int)sizeof(float));
     const long long last = t.ntiles % cap;
     if ((t.ntiles >= sms && (!kFullWaves[level] || last == 0 || 2 * last >= cap)) ||
         opt == opts.n - 1)
@@ -680,7 +787,8 @@ cudaError_t launch(Kernel k, int level, int threads, const TileOpts& opts, int h
   }
   const int nbytes = bytes(t.th, t.tw) * (int)sizeof(float);
   if (threads != kDecThreads && t.ntiles > cap) {
-    const long long half = (long long)sms * resident(k, level, kDecThreads, opt, cin, nbytes);
+    const long long half =
+        (long long)sms * resident(k, level, b16, kDecThreads, opt, cin, nbytes);
     if (t.ntiles <= half) {
       threads = kDecThreads;
       cap = half;
@@ -705,8 +813,41 @@ extern "C" const char* error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Floats of the packed weights (ops/red_step2.py:pack_params) at Cin.
-extern "C" long long red_step2_param_floats(int Cin) { return w1_floats(Cin) + kW2 + kW3; }
+// Floats of the packed weights (ops/red_step2.py:pack_params) at Cin, for
+// red_step2_f32 (bf16 = 0) or red_step2_bf16 (bf16 = 1).
+extern "C" long long red_step2_param_floats(int Cin, int bf16) {
+  return w1_floats(Cin, bf16) + w2_floats(bf16) + w3_floats(bf16);
+}
+
+namespace {
+
+// One step in 3 launches, either mode (see red_step2_f32).
+template <bool B16>
+int step(const float* cost, int Cin, const float* s1, const float* s2, const float* w,
+         float* s1_out, float* s2_out, float* s1f, float* score, float* m, float* s,
+         float* acc, float* pmax, const float* dv, int H, int W, int up, void* stream) {
+  if (Cin != 8 && Cin != 16 && Cin != 32) return kUnsupported;
+  if (H <= 0 || W <= 0 || (!score && !m) || (m && (!s || !acc || !pmax || !dv)) ||
+      (B16 && !s1f))
+    return kBadArgs;
+  cudaStream_t st = (cudaStream_t)stream;
+  Step p;
+  p.cost = cost; p.s1 = s1; p.s2 = s2;
+  p.w1 = w; p.w2 = w + w1_floats(Cin, B16); p.w3 = p.w2 + w2_floats(B16);
+  p.s1o = s1_out; p.s2o = s2_out; p.s1f = s1f; p.score = score;
+  p.m = m; p.s = s; p.acc = acc; p.pmax = pmax; p.dv = dv;
+  p.Cin = Cin; p.H = H; p.W = W; p.H2 = (H + 1) / 2; p.W2 = (W + 1) / 2;
+  p.pad_y = same_pad_lo(H); p.pad_x = same_pad_lo(W); p.up = up ? 1 : 0;
+  RS2_CHECK(launch(red2_level1_kernel<B16>, 0, B16, kGruThreads, kL1Tiles, H, W, Cin,
+                   [Cin](int th, int tw) { return l1_floats(th, tw, Cin, B16); }, p, st));
+  RS2_CHECK(launch(red2_level2_kernel<B16>, 1, B16, kGruThreads, kL2Tiles, p.H2, p.W2, Cin,
+                   [](int th, int tw) { return l2_floats(th, tw, B16); }, p, st));
+  RS2_CHECK(launch(red2_level3_kernel<B16>, 2, B16, kDecThreads, kL3Tiles, H, W, Cin,
+                   [](int th, int tw) { return l3_floats(th, tw, B16); }, p, st));
+  return 0;
+}
+
+}  // namespace
 
 // One RedStep2 step in 3 launches. cost [Cin,H,W], s1 [8,H,W], s2
 // [16,H2,W2] with H2 = ceil(H/2), W2 = ceil(W/2); w the packed weights
@@ -718,22 +859,20 @@ extern "C" int red_step2_f32(const float* cost, int Cin, const float* s1, const 
                              const float* w, float* s1_out, float* s2_out, float* score,
                              float* m, float* s, float* acc, float* pmax, const float* dv,
                              int H, int W, int up, void* stream) {
-  if (Cin != 8 && Cin != 16 && Cin != 32) return kUnsupported;
-  if (H <= 0 || W <= 0 || (!score && !m) || (m && (!s || !acc || !pmax || !dv)))
-    return kBadArgs;
-  cudaStream_t st = (cudaStream_t)stream;
-  Step p;
-  p.cost = cost; p.s1 = s1; p.s2 = s2;
-  p.w1 = w; p.w2 = w + w1_floats(Cin); p.w3 = p.w2 + kW2;
-  p.s1o = s1_out; p.s2o = s2_out; p.score = score;
-  p.m = m; p.s = s; p.acc = acc; p.pmax = pmax; p.dv = dv;
-  p.Cin = Cin; p.H = H; p.W = W; p.H2 = (H + 1) / 2; p.W2 = (W + 1) / 2;
-  p.pad_y = same_pad_lo(H); p.pad_x = same_pad_lo(W); p.up = up ? 1 : 0;
-  RS2_CHECK(launch(red2_level1_kernel, 0, kGruThreads, kL1Tiles, H, W, Cin,
-                   [Cin](int th, int tw) { return l1_floats(th, tw, Cin); }, p, st));
-  RS2_CHECK(launch(red2_level2_kernel, 1, kGruThreads, kL2Tiles, p.H2, p.W2, Cin,
-                   [](int th, int tw) { return l2_floats(th, tw); }, p, st));
-  RS2_CHECK(launch(red2_level3_kernel, 2, kDecThreads, kL3Tiles, H, W, Cin,
-                   [](int th, int tw) { return l3_floats(th, tw); }, p, st));
-  return 0;
+  return step<false>(cost, Cin, s1, s2, w, s1_out, s2_out, nullptr, score, m, s, acc, pmax,
+                     dv, H, W, up, stream);
+}
+
+// The bfloat16 mode: cost, s1, s2, s1_out, s2_out and the score in
+// bfloat16, w packed with bfloat16 fragments (pack_params(..., bfloat16)),
+// s1f [8,H,W] float32 scratch (s1' before its rounding); the softmax state
+// and dv float32.
+extern "C" int red_step2_bf16(const void* cost, int Cin, const void* s1, const void* s2,
+                              const float* w, void* s1_out, void* s2_out, float* s1f,
+                              void* score, float* m, float* s, float* acc, float* pmax,
+                              const float* dv, int H, int W, int up, void* stream) {
+  return step<true>(static_cast<const float*>(cost), Cin, static_cast<const float*>(s1),
+                    static_cast<const float*>(s2), w, static_cast<float*>(s1_out),
+                    static_cast<float*>(s2_out), s1f, static_cast<float*>(score), m, s, acc,
+                    pmax, dv, H, W, up, stream);
 }

@@ -31,7 +31,9 @@
 // What bounds it on an H100: operations. A step is ~31 kflop per full-res
 // pixel against ~150 B of cost, state and score traffic. Done fp32-exact on
 // the tensor cores (3xTF32: 495 / 3 = 165 TFLOP/s) the 384x512 Cin 8 step's
-// 6.14 GFLOP take 0.037 ms, still above its 0.011 ms of memory traffic.
+// 6.14 GFLOP take 0.037 ms, still above its 0.011 ms of memory traffic; in
+// the bfloat16 mode (989 TFLOP/s) 0.006 ms, about its halved traffic. The
+// step takes ~0.45 ms either way: instruction issue and latency bound it.
 //
 // K5, the conv template, is an implicit GEMM on the tensor cores: M = output
 // pixels, N = output channels, K = input channels x taps, with no im2col in
@@ -73,6 +75,23 @@
 //     indexed by blockIdx, each with as many blocks as its tiles: a level's
 //     share of the grid follows its work, the deepest level first.
 //
+// bfloat16 mode (the *_bf16 entries; the JAX package's dtype=bfloat16,
+// precision='bf16'): the template's bfloat16 instance takes 16 input
+// channels a stage, staged as 8 planes of channel pairs (two bfloat16 in
+// a word), so an A fragment is the same 4 words a lane reads in float32
+// and feeds one mma.sync m16n8k16 bf16 (float32 sums) where 3xTF32 issues
+// three m16n8k8; the B fragments are packed once in bfloat16
+// (ops/cf_conv.py:pack_frags_bf16), one 8-byte load a lane. The halo is
+// read from device memory with plain loads (cp.async copies 4 bytes at
+// least; a pair comes from two channel planes). A second (summed) input is
+// added in float32 and the sum rounded to bfloat16, as the TPU kernel
+// rounds a product's operands. Every buffer of the step is bfloat16 as the
+// TPU kernel's scratch is (cost, states, d1-d3, the gates' and
+// candidates' pre-activations, r*h, the decoder's outputs, the score): an
+// output rounds once, after bias and ReLU; the GroupNorm partials are
+// taken from the float32 values before they round, and the statistics,
+// the GroupNorms and the GRU's pointwise arithmetic run in float32.
+//
 // Launches per step: 11 -- conv1, conv2, conv3 (down), the gates of all
 // four levels (one grouped launch), the reset pass (r*h), the candidates
 // of all four levels (grouped), the update pass (h'), upconv3, upconv2,
@@ -89,6 +108,7 @@
 
 #include <cstdint>
 
+#include "bf16.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -99,11 +119,16 @@ constexpr int kMI = 2;            // m16 fragments (tile rows) per warp
 constexpr int kNF = 2;            // n8 fragments per block
 constexpr int kBN = 8 * kNF;      // output channels per block
 constexpr int kTW = 16;           // tile width: one m16 fragment
-constexpr int kCC = 8;            // input channels per stage (one k8 step a tap)
+constexpr int kCC = 8;            // channel planes per stage: 8 channels (one k8 step a
+                                  // tap), or in bfloat16 8 pairs (16 channels, one k16)
 constexpr int kStages = 3;
 constexpr int kMaxRows = kMI * kWarps;  // tile rows when the warps do not split K
 constexpr int kFrag = 128;        // floats of one packed (chunk, tap, n8) fragment
-constexpr int kWF = 9 * kNF * kFrag;    // weight floats per stage
+constexpr int kFragB = 64;        // words of one bfloat16 (chunk, tap, n8) fragment
+// input channels a stage, words of one fragment and weight words per stage
+__host__ __device__ constexpr int chans(bool b16) { return b16 ? 2 * kCC : kCC; }
+__host__ __device__ constexpr int frag_words(bool b16) { return b16 ? kFragB : kFrag; }
+__host__ __device__ constexpr int weight_words(bool b16) { return 9 * kNF * frag_words(b16); }
 constexpr int kVals = kMI * kNF * 4;    // accumulators per thread
 constexpr int kMaxProblems = 4;
 constexpr int kPointThreads = 256;
@@ -134,9 +159,13 @@ struct Halo {
   static constexpr int kIn = kCC * kPlane;
 };
 
-template <int G>
-__host__ __device__ constexpr int stage_floats(int sum) { return kWF + Halo<G>::kIn * (sum ? 2 : 1); }
+template <int G, bool B16>
+__host__ __device__ constexpr int stage_floats(int sum) {
+  return weight_words(B16) + Halo<G>::kIn * (sum ? 2 : 1);
+}
 
+// Tensors are float32, or bfloat16 in the bfloat16 instances (their
+// pointers then carry bfloat16 bits; the weights are packed words).
 struct Problem {
   const float* a;     // [CA, Hi, Wi]
   const float* b;     // concat: [CB, Hi, Wi] after a; sum: [CA, Hi, Wi] added to a
@@ -164,12 +193,13 @@ struct Problems {
 // K5. Block -> (problem, K split, n tile, phase, tile row, tile column),
 // the K splits of a tile side by side, then its n tiles, so that blocks
 // reading one halo run together.
-template <int G>
+template <int G, bool B16>
 __global__ void __launch_bounds__(kThreads) conv_mma_kernel(const __grid_constant__ Problems P) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[kWarps][4];
   using HL = Halo<G>;
   constexpr int kCols = HL::kCols, kPlane = HL::kPlane;
+  constexpr int kFW = frag_words(B16), kWF = weight_words(B16), kCh = chans(B16);
 
   int pi = 0;
 #pragma unroll
@@ -200,9 +230,9 @@ __global__ void __launch_bounds__(kThreads) conv_mma_kernel(const __grid_constan
   } else {
     iy0 = y0 - 1; ix0 = x0 - 4; hrows = p.rows + 1;
   }
-  const int sfl = stage_floats<G>(P.sum);
+  const int sfl = stage_floats<G, B16>(P.sum);
   const long long HWi = (long long)p.Hi * p.Wi;
-  const int nchunks = (p.CI + kCC - 1) / kCC;
+  const int nchunks = (p.CI + kCh - 1) / kCh;
   const int c0 = sk * p.cps, c1 = min(nchunks, c0 + p.cps);  // this split's chunks
 
   // Each thread's copies, the same in every channel and chunk, worked out
@@ -210,10 +240,11 @@ __global__ void __launch_bounds__(kThreads) conv_mma_kernel(const __grid_constan
   // in the input plane or -1 outside the image) and weight pieces (offset
   // in the chunk's fragments or -1 for a fragment past the layer).
   constexpr int kSlots = (HL::kMaxR * kCols + kThreads - 1) / kThreads;
-  constexpr int kWPieces = 9 * kNF * 32;  // 16-byte pieces of a stage's weights
+  constexpr int kFP = kFW / 4;            // 16-byte pieces of a fragment
+  constexpr int kWPieces = 9 * kNF * kFP;  // 16-byte pieces of a stage's weights
   constexpr int kWSlots = (kWPieces + kThreads - 1) / kThreads;
   constexpr int kVSlots = HL::kVec ? (HL::kMaxR * HL::kPieces + kThreads - 1) / kThreads : 1;
-  const bool vec = HL::kVec && p.vec;
+  const bool vec = HL::kVec && !B16 && p.vec;
   int spos[kSlots], goff[kSlots], woff[kWSlots], vpos[kVSlots], voff[kVSlots], vbytes[kVSlots];
 #pragma unroll
   for (int k = 0; k < kVSlots; ++k) {  // 16-byte pieces: ix is a multiple of 4
@@ -237,19 +268,51 @@ __global__ void __launch_bounds__(kThreads) conv_mma_kernel(const __grid_constan
 #pragma unroll
   for (int k = 0; k < kWSlots; ++k) {
     const int e = threadIdx.x + k * kThreads;
-    const int nf = (e >> 5) % kNF, tap = (e >> 5) / kNF;
-    woff[k] = e < kWPieces && nf < nf_act ? (tap * nfr + nf) * kFrag + (e & 31) * 4 : -1;
+    const int nf = (e / kFP) % kNF, tap = (e / kFP) / kNF;
+    woff[k] = e < kWPieces && nf < nf_act ? (tap * nfr + nf) * kFW + (e % kFP) * 4 : -1;
   }
 
   auto load = [&](int chunk, int s) {
     float* st = smem + s * sfl;
-    const float* wsrc = p.w + ((long long)chunk * 9 * nfr + nt * kNF) * kFrag;
+    const float* wsrc = p.w + ((long long)chunk * 9 * nfr + nt * kNF) * kFW;
 #pragma unroll
     for (int k = 0; k < kWSlots; ++k) {
       const int e = threadIdx.x + k * kThreads;
       if (e < kWPieces) cp_async16(st + e * 4, woff[k] >= 0 ? wsrc + woff[k] : p.w, woff[k] >= 0 ? 16 : 0);
     }
     float* in = st + kWF;
+    if constexpr (B16) {
+      // plane c holds channels (2c, 2c+1) of the chunk's 16, a pair a word
+      const bf16_t* pa = reinterpret_cast<const bf16_t*>(p.a);
+      const bf16_t* pb = reinterpret_cast<const bf16_t*>(p.b);
+      uint32_t* iu = reinterpret_cast<uint32_t*>(in);
+      auto chan = [&](int ci) -> const bf16_t* {  // a channel's plane, null past the layer
+        return ci >= p.CI ? nullptr : ci < p.CA ? pa + ci * HWi : pb + (ci - p.CA) * HWi;
+      };
+      auto chan2 = [&](int ci) -> const bf16_t* {  // the summed input's channel
+        return p.sum_b && ci < p.CI ? pb + ci * HWi : nullptr;
+      };
+#pragma unroll 1
+      for (int c = 0; c < kCC; ++c) {
+        const int ci = chunk * kCh + 2 * c;
+        const bf16_t *s0 = chan(ci), *s1 = chan(ci + 1);
+        const bf16_t *t0 = chan2(ci), *t1 = chan2(ci + 1);
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+          if (spos[k] < 0) continue;
+          const int o = goff[k];
+          const uint32_t lo = s0 && o >= 0 ? __ldg(s0 + o) : 0u;
+          const uint32_t hi = s1 && o >= 0 ? __ldg(s1 + o) : 0u;
+          iu[c * kPlane + spos[k]] = lo | (hi << 16);
+          if (P.sum) {
+            const uint32_t lo2 = t0 && o >= 0 ? __ldg(t0 + o) : 0u;
+            const uint32_t hi2 = t1 && o >= 0 ? __ldg(t1 + o) : 0u;
+            iu[HL::kIn + c * kPlane + spos[k]] = lo2 | (hi2 << 16);
+          }
+        }
+      }
+      return;
+    }
 #pragma unroll 2
     for (int c = 0; c < kCC; ++c) {
       const int ci = chunk * kCC + c;
@@ -331,6 +394,32 @@ __global__ void __launch_bounds__(kThreads) conv_mma_kernel(const __grid_constan
         coff = G == kSame ? kx + 3 : (kx & 1) ? 17 : (kx >> 1);
       }
       if (!on || (ord & ksm) != kg) continue;
+      if constexpr (B16) {
+        // A: pair planes tq and tq + 4 at pixels g and g + 8 (channels 2tq,
+        // 2tq+1 and 2tq+8, 2tq+9 of the chunk); B: one 8-byte load a lane
+        const uint32_t* iu = reinterpret_cast<const uint32_t*>(in);
+        uint2 bw[kNF];
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf)
+          if (nf < nf_act)
+            bw[nf] = *reinterpret_cast<const uint2*>(st + ((tap * kNF + nf) * 32 + lane) * 2);
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi) {
+          const int o = ((G == kDown ? 2 * mi : mi) + roff) * kCols + coff;
+          uint32_t x[4] = {iu[o], iu[o + 8], iu[o + 4 * kPlane], iu[o + 4 * kPlane + 8]};
+          if (sum2) {
+            const uint32_t* i2 = iu + HL::kIn;
+            x[0] = add_bf16x2(x[0], i2[o]);
+            x[1] = add_bf16x2(x[1], i2[o + 8]);
+            x[2] = add_bf16x2(x[2], i2[o + 4 * kPlane]);
+            x[3] = add_bf16x2(x[3], i2[o + 4 * kPlane + 8]);
+          }
+#pragma unroll
+          for (int nf = 0; nf < kNF; ++nf)
+            if (nf < nf_act) mma_bf16(acc[mi][nf], x, bw[nf].x, bw[nf].y);
+        }
+        continue;
+      }
       float4 bw[kNF];
 #pragma unroll
       for (int nf = 0; nf < kNF; ++nf)
@@ -471,7 +560,8 @@ __global__ void __launch_bounds__(kThreads) conv_mma_kernel(const __grid_constan
             if (co >= p.CO) continue;
             float v = acc[mi][nf][half * 2 + jj] + __ldg(p.bias + co);
             if (p.relu) v = fmaxf(v, 0.f);
-            p.out[co * HWo + pix] = v;
+            if constexpr (B16) reinterpret_cast<bf16_t*>(p.out)[co * HWo + pix] = f2bf(v);
+            else p.out[co * HWo + pix] = v;
             if (p.partial != nullptr) {
               if (co / p.part == part0) {
                 st0 += v; sq0 += v * v;
@@ -504,43 +594,41 @@ __global__ void __launch_bounds__(kThreads) conv_mma_kernel(const __grid_constan
 
 // Dynamic shared memory above 48 KB needs the attribute, set once per
 // device and kernel to the most the kernel can ask for.
-template <int G>
+template <int G, bool B16>
 cudaError_t allow_smem() {
   static bool done[64] = {false};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 0 && dev < 64 && done[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(conv_mma_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kStages * stage_floats<G>(1) * (int)sizeof(float));
+  e = cudaFuncSetAttribute(conv_mma_kernel<G, B16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kStages * stage_floats<G, B16>(1) * (int)sizeof(float));
   if (e == cudaSuccess && dev >= 0 && dev < 64) done[dev] = true;
   return e;
 }
 
 // Blocks of the conv template one SM holds at once (shared memory and
-// registers), per geometry and second-halo flag, read once per device.
-inline int resident(int geom, int sum) {
+// registers), per instance (geometry, float32 or bfloat16) and second-halo
+// flag, read once per device.
+template <int G, bool B16>
+int occupancy(int sum) {
+  int got = 0;
+  if (allow_smem<G, B16>() == cudaSuccess)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &got, conv_mma_kernel<G, B16>, kThreads,
+        kStages * stage_floats<G, B16>(sum) * (int)sizeof(float));
+  return got;
+}
+
+template <bool B16>
+int resident(int geom, int sum) {
   static int cached[64][3][2] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
   int& n = cached[dev][geom][sum];
   if (n == 0) {
-    cudaError_t e;
-    if (geom == kSame) e = allow_smem<kSame>();
-    else if (geom == kDown) e = allow_smem<kDown>();
-    else e = allow_smem<kUp>();
-    int got = 0;
-    if (e == cudaSuccess) {
-      const int bytes = kStages * (int)sizeof(float) *
-                        (geom == kSame ? stage_floats<kSame>(sum)
-                         : geom == kDown ? stage_floats<kDown>(sum) : stage_floats<kUp>(sum));
-      if (geom == kSame)
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got, conv_mma_kernel<kSame>, kThreads, bytes);
-      else if (geom == kDown)
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got, conv_mma_kernel<kDown>, kThreads, bytes);
-      else
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got, conv_mma_kernel<kUp>, kThreads, bytes);
-    }
+    const int got = geom == kSame ? occupancy<kSame, B16>(sum)
+                    : geom == kDown ? occupancy<kDown, B16>(sum) : occupancy<kUp, B16>(sum);
     n = got > 0 ? got : 1;
   }
   return n;
@@ -561,14 +649,15 @@ struct Tile {
   int ks, rows, S, cps, tiles_x, tiles_y, ntiles, phases, tiles, nblocks;
 };
 
-inline Tile tile_for(int geom, int sum, int CI, int CO, int Hs, int Ws) {
+template <bool B16>
+Tile tile_for(int geom, int sum, int CI, int CO, int Hs, int Ws) {
   Tile t;
   t.phases = geom == kUp ? 4 : 1;
   t.ntiles = (CO + kBN - 1) / kBN;
   t.tiles_x = (Ws + kTW - 1) / kTW;
-  const int nchunks = (CI + kCC - 1) / kCC;
+  const int nchunks = (CI + chans(B16) - 1) / chans(B16);
   const long long sms = sm_count() > 0 ? sm_count() : 1;
-  const long long cap = sms * resident(geom, sum);
+  const long long cap = sms * resident<B16>(geom, sum);
   for (int ks = 1;; ks *= 2) {
     t.ks = ks;
     t.rows = kMaxRows / ks;
@@ -606,6 +695,7 @@ inline int same_pad_lo(int n) {
   return total > 0 ? total / 2 : 0;
 }
 
+template <bool B16>
 Problem problem(const float* a, int CA, const float* b, int CB, int sum_b,
                 const float* w, const float* bias, int CO, int Hi, int Wi,
                 int geom, float* out, int relu, float* partial = nullptr,
@@ -619,20 +709,20 @@ Problem problem(const float* a, int CA, const float* b, int CB, int sum_b,
   p.Wo = geom == kUp ? 2 * Wi : geom == kDown ? (Wi + 1) / 2 : Wi;
   p.pad_y = same_pad_lo(Hi); p.pad_x = same_pad_lo(Wi);
   p.vec = geom != kDown && Wi % 4 == 0 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
-  const Tile t = tile_for(geom, sum_b, p.CI, CO, geom == kUp ? Hi : p.Ho,
-                         geom == kUp ? Wi : p.Wo);
+  const Tile t = tile_for<B16>(geom, sum_b, p.CI, CO, geom == kUp ? Hi : p.Ho,
+                              geom == kUp ? Wi : p.Wo);
   p.ks = t.ks; p.rows = t.rows; p.S = t.S; p.cps = t.cps;
   p.tiles_x = t.tiles_x; p.tiles_y = t.tiles_y; p.ntiles = t.ntiles;
   p.phases = t.phases; p.tiles = t.tiles; p.nblocks = t.nblocks;
   return p;
 }
 
-template <int G>
+template <int G, bool B16>
 cudaError_t launch_geom(const Problems& P, int nblocks, cudaStream_t s) {
-  const cudaError_t e = allow_smem<G>();
+  const cudaError_t e = allow_smem<G, B16>();
   if (e != cudaSuccess) return e;
-  const int bytes = kStages * stage_floats<G>(P.sum) * (int)sizeof(float);
-  conv_mma_kernel<G><<<nblocks, kThreads, bytes, s>>>(P);
+  const int bytes = kStages * stage_floats<G, B16>(P.sum) * (int)sizeof(float);
+  conv_mma_kernel<G, B16><<<nblocks, kThreads, bytes, s>>>(P);
   return cudaGetLastError();
 }
 
@@ -640,6 +730,7 @@ cudaError_t launch_geom(const Problems& P, int nblocks, cudaStream_t s) {
 // geometry, in the order given (put the deepest first: its blocks are the
 // longest and start first). `split` and `tickets` hold the K splits'
 // scratch (split_need of the launch's tilings; the tickets all 0).
+template <bool B16>
 cudaError_t convs(int geom, const Problem* ps, int n, float* split, int* tickets,
                   cudaStream_t s) {
   Problems P = {};
@@ -658,15 +749,16 @@ cudaError_t convs(int geom, const Problem* ps, int n, float* split, int* tickets
     }
   }
   if (first == 0) return cudaSuccess;
-  if (geom == kSame) return launch_geom<kSame>(P, first, s);
-  if (geom == kDown) return launch_geom<kDown>(P, first, s);
-  return launch_geom<kUp>(P, first, s);
+  if (geom == kSame) return launch_geom<kSame, B16>(P, first, s);
+  if (geom == kDown) return launch_geom<kDown, B16>(P, first, s);
+  return launch_geom<kUp, B16>(P, first, s);
 }
 
 // ---------------------------------------------------------------------------
 // the GRU's pointwise passes, each reducing the GroupNorm partials it needs
 // ---------------------------------------------------------------------------
 
+// (the tensors in bfloat16 in the bfloat16 instances, as Problem's)
 struct GruLevel {
   const float* gp;  // gates pre-activation [2C, H, W] (r, then u)
   const float* h;   // state [C, H, W]
@@ -685,6 +777,18 @@ struct GruLevels {
 };
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+
+// element i of a step tensor as float32, and a float32 stored into one
+template <bool B16>
+__device__ __forceinline__ float ld_el(const float* p, long long i) {
+  if constexpr (B16) return bf2f(reinterpret_cast<const bf16_t*>(p)[i]);
+  else return p[i];
+}
+template <bool B16>
+__device__ __forceinline__ void st_el(float* p, long long i, float v) {
+  if constexpr (B16) reinterpret_cast<bf16_t*>(p)[i] = f2bf(v);
+  else p[i] = v;
+}
 
 __device__ __forceinline__ float gn_apply(float x, const float* st, float w, float b) {
   return (x - st[0]) * (st[1] * w) + b;
@@ -746,11 +850,12 @@ __device__ void reduce_stats(const GruLevels& L, bool cand, float (*st)[6]) {
 
 // r*h with r = sigmoid(GN_r(g[:C])), all four levels in one launch; block 0
 // keeps the r/u statistics for the update pass
+template <bool B16>
 __global__ void __launch_bounds__(kPointThreads) gru_reset_kernel(const __grid_constant__ GruLevels L) {
-  __shared__ float st[4][6];
-  reduce_stats(L, false, st);
+  __shared__ float stat[4][6];
+  reduce_stats(L, false, stat);
   if (blockIdx.x == 0 && threadIdx.x < 16)
-    L.stats[(threadIdx.x >> 2) * 6 + (threadIdx.x & 3)] = st[threadIdx.x >> 2][threadIdx.x & 3];
+    L.stats[(threadIdx.x >> 2) * 6 + (threadIdx.x & 3)] = stat[threadIdx.x >> 2][threadIdx.x & 3];
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < L.start[4];
        e += stride) {
@@ -759,15 +864,16 @@ __global__ void __launch_bounds__(kPointThreads) gru_reset_kernel(const __grid_c
     const GruLevel& v = L.l[l];
     const int i = (int)(e - L.start[l]);  // a level holds < 2^31 elements
     const int c = i / v.HW;
-    const float r = sigmoidf_(gn_apply(v.gp[i], st[l], v.gn[c], v.gn[v.C + c]));
-    v.out[i] = r * v.h[i];
+    const float r = sigmoidf_(gn_apply(ld_el<B16>(v.gp, i), stat[l], v.gn[c], v.gn[v.C + c]));
+    st_el<B16>(v.out, i, r * ld_el<B16>(v.h, i));
   }
 }
 
 // h' = u*h + (1-u)*tanh(GN_o(cp)) with u = sigmoid(GN_u(g[C:]))
+template <bool B16>
 __global__ void __launch_bounds__(kPointThreads) gru_update_kernel(const __grid_constant__ GruLevels L) {
-  __shared__ float st[4][6];
-  reduce_stats(L, true, st);
+  __shared__ float stat[4][6];
+  reduce_stats(L, true, stat);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < L.start[4];
        e += stride) {
@@ -777,10 +883,12 @@ __global__ void __launch_bounds__(kPointThreads) gru_update_kernel(const __grid_
     const int i = (int)(e - L.start[l]);
     const int C = v.C;
     const int c = i / v.HW;
-    const float u = sigmoidf_(gn_apply(v.gp[(long long)C * v.HW + i], L.stats + 6 * l + 2,
-                                       v.gn[2 * C + c], v.gn[3 * C + c]));
-    const float o = tanhf(gn_apply(v.cp[i], st[l] + 4, v.gn[4 * C + c], v.gn[5 * C + c]));
-    v.out[i] = u * v.h[i] + (1.f - u) * o;
+    const float u = sigmoidf_(gn_apply(ld_el<B16>(v.gp, (long long)C * v.HW + i),
+                                       L.stats + 6 * l + 2, v.gn[2 * C + c], v.gn[3 * C + c]));
+    const float o = tanhf(gn_apply(ld_el<B16>(v.cp, i), stat[l] + 4, v.gn[4 * C + c],
+                                   v.gn[5 * C + c]));
+    const float h = ld_el<B16>(v.h, i);
+    st_el<B16>(v.out, i, u * h + (1.f - u) * o);
   }
 }
 
@@ -793,8 +901,11 @@ constexpr int kLayers = 15;
 inline int r8(int n) { return (n + 7) / 8 * 8; }
 
 // Floats of one packed conv layer: (Ci/8 chunks) x 9 taps x (Co/8 n8
-// fragments) x 32 lanes x (b0, b1) x (hi, lo), channels rounded up to 8.
-inline long long frag_floats(int ci, int co) { return (long long)r8(ci) * r8(co) * 18; }
+// fragments) x 32 lanes x (b0, b1) x (hi, lo), channels rounded up to 8;
+// in bfloat16, (Ci/16 chunks) x 9 x (Co/8) x 32 lanes x 4 bfloat16.
+inline long long frag_floats(int ci, int co, bool b16) {
+  return b16 ? (long long)((ci + 15) / 16 * 16) * r8(co) * 9 / 2 : (long long)r8(ci) * r8(co) * 18;
+}
 
 // (in, out) channels of the packed layers, in packing order: conv1-3,
 // gates/cand of gru1-4, upconv3/2/1, out2d
@@ -812,14 +923,14 @@ inline void layer_shapes(int Cin, int ci[kLayers], int co[kLayers]) {
 
 // each layer: its fragments, then its bias padded to a multiple of 8 (so
 // every layer's fragments start 32-byte aligned); then the GN vectors
-long long param_floats(int Cin, const float* base, const float* w[kLayers],
+long long param_floats(int Cin, bool b16, const float* base, const float* w[kLayers],
                        const float* bias[kLayers], const float** gn) {
   int ci[kLayers], co[kLayers];
   layer_shapes(Cin, ci, co);
   long long off = 0;
   for (int i = 0; i < kLayers; ++i) {
     if (w != nullptr) w[i] = base + off;
-    off += frag_floats(ci[i], co[i]);
+    off += frag_floats(ci[i], co[i], b16);
     if (bias != nullptr) bias[i] = base + off;
     off += r8(co[i]);
   }
@@ -834,6 +945,7 @@ struct Plan {
   long long tickets;  // the K splits' tickets, in their own zeroed buffer
 };
 
+template <bool B16>
 Plan plan(int Cin, int H, int W) {
   Plan q;
   long long off = 0;
@@ -852,15 +964,15 @@ Plan plan(int Cin, int H, int W) {
   const int xc[4] = {Cin, 16, 32, 64};
   Tile down[3], gates[4], cands[4], dec[4];
   for (int l = 0; l < 3; ++l)
-    down[l] = tile_for(kDown, 0, xc[l], 16 << l, q.H[l + 1], q.W[l + 1]);
+    down[l] = tile_for<B16>(kDown, 0, xc[l], 16 << l, q.H[l + 1], q.W[l + 1]);
   for (int l = 0; l < 4; ++l) {
-    gates[l] = tile_for(kSame, 0, xc[l] + kHidden[l], 2 * kHidden[l], q.H[l], q.W[l]);
-    cands[l] = tile_for(kSame, 0, xc[l] + kHidden[l], kHidden[l], q.H[l], q.W[l]);
+    gates[l] = tile_for<B16>(kSame, 0, xc[l] + kHidden[l], 2 * kHidden[l], q.H[l], q.W[l]);
+    cands[l] = tile_for<B16>(kSame, 0, xc[l] + kHidden[l], kHidden[l], q.H[l], q.W[l]);
   }
-  dec[0] = tile_for(kUp, 0, 64, 32, q.H[3], q.W[3]);
-  dec[1] = tile_for(kUp, 1, 32, 16, q.H[2], q.W[2]);
-  dec[2] = tile_for(kUp, 1, 16, 8, q.H[1], q.W[1]);
-  dec[3] = tile_for(kSame, 1, 8, 1, q.H[0], q.W[0]);
+  dec[0] = tile_for<B16>(kUp, 0, 64, 32, q.H[3], q.W[3]);
+  dec[1] = tile_for<B16>(kUp, 1, 32, 16, q.H[2], q.W[2]);
+  dec[2] = tile_for<B16>(kUp, 1, 16, 8, q.H[1], q.W[1]);
+  dec[3] = tile_for<B16>(kSame, 1, 8, 1, q.H[0], q.W[0]);
   long long split = 0;
   q.tickets = 0;
   auto need = [&](const Tile* ts, int n) {
@@ -910,64 +1022,27 @@ extern "C" const char* error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-inline Tile conv_tile(int Ci, int Co, int H, int W, int mode) {
+template <bool B16>
+Tile conv_tile(int Ci, int Co, int H, int W, int mode) {
   const bool up = mode == kUp;
-  return tile_for(mode, 0, Ci, Co, up ? H : mode == kDown ? (H + 1) / 2 : H,
-                  up ? W : mode == kDown ? (W + 1) / 2 : W);
+  return tile_for<B16>(mode, 0, Ci, Co, up ? H : mode == kDown ? (H + 1) / 2 : H,
+                       up ? W : mode == kDown ? (W + 1) / 2 : W);
 }
 
-// K5 on its own. x [Ci,H,W], w packed fragments (ops/cf_conv.py:pack_weight,
-// 16-byte aligned), b [Co]; mode 0 'same' -> out [Co,H,W], 1 'down' ->
-// [Co,ceil(H/2),ceil(W/2)], 2 'up' -> [Co,2H,2W]. scratch and tickets (all
-// 0, and left so) as cf_conv3x3_scratch_floats and cf_conv3x3_tickets say.
-extern "C" int cf_conv3x3_f32(const float* x, const float* w, const float* b,
-                              int Ci, int Co, int H, int W, int mode, int relu,
-                              float* out, float* scratch, int* tickets, void* stream) {
+template <bool B16>
+int conv3x3(const float* x, const float* w, const float* b, int Ci, int Co, int H, int W,
+            int mode, int relu, float* out, float* scratch, int* tickets, void* stream) {
   if (mode < kSame || mode > kUp || Ci < 1 || Co < 1 || (uintptr_t)w % 16) return kBadParams;
-  const Problem p = problem(x, Ci, nullptr, 0, 0, w, b, Co, H, W, mode, out, relu);
-  return (int)convs(mode, &p, 1, scratch, tickets, (cudaStream_t)stream);
+  const Problem p = problem<B16>(x, Ci, nullptr, 0, 0, w, b, Co, H, W, mode, out, relu);
+  return (int)convs<B16>(mode, &p, 1, scratch, tickets, (cudaStream_t)stream);
 }
 
-extern "C" long long cf_conv3x3_scratch_floats(int Ci, int Co, int H, int W, int mode) {
-  long long f = 0, t = 0;
-  split_need(conv_tile(Ci, Co, H, W, mode), &f, &t);
-  return f;
-}
-
-extern "C" long long cf_conv3x3_tickets(int Ci, int Co, int H, int W, int mode) {
-  long long f = 0, t = 0;
-  split_need(conv_tile(Ci, Co, H, W, mode), &f, &t);
-  return t;
-}
-
-// Floats of the packed parameter buffer red_step4_f32 reads.
-extern "C" long long red_step4_param_floats(int Cin) {
-  return param_floats(Cin, nullptr, nullptr, nullptr, nullptr);
-}
-
-// Floats of the scratch buffer red_step4_f32 needs at Cin x H x W.
-extern "C" long long red_step4_scratch_floats(int Cin, int H, int W) {
-  return plan(Cin, H, W).total;
-}
-
-// Tickets (ints, all 0, and left so) red_step4_f32 needs at Cin x H x W.
-extern "C" long long red_step4_tickets(int Cin, int H, int W) {
-  return plan(Cin, H, W).tickets;
-}
-
-// One RedStep4 step. cost [Cin,H,W], states h1 [8,H,W] .. h4 [64,H/8,W/8];
-// params packed as red_step4_param_floats describes (ops/red_step4.py:
-// pack_params: each layer's fragments then its padded bias, the cost's
-// negation folded in; then the GN vectors per level), 16-byte aligned.
-// Writes score [H,W] and the new states; the inputs are not modified.
-// *conv_launches receives the launches of the conv template (9 of the
-// step's 11).
-extern "C" int red_step4_f32(const float* cost, int Cin, const float* s1,
-                             const float* s2, const float* s3, const float* s4,
-                             const float* params, float* score, float* h1n,
-                             float* h2n, float* h3n, float* h4n, float* scratch,
-                             int* tickets, int H, int W, int* conv_launches,
-                             void* stream) {
+// One RedStep4 step of either type (see red_step4_f32).
+template <bool B16>
+int step(const float* cost, int Cin, const float* s1, const float* s2, const float* s3,
+         const float* s4, const float* params, float* score, float* h1n, float* h2n,
+         float* h3n, float* h4n, float* scratch, int* tickets, int H, int W,
+         int* conv_launches, void* stream) {
   *conv_launches = 0;
   if (H % 8 || W % 8 || H <= 0 || W <= 0) return kBadShape;
   if (Cin < 1 || (uintptr_t)params % 16) return kBadParams;
@@ -975,8 +1050,8 @@ extern "C" int red_step4_f32(const float* cost, int Cin, const float* s1,
   const float* w[kLayers];
   const float* bias[kLayers];
   const float* gn;
-  param_floats(Cin, params, w, bias, &gn);
-  const Plan q = plan(Cin, H, W);
+  param_floats(Cin, B16, params, w, bias, &gn);
+  const Plan q = plan<B16>(Cin, H, W);
   float* split = scratch + q.split;
   float* d[3] = {scratch + q.d[0], scratch + q.d[1], scratch + q.d[2]};
   const float* h[4] = {s1, s2, s3, s4};
@@ -987,19 +1062,19 @@ extern "C" int red_step4_f32(const float* cost, int Cin, const float* s1,
   const float* x[4] = {cost, d[0], d[1], d[2]};
   const int xc[4] = {Cin, 16, 32, 64};
   for (int l = 0; l < 3; ++l) {
-    const Problem p = problem(x[l], xc[l], nullptr, 0, 0, w[l], bias[l], 16 << l,
-                              q.H[l], q.W[l], kDown, d[l], 1);
-    RS4_CHECK(convs(kDown, &p, 1, split, tickets, s));
+    const Problem p = problem<B16>(x[l], xc[l], nullptr, 0, 0, w[l], bias[l], 16 << l,
+                                   q.H[l], q.W[l], kDown, d[l], 1);
+    RS4_CHECK(convs<B16>(kDown, &p, 1, split, tickets, s));
     ++n;
   }
   // gates of every level in one launch, deepest first, with GN partials
   Problem gates[4], cands[4];
   for (int i = 0; i < 4; ++i) {
     const int l = 3 - i, C = kHidden[l];
-    gates[i] = problem(x[l], xc[l], h[l], C, 0, w[3 + 2 * l], bias[3 + 2 * l], 2 * C,
-                       q.H[l], q.W[l], kSame, scratch + q.gp[l], 0, scratch + q.pg[l], C);
+    gates[i] = problem<B16>(x[l], xc[l], h[l], C, 0, w[3 + 2 * l], bias[3 + 2 * l], 2 * C,
+                            q.H[l], q.W[l], kSame, scratch + q.gp[l], 0, scratch + q.pg[l], C);
   }
-  RS4_CHECK(convs(kSame, gates, 4, split, tickets, s));
+  RS4_CHECK(convs<B16>(kSame, gates, 4, split, tickets, s));
   ++n;
 
   GruLevels L;
@@ -1017,16 +1092,17 @@ extern "C" int red_step4_f32(const float* cost, int Cin, const float* s1,
   L.start[4] = total;
   L.stats = scratch + q.stats;
   const unsigned pblocks = point_blocks(total);
-  gru_reset_kernel<<<pblocks, kPointThreads, 0, s>>>(L);
+  gru_reset_kernel<B16><<<pblocks, kPointThreads, 0, s>>>(L);
   RS4_CHECK(cudaGetLastError());
 
   // candidates of every level on [x, r*h], one launch, with GN partials
   for (int i = 0; i < 4; ++i) {
     const int l = 3 - i, C = kHidden[l];
-    cands[i] = problem(x[l], xc[l], scratch + q.rh[l], C, 0, w[4 + 2 * l], bias[4 + 2 * l],
-                       C, q.H[l], q.W[l], kSame, scratch + q.cp[l], 0, scratch + q.pc[l], C);
+    cands[i] = problem<B16>(x[l], xc[l], scratch + q.rh[l], C, 0, w[4 + 2 * l],
+                            bias[4 + 2 * l], C, q.H[l], q.W[l], kSame, scratch + q.cp[l], 0,
+                            scratch + q.pc[l], C);
   }
-  RS4_CHECK(convs(kSame, cands, 4, split, tickets, s));
+  RS4_CHECK(convs<B16>(kSame, cands, 4, split, tickets, s));
   ++n;
 
   for (int l = 0; l < 4; ++l) {
@@ -1034,7 +1110,7 @@ extern "C" int red_step4_f32(const float* cost, int Cin, const float* s1,
     L.l[l].nbc = cands[3 - l].tiles;
     L.l[l].ntc = cands[3 - l].ntiles;
   }
-  gru_update_kernel<<<pblocks, kPointThreads, 0, s>>>(L);
+  gru_update_kernel<B16><<<pblocks, kPointThreads, 0, s>>>(L);
   RS4_CHECK(cudaGetLastError());
 
   // decoder: each transposed conv reads its skip sum on load
@@ -1042,14 +1118,95 @@ extern "C" int red_step4_f32(const float* cost, int Cin, const float* s1,
   float* u2 = scratch + q.u[1];
   float* u3 = scratch + q.u[2];
   const Problem dec[4] = {
-      problem(hn[3], 64, nullptr, 0, 0, w[11], bias[11], 32, q.H[3], q.W[3], kUp, u3, 1),
-      problem(u3, 32, hn[2], 32, 1, w[12], bias[12], 16, q.H[2], q.W[2], kUp, u2, 1),
-      problem(u2, 16, hn[1], 16, 1, w[13], bias[13], 8, q.H[1], q.W[1], kUp, u1, 1),
-      problem(u1, 8, hn[0], 8, 1, w[14], bias[14], 1, q.H[0], q.W[0], kSame, score, 0)};
+      problem<B16>(hn[3], 64, nullptr, 0, 0, w[11], bias[11], 32, q.H[3], q.W[3], kUp, u3, 1),
+      problem<B16>(u3, 32, hn[2], 32, 1, w[12], bias[12], 16, q.H[2], q.W[2], kUp, u2, 1),
+      problem<B16>(u2, 16, hn[1], 16, 1, w[13], bias[13], 8, q.H[1], q.W[1], kUp, u1, 1),
+      problem<B16>(u1, 8, hn[0], 8, 1, w[14], bias[14], 1, q.H[0], q.W[0], kSame, score, 0)};
   for (int i = 0; i < 4; ++i) {
-    RS4_CHECK(convs(i < 3 ? kUp : kSame, dec + i, 1, split, tickets, s));
+    RS4_CHECK(convs<B16>(i < 3 ? kUp : kSame, dec + i, 1, split, tickets, s));
     ++n;
   }
   *conv_launches = n;
   return 0;
+}
+
+// K5 on its own. x [Ci,H,W], w packed fragments (ops/cf_conv.py:pack_weight,
+// 16-byte aligned), b [Co]; mode 0 'same' -> out [Co,H,W], 1 'down' ->
+// [Co,ceil(H/2),ceil(W/2)], 2 'up' -> [Co,2H,2W]. scratch and tickets (all
+// 0, and left so) as cf_conv3x3_scratch_floats and cf_conv3x3_tickets say.
+extern "C" int cf_conv3x3_f32(const float* x, const float* w, const float* b,
+                              int Ci, int Co, int H, int W, int mode, int relu,
+                              float* out, float* scratch, int* tickets, void* stream) {
+  return conv3x3<false>(x, w, b, Ci, Co, H, W, mode, relu, out, scratch, tickets, stream);
+}
+
+// The bfloat16 mode: x and out in bfloat16, w the bfloat16 fragments
+// (ops/cf_conv.py:pack_frags_bf16), b float32.
+extern "C" int cf_conv3x3_bf16(const void* x, const float* w, const float* b,
+                               int Ci, int Co, int H, int W, int mode, int relu,
+                               void* out, float* scratch, int* tickets, void* stream) {
+  return conv3x3<true>(static_cast<const float*>(x), w, b, Ci, Co, H, W, mode, relu,
+                       static_cast<float*>(out), scratch, tickets, stream);
+}
+
+extern "C" long long cf_conv3x3_scratch_floats(int Ci, int Co, int H, int W, int mode,
+                                               int bf16) {
+  long long f = 0, t = 0;
+  split_need(bf16 ? conv_tile<true>(Ci, Co, H, W, mode) : conv_tile<false>(Ci, Co, H, W, mode),
+             &f, &t);
+  return f;
+}
+
+extern "C" long long cf_conv3x3_tickets(int Ci, int Co, int H, int W, int mode, int bf16) {
+  long long f = 0, t = 0;
+  split_need(bf16 ? conv_tile<true>(Ci, Co, H, W, mode) : conv_tile<false>(Ci, Co, H, W, mode),
+             &f, &t);
+  return t;
+}
+
+// Floats of the packed parameter buffer red_step4_f32 (bf16 = 0) or
+// red_step4_bf16 (bf16 = 1) reads.
+extern "C" long long red_step4_param_floats(int Cin, int bf16) {
+  return param_floats(Cin, bf16 != 0, nullptr, nullptr, nullptr, nullptr);
+}
+
+// Floats of the scratch buffer a step needs at Cin x H x W (bfloat16
+// buffers take the same slots).
+extern "C" long long red_step4_scratch_floats(int Cin, int H, int W, int bf16) {
+  return bf16 ? plan<true>(Cin, H, W).total : plan<false>(Cin, H, W).total;
+}
+
+// Tickets (ints, all 0, and left so) a step needs at Cin x H x W.
+extern "C" long long red_step4_tickets(int Cin, int H, int W, int bf16) {
+  return bf16 ? plan<true>(Cin, H, W).tickets : plan<false>(Cin, H, W).tickets;
+}
+
+// One RedStep4 step. cost [Cin,H,W], states h1 [8,H,W] .. h4 [64,H/8,W/8];
+// params packed as red_step4_param_floats describes (ops/red_step4.py:
+// pack_params: each layer's fragments then its padded bias, the cost's
+// negation folded in; then the GN vectors per level), 16-byte aligned.
+// Writes score [H,W] and the new states; the inputs are not modified.
+// *conv_launches receives the launches of the conv template (9 of the
+// step's 11).
+extern "C" int red_step4_f32(const float* cost, int Cin, const float* s1,
+                             const float* s2, const float* s3, const float* s4,
+                             const float* params, float* score, float* h1n,
+                             float* h2n, float* h3n, float* h4n, float* scratch,
+                             int* tickets, int H, int W, int* conv_launches,
+                             void* stream) {
+  return step<false>(cost, Cin, s1, s2, s3, s4, params, score, h1n, h2n, h3n, h4n, scratch,
+                     tickets, H, W, conv_launches, stream);
+}
+
+// The bfloat16 mode: cost, states and score in bfloat16, params packed with
+// bfloat16 fragments (pack_params(..., torch.bfloat16)).
+extern "C" int red_step4_bf16(const void* cost, int Cin, const void* s1, const void* s2,
+                              const void* s3, const void* s4, const float* params,
+                              void* score, void* h1n, void* h2n, void* h3n, void* h4n,
+                              float* scratch, int* tickets, int H, int W,
+                              int* conv_launches, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto g = [](void* p) { return static_cast<float*>(p); };
+  return step<true>(f(cost), Cin, f(s1), f(s2), f(s3), f(s4), params, g(score), g(h1n),
+                    g(h2n), g(h3n), g(h4n), scratch, tickets, H, W, conv_launches, stream);
 }

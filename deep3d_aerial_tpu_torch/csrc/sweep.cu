@@ -69,8 +69,19 @@
 //   chain's (ops/warp.py) do. Sums over views stay in view order, and
 //   there are no atomics: the same bits on every run.
 // - Offsets are 64-bit (the 1856x2752 frame); ragged edges are masked.
+// - bfloat16 mode (the *_bf16 entries; the JAX package's dtype=bfloat16):
+//   the features are read as they are, 2 bytes a channel (a quad is one
+//   8-byte load), upcast in registers; taps, products, weights and
+//   variance run in float32 exactly as in the float32 mode, and the output
+//   is rounded to bfloat16 once, where it is stored. Projections, depths
+//   and weights stay float32. This halves the feature and output bytes of
+//   the bound.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -116,6 +127,17 @@ struct Tile {
     x = min(x0 + p, W - 1);
   }
 };
+
+// A quad of 4 channels of a feature of type T: float4 (float32) or uint2
+// (bfloat16), read as float32.
+template <class T>
+using Quad = typename std::conditional<std::is_same<T, float>::value, float4, uint2>::type;
+
+__device__ __forceinline__ float4 quad(const float4* p) { return __ldg(p); }
+__device__ __forceinline__ float4 quad(const uint2* p) {
+  const uint2 u = __ldg(p);
+  return make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
+}
 
 // Rows 0-2 of a view's rel (its [4, 4] matrix, 16-byte aligned rows)
 // applied to ref pixel (px, py): p(d) = r * d + t.
@@ -177,14 +199,14 @@ __device__ __forceinline__ void describe(const Ray& g, float d, int H, int W,
 }
 
 // This lane's channel quad of the bilinear sample: the 4 taps of the block
-// at `off` (srcq: the view's source image at this lane's quad; rowq: float4s
+// at `off` (srcq: the view's source image at this lane's quad; rowq: quads
 // per source row), summed in the plain version's tap order.
-template <int G>
-__device__ __forceinline__ float4 gather(const float4* __restrict__ srcq,
+template <int G, class Q>
+__device__ __forceinline__ float4 gather(const Q* __restrict__ srcq,
                                          int off, float4 w, int rowq) {
-  const float4* b = srcq + off;
-  const float4 v0 = __ldg(b), v1 = __ldg(b + G);
-  const float4 v2 = __ldg(b + rowq), v3 = __ldg(b + rowq + G);
+  const Q* b = srcq + off;
+  const float4 v0 = quad(b), v1 = quad(b + G);
+  const float4 v2 = quad(b + rowq), v3 = quad(b + rowq + G);
   float4 r;
   r.x = fmaf(v3.x, w.w, fmaf(v2.x, w.z, fmaf(v1.x, w.y, v0.x * w.x)));
   r.y = fmaf(v3.y, w.w, fmaf(v2.y, w.z, fmaf(v1.y, w.y, v0.y * w.x)));
@@ -233,10 +255,10 @@ __device__ __forceinline__ void lane_depths(float* d, const Tile<C>& t,
 // through the shared-memory tile `buf` (one __syncthreads; the caller
 // alternates two buffers, so a buffer is rewritten only after every lane
 // has passed the barrier that followed its last read).
-template <int C>
+template <int C, class T>
 __device__ __forceinline__ void store_plane(float* buf, float4 v,
                                             const Tile<C>& t,
-                                            float* __restrict__ out_k,
+                                            T* __restrict__ out_k,
                                             long long HW, int W, bool live) {
   constexpr int NPIX = Tile<C>::NPIX, S = Tile<C>::S;
   buf[(4 * t.q + 0) * S + t.p] = v.x;
@@ -245,12 +267,12 @@ __device__ __forceinline__ void store_plane(float* buf, float4 v,
   buf[(4 * t.q + 3) * S + t.p] = v.w;
   __syncthreads();
   if (!live) return;
-  float* row = out_k + (long long)t.y * W + t.x0;
+  T* row = out_k + (long long)t.y * W + t.x0;
 #pragma unroll
   for (int r = 0; r < C * NPIX / kThreads; ++r) {
     const int e = r * kThreads + threadIdx.x;
     const int c = e / NPIX, i = e % NPIX;
-    if (t.x0 + i < W) row[c * HW + i] = buf[c * S + i];
+    if (t.x0 + i < W) row[c * HW + i] = from_f32<T>(buf[c * S + i]);
   }
 }
 
@@ -275,11 +297,11 @@ __device__ __forceinline__ void reduce_scatter(float* a, int q) {
   }
 }
 
-template <int C, int KT>
+template <int C, int KT, class T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-sweep_pair_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
+sweep_pair_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
                   const float* __restrict__ rels, const float* __restrict__ depths,
-                  float* __restrict__ out, int V, int D, int H, int W) {
+                  T* __restrict__ out, int V, int D, int H, int W) {
   constexpr int G = Tile<C>::G, NPIX = Tile<C>::NPIX, KPL = (KT + G - 1) / G;
   static_assert(KT % G == 0, "each lane keeps KT / G planes' totals");
   __shared__ Descs<KT, NPIX> ds;
@@ -289,12 +311,12 @@ sweep_pair_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
   const int v = blockIdx.y / groups, k0 = (blockIdx.y % groups) * KT;
   const long long HW = (long long)H * W;
   const long long pix = (long long)t.y * W + t.x;
-  const float4 rv = __ldg(reinterpret_cast<const float4*>(ref + pix * C) + t.q);
+  const float4 rv = quad(reinterpret_cast<const Quad<T>*>(ref + pix * C) + t.q);
   float d[KPL];
   lane_depths<C, KT>(d, t, depths, k0, D, HW, pix);
   describe_view<C, KT>(ds, t, make_ray(rels + 16 * v, (float)t.x, (float)t.y),
                        d, H, W);
-  const float4* src = reinterpret_cast<const float4*>(srcs) + (long long)v * HW * G + t.q;
+  const Quad<T>* src = reinterpret_cast<const Quad<T>*>(srcs) + (long long)v * HW * G + t.q;
   float dot[KT];
 #pragma unroll
   for (int j = 0; j < KT; ++j) {
@@ -305,20 +327,20 @@ sweep_pair_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
 #pragma unroll
   for (int i = 0; i < KT / G; ++i) tile[t.q * (KT / G) + i][t.p] = dot[i] / (float)C;
   __syncthreads();
-  float* base = out + ((long long)v * D + k0) * HW + (long long)t.y * W + t.x0;
+  T* base = out + ((long long)v * D + k0) * HW + (long long)t.y * W + t.x0;
 #pragma unroll
   for (int r = 0; r < KT * NPIX / kThreads; ++r) {
     const int e = r * kThreads + threadIdx.x;
     const int j = e / NPIX, i = e % NPIX;
-    if (k0 + j < D && t.x0 + i < W) base[j * HW + i] = tile[j][i];
+    if (k0 + j < D && t.x0 + i < W) base[j * HW + i] = from_f32<T>(tile[j][i]);
   }
 }
 
-template <int C>
+template <int C, class T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-sweep_cost_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
+sweep_cost_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
                   const float* __restrict__ rels, const float* __restrict__ depths,
-                  const float* __restrict__ weights, float* __restrict__ out,
+                  const float* __restrict__ weights, T* __restrict__ out,
                   int V, int K, int H, int W) {
   constexpr int G = Tile<C>::G, NPIX = Tile<C>::NPIX, KT = kCostPlanes;
   constexpr int KPL = (KT + G - 1) / G;
@@ -330,7 +352,7 @@ sweep_cost_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
   const long long pix = (long long)t.y * W + t.x;
   float d[KPL];
   lane_depths<C, KT>(d, t, depths, k0, K, HW, pix);
-  const float4 rv = __ldg(reinterpret_cast<const float4*>(ref + pix * C) + t.q);
+  const float4 rv = quad(reinterpret_cast<const Quad<T>*>(ref + pix * C) + t.q);
   float4 acc[KT];
 #pragma unroll
   for (int j = 0; j < KT; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -339,7 +361,7 @@ sweep_cost_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
     describe_view<C, KT>(ds, t, make_ray(rels + 16 * v, (float)t.x, (float)t.y),
                          d, H, W);
     const float wv = __ldg(weights + v * HW + pix);
-    const float4* src = reinterpret_cast<const float4*>(srcs) + (long long)v * HW * G + t.q;
+    const Quad<T>* src = reinterpret_cast<const Quad<T>*>(srcs) + (long long)v * HW * G + t.q;
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
       const float4 s = gather<G>(src, ds.off[j][t.p], ds.w[j][t.p], W * G);
@@ -355,16 +377,16 @@ sweep_cost_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
   for (int j = 0; j < KT; ++j) {
     const float4 o = make_float4(acc[j].x / denom, acc[j].y / denom,
                                  acc[j].z / denom, acc[j].w / denom);
-    store_plane<C>(tile[j & 1], o, t, out + (long long)(k0 + j) * C * HW, HW, W,
-                   k0 + j < K);
+    store_plane<C, T>(tile[j & 1], o, t, out + (long long)(k0 + j) * C * HW, HW, W,
+                      k0 + j < K);
   }
 }
 
-template <int C>
+template <int C, class T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-sweep_var_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
+sweep_var_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
                  const float* __restrict__ rels, const float* __restrict__ depths,
-                 float* __restrict__ out, int V, int K, int H, int W) {
+                 T* __restrict__ out, int V, int K, int H, int W) {
   constexpr int G = Tile<C>::G, NPIX = Tile<C>::NPIX, KT = kVarPlanes;
   constexpr int KPL = (KT + G - 1) / G;
   __shared__ Descs<KT, NPIX> ds;
@@ -375,7 +397,7 @@ sweep_var_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
   const long long pix = (long long)t.y * W + t.x;
   float d[KPL];
   lane_depths<C, KT>(d, t, depths, k0, K, HW, pix);
-  const float4 rv = __ldg(reinterpret_cast<const float4*>(ref + pix * C) + t.q);
+  const float4 rv = quad(reinterpret_cast<const Quad<T>*>(ref + pix * C) + t.q);
   // s: ref + sum of the warps, sq: ref^2 + sum of their squares
   float4 s[KT], sq[KT];
 #pragma unroll
@@ -386,7 +408,7 @@ sweep_var_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
   for (int v = 0; v < V; ++v) {
     describe_view<C, KT>(ds, t, make_ray(rels + 16 * v, (float)t.x, (float)t.y),
                          d, H, W);
-    const float4* src = reinterpret_cast<const float4*>(srcs) + (long long)v * HW * G + t.q;
+    const Quad<T>* src = reinterpret_cast<const Quad<T>*>(srcs) + (long long)v * HW * G + t.q;
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
       const float4 w = gather<G>(src, ds.off[j][t.p], ds.w[j][t.p], W * G);
@@ -401,8 +423,8 @@ sweep_var_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
     const float mx = s[j].x / n, my = s[j].y / n, mz = s[j].z / n, mw = s[j].w / n;
     const float4 o = make_float4(sq[j].x / n - mx * mx, sq[j].y / n - my * my,
                                  sq[j].z / n - mz * mz, sq[j].w / n - mw * mw);
-    store_plane<C>(tile[j & 1], o, t, out + (long long)(k0 + j) * C * HW, HW, W,
-                   k0 + j < K);
+    store_plane<C, T>(tile[j & 1], o, t, out + (long long)(k0 + j) * C * HW, HW, W,
+                      k0 + j < K);
   }
 }
 
@@ -411,11 +433,11 @@ sweep_var_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
 // itself. A block covers kThreads consecutive pixels of the flattened
 // image (x fastest, so the stores of a channel are 128-byte runs) and
 // walks planes k0 .. k1-1.
-template <int C>
+template <int C, class T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSMWide)
-sweep_cost_wide_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
+sweep_cost_wide_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
                        const float* __restrict__ rels, const float* __restrict__ depths,
-                       const float* __restrict__ weights, float* __restrict__ out,
+                       const float* __restrict__ weights, T* __restrict__ out,
                        int V, int K, int H, int W, int KB) {
   constexpr int G = C / 4;
   const long long HW = (long long)H * W;
@@ -425,11 +447,11 @@ sweep_cost_wide_kernel(const float* __restrict__ ref, const float* __restrict__ 
   const int y = (int)(pix / W), x = (int)(pix % W);
   float4 rv[G];
 #pragma unroll
-  for (int q = 0; q < G; ++q) rv[q] = __ldg(reinterpret_cast<const float4*>(ref + pix * C) + q);
+  for (int q = 0; q < G; ++q) rv[q] = quad(reinterpret_cast<const Quad<T>*>(ref + pix * C) + q);
   float wsum = 0.f;
   for (int v = 0; v < V; ++v) wsum += __ldg(weights + v * HW + pix);
   const float denom = wsum + 1e-5f;
-  const float4* src = reinterpret_cast<const float4*>(srcs);
+  const Quad<T>* src = reinterpret_cast<const Quad<T>*>(srcs);
   const int k0 = blockIdx.y * KB, k1 = min(K, k0 + KB);
   for (int k = k0; k < k1; ++k) {
     const float d = __ldg(depths + k * HW + pix);
@@ -442,7 +464,7 @@ sweep_cost_wide_kernel(const float* __restrict__ ref, const float* __restrict__ 
       float4 w;
       describe(make_ray(rels + 16 * v, (float)x, (float)y), d, H, W, G, off, w);
       const float wv = __ldg(weights + v * HW + pix);
-      const float4* sv = src + v * HW * G;
+      const Quad<T>* sv = src + v * HW * G;
 #pragma unroll
       for (int q = 0; q < G; ++q) {
         const float4 s = gather<G>(sv + q, off, w, W * G);
@@ -453,22 +475,22 @@ sweep_cost_wide_kernel(const float* __restrict__ ref, const float* __restrict__ 
       }
     }
     if (!live) continue;
-    float* o = out + (long long)k * C * HW + pix;
+    T* o = out + (long long)k * C * HW + pix;
 #pragma unroll
     for (int q = 0; q < G; ++q) {
-      o[(4 * q + 0) * HW] = acc[q].x / denom;
-      o[(4 * q + 1) * HW] = acc[q].y / denom;
-      o[(4 * q + 2) * HW] = acc[q].z / denom;
-      o[(4 * q + 3) * HW] = acc[q].w / denom;
+      o[(4 * q + 0) * HW] = from_f32<T>(acc[q].x / denom);
+      o[(4 * q + 1) * HW] = from_f32<T>(acc[q].y / denom);
+      o[(4 * q + 2) * HW] = from_f32<T>(acc[q].z / denom);
+      o[(4 * q + 3) * HW] = from_f32<T>(acc[q].w / denom);
     }
   }
 }
 
-template <int C>
+template <int C, class T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSMWide)
-sweep_var_wide_kernel(const float* __restrict__ ref, const float* __restrict__ srcs,
+sweep_var_wide_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
                       const float* __restrict__ rels, const float* __restrict__ depths,
-                      float* __restrict__ out, int V, int K, int H, int W, int KB) {
+                      T* __restrict__ out, int V, int K, int H, int W, int KB) {
   constexpr int G = C / 4;
   const long long HW = (long long)H * W;
   const long long at = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -477,9 +499,9 @@ sweep_var_wide_kernel(const float* __restrict__ ref, const float* __restrict__ s
   const int y = (int)(pix / W), x = (int)(pix % W);
   float4 rv[G];
 #pragma unroll
-  for (int q = 0; q < G; ++q) rv[q] = __ldg(reinterpret_cast<const float4*>(ref + pix * C) + q);
+  for (int q = 0; q < G; ++q) rv[q] = quad(reinterpret_cast<const Quad<T>*>(ref + pix * C) + q);
   const float n = (float)(V + 1);
-  const float4* src = reinterpret_cast<const float4*>(srcs);
+  const Quad<T>* src = reinterpret_cast<const Quad<T>*>(srcs);
   const int k0 = blockIdx.y * KB, k1 = min(K, k0 + KB);
   for (int k = k0; k < k1; ++k) {
     const float d = __ldg(depths + k * HW + pix);
@@ -496,7 +518,7 @@ sweep_var_wide_kernel(const float* __restrict__ ref, const float* __restrict__ s
       int off;
       float4 w;
       describe(make_ray(rels + 16 * v, (float)x, (float)y), d, H, W, G, off, w);
-      const float4* sv = src + v * HW * G;
+      const Quad<T>* sv = src + v * HW * G;
 #pragma unroll
       for (int q = 0; q < G; ++q) {
         const float4 u = gather<G>(sv + q, off, w, W * G);
@@ -506,14 +528,14 @@ sweep_var_wide_kernel(const float* __restrict__ ref, const float* __restrict__ s
       }
     }
     if (!live) continue;
-    float* o = out + (long long)k * C * HW + pix;
+    T* o = out + (long long)k * C * HW + pix;
 #pragma unroll
     for (int q = 0; q < G; ++q) {
       const float mx = s[q].x / n, my = s[q].y / n, mz = s[q].z / n, mw = s[q].w / n;
-      o[(4 * q + 0) * HW] = sq[q].x / n - mx * mx;
-      o[(4 * q + 1) * HW] = sq[q].y / n - my * my;
-      o[(4 * q + 2) * HW] = sq[q].z / n - mz * mz;
-      o[(4 * q + 3) * HW] = sq[q].w / n - mw * mw;
+      o[(4 * q + 0) * HW] = from_f32<T>(sq[q].x / n - mx * mx);
+      o[(4 * q + 1) * HW] = from_f32<T>(sq[q].y / n - my * my);
+      o[(4 * q + 2) * HW] = from_f32<T>(sq[q].z / n - mz * mz);
+      o[(4 * q + 3) * HW] = from_f32<T>(sq[q].w / n - mw * mw);
     }
   }
 }
@@ -536,44 +558,92 @@ inline int planes_per_block(unsigned blocks, int K) {
   return kb;
 }
 
-template <int C, int KT>
-void launch_pair(const float* ref, const float* srcs, const float* rels,
-                 const float* depths, float* out, int V, int D, int H, int W,
+template <int C, int KT, class T>
+void launch_pair(const T* ref, const T* srcs, const float* rels,
+                 const float* depths, T* out, int V, int D, int H, int W,
                  cudaStream_t s) {
   const dim3 grid(tiles_for<C>(H, W), (unsigned)(V * ((D + KT - 1) / KT)));
-  sweep_pair_kernel<C, KT><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, D, H, W);
+  sweep_pair_kernel<C, KT, T><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, D,
+                                                        H, W);
 }
 
-template <int C>
-void launch_cost(const float* ref, const float* srcs, const float* rels,
-                 const float* depths, const float* weights, float* out, int V,
+template <int C, class T>
+void launch_cost(const T* ref, const T* srcs, const float* rels,
+                 const float* depths, const float* weights, T* out, int V,
                  int K, int H, int W, cudaStream_t s) {
   if (C < kQuadLanesFrom) {
     const unsigned blocks = wide_blocks(H, W);
     const int kb = planes_per_block(blocks, K);
-    sweep_cost_wide_kernel<C><<<dim3(blocks, (K + kb - 1) / kb), kThreads, 0, s>>>(
+    sweep_cost_wide_kernel<C, T><<<dim3(blocks, (K + kb - 1) / kb), kThreads, 0, s>>>(
         ref, srcs, rels, depths, weights, out, V, K, H, W, kb);
     return;
   }
   const dim3 grid(tiles_for<C>(H, W), (K + kCostPlanes - 1) / kCostPlanes);
-  sweep_cost_kernel<C><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, weights,
-                                                 out, V, K, H, W);
+  sweep_cost_kernel<C, T><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, weights,
+                                                    out, V, K, H, W);
 }
 
-template <int C>
-void launch_var(const float* ref, const float* srcs, const float* rels,
-                const float* depths, float* out, int V, int K, int H, int W,
+template <int C, class T>
+void launch_var(const T* ref, const T* srcs, const float* rels,
+                const float* depths, T* out, int V, int K, int H, int W,
                 cudaStream_t s) {
   if (C < kQuadLanesFrom) {
     const unsigned blocks = wide_blocks(H, W);
     const int kb = planes_per_block(blocks, K);
-    sweep_var_wide_kernel<C><<<dim3(blocks, (K + kb - 1) / kb), kThreads, 0, s>>>(
+    sweep_var_wide_kernel<C, T><<<dim3(blocks, (K + kb - 1) / kb), kThreads, 0, s>>>(
         ref, srcs, rels, depths, out, V, K, H, W, kb);
     return;
   }
   const dim3 grid(tiles_for<C>(H, W), (K + kVarPlanes - 1) / kVarPlanes);
-  sweep_var_kernel<C><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, K,
-                                                H, W);
+  sweep_var_kernel<C, T><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, K,
+                                                   H, W);
+}
+
+// The entries of one feature type T (float or bfloat16 bits).
+template <class T>
+int corr_entry(const T* ref, const T* srcs, const float* rels, const float* depths,
+               T* out, int V, int D, int H, int W, int C, void* stream) {
+  if ((long long)V * D * H * W == 0) return 0;
+  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (C) {
+    case 8: launch_pair<8, 8, T>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
+    case 16: launch_pair<16, 8, T>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
+    case 32: launch_pair<32, 8, T>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
+    default: return kUnsupported;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int cost_entry(const T* ref, const T* srcs, const float* rels, const float* depths,
+               const float* weights, T* out, int V, int K, int H, int W, int C,
+               void* stream) {
+  if ((long long)K * H * W == 0) return 0;
+  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (C) {
+    case 8: launch_cost<8, T>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
+    case 16: launch_cost<16, T>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
+    case 32: launch_cost<32, T>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
+    default: return kUnsupported;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int var_entry(const T* ref, const T* srcs, const float* rels, const float* depths,
+              T* out, int V, int K, int H, int W, int C, void* stream) {
+  if ((long long)K * H * W == 0) return 0;
+  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (C) {
+    case 8: launch_var<8, T>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
+    case 16: launch_var<16, T>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
+    case 32: launch_var<32, T>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
+    default: return kUnsupported;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -590,16 +660,7 @@ extern "C" int sweep_corr_f32(const float* ref, const float* srcs,
                               const float* rels, const float* depths,
                               float* out, int V, int D, int H, int W, int C,
                               void* stream) {
-  if ((long long)V * D * H * W == 0) return 0;
-  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 8: launch_pair<8, 8>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
-    case 16: launch_pair<16, 8>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
-    case 32: launch_pair<32, 8>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
-    default: return kUnsupported;
-  }
-  return (int)cudaGetLastError();
+  return corr_entry<float>(ref, srcs, rels, depths, out, V, D, H, W, C, stream);
 }
 
 // Cost mode (K2). ref [H,W,C], srcs [V,H,W,C], rels [V,4,4], depths [K,H,W],
@@ -608,16 +669,7 @@ extern "C" int sweep_cost_f32(const float* ref, const float* srcs,
                               const float* rels, const float* depths,
                               const float* weights, float* out, int V, int K,
                               int H, int W, int C, void* stream) {
-  if ((long long)K * H * W == 0) return 0;
-  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 8: launch_cost<8>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
-    case 16: launch_cost<16>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
-    case 32: launch_cost<32>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
-    default: return kUnsupported;
-  }
-  return (int)cudaGetLastError();
+  return cost_entry<float>(ref, srcs, rels, depths, weights, out, V, K, H, W, C, stream);
 }
 
 // Variance mode (K2v). ref [H,W,C], srcs [V,H,W,C], rels [V,4,4],
@@ -625,14 +677,26 @@ extern "C" int sweep_cost_f32(const float* ref, const float* srcs,
 extern "C" int sweep_var_f32(const float* ref, const float* srcs,
                              const float* rels, const float* depths, float* out,
                              int V, int K, int H, int W, int C, void* stream) {
-  if ((long long)K * H * W == 0) return 0;
-  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 8: launch_var<8>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
-    case 16: launch_var<16>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
-    case 32: launch_var<32>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
-    default: return kUnsupported;
-  }
-  return (int)cudaGetLastError();
+  return var_entry<float>(ref, srcs, rels, depths, out, V, K, H, W, C, stream);
+}
+
+// The bfloat16 modes: ref, srcs and out in bfloat16, the rest as above.
+extern "C" int sweep_corr_bf16(const bf16_t* ref, const bf16_t* srcs,
+                               const float* rels, const float* depths,
+                               bf16_t* out, int V, int D, int H, int W, int C,
+                               void* stream) {
+  return corr_entry<bf16_t>(ref, srcs, rels, depths, out, V, D, H, W, C, stream);
+}
+
+extern "C" int sweep_cost_bf16(const bf16_t* ref, const bf16_t* srcs,
+                               const float* rels, const float* depths,
+                               const float* weights, bf16_t* out, int V, int K,
+                               int H, int W, int C, void* stream) {
+  return cost_entry<bf16_t>(ref, srcs, rels, depths, weights, out, V, K, H, W, C, stream);
+}
+
+extern "C" int sweep_var_bf16(const bf16_t* ref, const bf16_t* srcs,
+                              const float* rels, const float* depths, bf16_t* out,
+                              int V, int K, int H, int W, int C, void* stream) {
+  return var_entry<bf16_t>(ref, srcs, rels, depths, out, V, K, H, W, C, stream);
 }

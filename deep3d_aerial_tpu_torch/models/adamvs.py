@@ -13,6 +13,10 @@ deep3d_aerial_tpu/models/adamvs.py):
 
 warp_impl / red_impl: 'kernel' runs the CUDA kernels on CUDA tensors (their
 plain versions on CPU tensors); 'plain' runs the plain versions everywhere.
+dtype: float32, or bfloat16 (the JAX package's dtype=jnp.bfloat16): the
+images are cast to it, and features, pair volumes, cost chunks and states
+follow; the pair branch's softmax, the view weights and the sweeps' outputs
+stay float32.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..ops.depth_samplers import (
 )
 from ..ops.sweep import sweep_corr, sweep_corr_plain
 from .cascade import streaming_sweep
+from .blocks import compute_dtype
 from .cost_reg import CostRegNet2D, RedStep2
 from .feature_net import FeatureNet, multi_view_features
 
@@ -55,7 +60,7 @@ class PairBranch(nn.Module):
         self.reg = CostRegNet2D(ndepth, norm=norm)
 
     def forward(self, corr, depths1):
-        prob = torch.softmax(self.reg(corr), dim=1)     # [V-1, D, H, W]
+        prob = torch.softmax(self.reg(corr).float(), dim=1)  # [V-1, D, H, W]
         conf = prob.max(dim=1).values
         pair_depth = (prob * depths1[None, :, None, None]).sum(dim=1)
         return conf, pair_depth
@@ -66,11 +71,13 @@ class AdaMVS(nn.Module):
                  depth_interval_ratios: Tuple[float, ...] = (4.0, 2.0, 1.0),
                  num_depth: int = 384, base_channels: int = 8,
                  norm: str = "group", plane_chunk: int = 8,
-                 warp_impl: str = "kernel", red_impl: str = "kernel"):
+                 warp_impl: str = "kernel", red_impl: str = "kernel",
+                 dtype=torch.float32):
         super().__init__()
         for name, impl in (("warp_impl", warp_impl), ("red_impl", red_impl)):
             if impl not in ("kernel", "plain"):
                 raise ValueError(f"{name} {impl!r} (kernel, plain)")
+        self.dtype = compute_dtype(dtype)
         self.ndepths = tuple(int(d) for d in ndepths)
         self.depth_interval_ratios = tuple(float(r) for r in depth_interval_ratios)
         self.num_depth = num_depth
@@ -99,7 +106,7 @@ class AdaMVS(nn.Module):
         mark = mark or (lambda label: None)
         dev = imgs.device
         feats = [f.permute(0, 2, 3, 1).contiguous()      # -> [V, h, w, C]
-                 for f in multi_view_features(self.feature, imgs)]
+                 for f in multi_view_features(self.feature, imgs.to(self.dtype))]
         mark("features")
         depth_min = torch.as_tensor(depth_min, dtype=torch.float32, device=dev)
         depth_max = torch.as_tensor(depth_max, dtype=torch.float32, device=dev)

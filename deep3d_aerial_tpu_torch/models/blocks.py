@@ -80,6 +80,21 @@ class ConvTranspose3d(nn.Module):
         return conv_transpose3d_same(x, self.weight, self.bias)
 
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """A model's compute dtype, from a torch dtype or its name: float32 or
+    bfloat16 (the JAX package's dtype=jnp.bfloat16: features, volumes and
+    recurrent states in bfloat16, the parameters float32); anything else
+    raises ValueError naming both."""
+    dt = DTYPES.get(dtype, dtype) if isinstance(dtype, str) else dtype
+    if dt not in DTYPES.values():
+        raise ValueError(f"compute dtype {dtype!r}: the models run float32 or "
+                         "bfloat16")
+    return dt
+
+
 CONVS = {2: Conv2d, 3: Conv3d}
 CONV_TRANSPOSES = {2: ConvTranspose2d, 3: ConvTranspose3d}
 
@@ -91,7 +106,11 @@ class GroupNorm(nn.Module):
     statistics per slice of the first spatial axis: per image ROW of a
     [N, C, H, W] map, over (W, channels of the group), and per depth PLANE
     of a [N, C, D, H, W] volume, over (H, W, channels of the group). A
-    GroupNorm that pools the whole map or volume is a different function."""
+    GroupNorm that pools the whole map or volume is a different function.
+
+    A bfloat16 input is normalized as Linen does it in bfloat16
+    (force_float32_reductions): statistics and normalization in float32 on
+    the upcast input, the result rounded to bfloat16."""
 
     def __init__(self, channels: int, eps: float = 1e-6):
         super().__init__()
@@ -101,6 +120,8 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
+        if x.dtype != torch.float32:
+            return self.forward(x.float()).to(x.dtype)
         N, C, *spatial = x.shape
         G = self.groups
         g = x.reshape(N, G, C // G, *spatial)

@@ -13,6 +13,11 @@ The volume path (CasMVSNet, UCSNet): the whole variance volume, built in
 chunks of planes (kernel K2v on CUDA), regularized by a 3-D hourglass into
 one score per plane and pixel, then a softmax head over the planes.
 
+Features in bfloat16 (the models' dtype=torch.bfloat16, the JAX package's
+dtype=jnp.bfloat16) give cost chunks, volumes and regularizer states in
+bfloat16; the geometry, the view weights, the online-softmax state and the
+heads stay float32 (the scores are upcast before the softmax).
+
 Ported here: one depth block. Depth shards are not ported yet (ROADMAP A,
 depth shards).
 """
@@ -97,9 +102,10 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
     kernels' layout), rel_projs [V-1, 4, 4], depths [D] or [D, H, W].
     cost_mode 'correlation' weighs the views by weights [V-1, H, W] (None:
     uniform); 'variance' takes no weights. `reg` is a recurrent regularizer
-    (RedStep2, RedStep4): reg.plane_step(device) gives its step,
+    (RedStep2, RedStep4): reg.plane_step(device, dtype) gives its step,
     step(cost [C, H, W], *states) -> (score, *states), with the parameters
-    gathered once for the sweep; its states come from reg.init_states(H, W);
+    gathered once for the sweep; its states come from reg.init_states(H, W),
+    in the features' dtype (float32 or bfloat16, as are the cost chunks);
     with `up` its scores and the plane depths are at 2H x 2W. A step that
     carries `folds_softmax` (RedStep2's on CUDA: kernel K3) takes the
     online-softmax state and the plane's depth and updates the state in
@@ -134,8 +140,8 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
 
     out_shape = (2 * H, 2 * W) if up else (H, W)
     osm = OnlineSoftmaxState.init(out_shape, device=dev)
-    states = reg.init_states(H, W, device=dev)
-    step = reg.plane_step(dev)
+    states = reg.init_states(H, W, device=dev, dtype=ref_feat.dtype)
+    step = reg.plane_step(dev, ref_feat.dtype)
     # the fold updates the softmax state in place, which autograd cannot
     # follow: with grad enabled the step returns its score (through K3's
     # KernelFn on CUDA) and the update is the out-of-place one
@@ -170,7 +176,8 @@ def variance_cost_volume(feats: torch.Tensor, rel: torch.Tensor,
     """The whole variance cost volume for the 3-D regularizer.
 
     feats [V, H, W, C] (channels-last, ref first), rel [V-1, 4, 4], depths
-    [D] or [D, H, W] -> [1, C, D, H, W]: E[f^2] - E[f]^2 over the ref and
+    [D] or [D, H, W] -> [1, C, D, H, W] in the features' dtype (float32 or
+    bfloat16): E[f^2] - E[f]^2 over the ref and
     the V-1 warped source features. Built in chunks of K planes, K the
     largest divisor of D up to VOLUME_CHUNK; each chunk is one sweep_var
     call (one K2v launch on CUDA tensors with warp_impl 'kernel'; its plain
@@ -187,7 +194,7 @@ def variance_cost_volume(feats: torch.Tensor, rel: torch.Tensor,
     K = min(VOLUME_CHUNK, D)
     while D % K:
         K -= 1
-    vol = torch.empty((1, C, D, H, W), device=ref.device, dtype=torch.float32)
+    vol = torch.empty((1, C, D, H, W), device=ref.device, dtype=ref.dtype)
     for start in range(0, D, K):
         chunk = var_fn(ref, srcs, rel, depths[start:start + K].contiguous())
         vol[0, :, start:start + K].copy_(chunk.transpose(0, 1))

@@ -10,7 +10,9 @@
     of ndepth x ratio x interval around the bilinear-resized previous depth
 
 warp_impl 'kernel' runs K2v on CUDA tensors (its plain version on CPU
-tensors); 'plain' runs the plain version everywhere. Depth shards are not
+tensors); 'plain' runs the plain version everywhere. dtype float32 or
+bfloat16: features, the volume and CostRegNet3D (cuDNN bfloat16 3-D convs)
+in it; the head takes the scores in float32. Depth shards are not
 ported yet (ROADMAP A, depth shards).
 """
 
@@ -27,6 +29,7 @@ from ..ops.depth_samplers import (
     window_depth_samples,
 )
 from .cascade import blocked_volume_scores, masked_softmax_depth_head, window_confidence
+from .blocks import compute_dtype
 from .cost_reg import CostRegNet3D
 from .feature_net import FeatureNet, multi_view_features
 
@@ -41,11 +44,12 @@ def check_volume_settings(name: str, warp_impl: str, depth_shards: int) -> None:
             f"{name} depth_shards is not ported yet (ROADMAP A.9: depth shards)")
 
 
-def stage_features(feature: FeatureNet, imgs: torch.Tensor):
-    """The three stages' features, each [V, h, w, C] (channels-last, the
-    sweep kernels' layout)."""
+def stage_features(feature: FeatureNet, imgs: torch.Tensor,
+                   dtype: torch.dtype = torch.float32):
+    """The three stages' features in `dtype`, each [V, h, w, C]
+    (channels-last, the sweep kernels' layout)."""
     return [f.permute(0, 2, 3, 1).contiguous()
-            for f in multi_view_features(feature, imgs)]
+            for f in multi_view_features(feature, imgs.to(dtype))]
 
 
 class CasMVSNet(nn.Module):
@@ -53,9 +57,11 @@ class CasMVSNet(nn.Module):
                  depth_interval_ratios: Tuple[float, ...] = (4.0, 2.0, 1.0),
                  num_depth: int = 384, base_channels: int = 8,
                  arch: str = "fpn", norm: str = "group",
-                 warp_impl: str = "kernel", depth_shards: int = 1):
+                 warp_impl: str = "kernel", depth_shards: int = 1,
+                 dtype=torch.float32):
         super().__init__()
         check_volume_settings("CasMVSNet", warp_impl, depth_shards)
+        self.dtype = compute_dtype(dtype)
         self.ndepths = tuple(int(d) for d in ndepths)
         self.depth_interval_ratios = tuple(float(r) for r in depth_interval_ratios)
         self.num_depth = num_depth
@@ -77,7 +83,7 @@ class CasMVSNet(nn.Module):
         'stage<s>.cost_reg' (CostRegNet3D) and 'stage<s>' (the head)."""
         mark = mark or (lambda label: None)
         dev = imgs.device
-        feats = stage_features(self.feature, imgs)
+        feats = stage_features(self.feature, imgs, self.dtype)
         mark("features")
         depth_min = torch.as_tensor(depth_min, dtype=torch.float32, device=dev)
         depth_max = torch.as_tensor(depth_max, dtype=torch.float32, device=dev)

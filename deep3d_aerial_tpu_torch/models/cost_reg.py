@@ -36,19 +36,23 @@ def _crop_like(x, ref):
 
 
 class _PackedCache:
-    """A kernel's packed weights, rebuilt only when a parameter changed."""
+    """A kernel's packed weights, per compute dtype (the float32 parameters
+    packed as 3xTF32 or bfloat16 fragments), rebuilt only when a parameter
+    changed."""
 
     def __init__(self, pack):
         self._pack = pack
         self._key = None
-        self._packed = None
+        self._packed = {}
 
-    def get(self, module: nn.Module):
+    def get(self, module: nn.Module, dtype: torch.dtype = torch.float32):
         key = tuple((p.data_ptr(), p._version) for p in module.parameters())
         if key != self._key:
-            self._packed = self._pack(dict(module.named_parameters()))
+            self._packed = {}
             self._key = key
-        return self._packed
+        if dtype not in self._packed:
+            self._packed[dtype] = self._pack(dict(module.named_parameters()), dtype)
+        return self._packed[dtype]
 
 
 class CostRegNet2D(nn.Module):
@@ -139,35 +143,39 @@ class RedStep2(nn.Module):
             self.upconv2d = ConvTranspose2d(b, 1)
         else:
             self.out2d = Conv2d(b, 1)
-        self._packed = _PackedCache(lambda p: pack_params(p, up))
+        self._packed = _PackedCache(lambda p, dt: pack_params(p, up, dt))
 
-    def _packed_params(self) -> torch.Tensor:
-        """K3's packed weights, rebuilt only when a parameter changed."""
-        return self._packed.get(self)
+    def _packed_params(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """K3's packed weights for `dtype`, rebuilt only when a parameter
+        changed."""
+        return self._packed.get(self, dtype)
 
-    def plane_step(self, device: torch.device) -> Callable:
+    def plane_step(self, device: torch.device,
+                   dtype: torch.dtype = torch.float32) -> Callable:
         """The step as a function of (cost, s1, s2) on `device`, its
-        parameters (and K3's packed weights) gathered once: the streaming
-        sweep calls it for every plane. On CUDA with impl 'kernel' the step
-        also folds the score into the sweep's online-softmax state,
-        step(cost, s1, s2, osm=state, dv=depth) -> (None, s1', s2') with
-        `state` updated in place, and carries `folds_softmax`."""
+        parameters (and K3's packed weights for the compute `dtype`)
+        gathered once: the streaming sweep calls it for every plane. On
+        CUDA with impl 'kernel' the step also folds the score into the
+        sweep's online-softmax state, step(cost, s1, s2, osm=state,
+        dv=depth) -> (None, s1', s2') with `state` updated in place, and
+        carries `folds_softmax`."""
         params = dict(self.named_parameters())
         if self.impl == "plain":
             return functools.partial(red_step2_plain, params, up=self.up)
         if device.type != "cuda":
             return functools.partial(red_step2, params, up=self.up)
         step = functools.partial(red_step2, params, up=self.up,
-                                 packed=self._packed_params())
+                                 packed=self._packed_params(dtype))
         step.folds_softmax = True
         return step
 
     def forward(self, cost, s1, s2) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        return self.plane_step(cost.device)(cost, s1, s2)
+        return self.plane_step(cost.device, cost.dtype)(cost, s1, s2)
 
-    def init_states(self, H: int, W: int, device=None):
-        return (torch.zeros((8, H, W), device=device),
-                torch.zeros((16, (H + 1) // 2, (W + 1) // 2), device=device))
+    def init_states(self, H: int, W: int, device=None, dtype=torch.float32):
+        return (torch.zeros((8, H, W), device=device, dtype=dtype),
+                torch.zeros((16, (H + 1) // 2, (W + 1) // 2), device=device,
+                            dtype=dtype))
 
 
 class GroupNorm1(nn.Module):
@@ -229,24 +237,25 @@ class RedStep4(nn.Module):
         self.upconv2 = DeconvBlock(4 * b, 2 * b, norm="none")
         self.upconv1 = DeconvBlock(2 * b, b, norm="none")
         self.out2d = Conv2d(b, 1)
-        self._packed = _PackedCache(lambda p: rs4.pack_params(p, cin))
+        self._packed = _PackedCache(lambda p, dt: rs4.pack_params(p, cin, dt))
 
-    def plane_step(self, device: torch.device) -> Callable:
+    def plane_step(self, device: torch.device,
+                   dtype: torch.dtype = torch.float32) -> Callable:
         """The step as a function of (cost, s1, s2, s3, s4) on `device`, its
-        parameters (and K4's packed weights) gathered once: the streaming
-        sweep calls it for every plane."""
+        parameters (and K4's packed weights for the compute `dtype`)
+        gathered once: the streaming sweep calls it for every plane."""
         params = dict(self.named_parameters())
         if self.impl == "plain":
             return functools.partial(rs4.red_step4_plain, params)
-        packed = self._packed.get(self) if device.type == "cuda" else None
+        packed = self._packed.get(self, dtype) if device.type == "cuda" else None
         return functools.partial(rs4.red_step4, params, packed=packed)
 
     def forward(self, cost, s1, s2, s3, s4) -> Tuple[torch.Tensor, ...]:
-        return self.plane_step(cost.device)(cost, s1, s2, s3, s4)
+        return self.plane_step(cost.device, cost.dtype)(cost, s1, s2, s3, s4)
 
-    def init_states(self, H: int, W: int, device=None):
+    def init_states(self, H: int, W: int, device=None, dtype=torch.float32):
         if H % 8 or W % 8:
             raise ValueError(f"RedStep4 needs H and W multiples of 8, got "
                              f"{H} x {W}")
-        return tuple(torch.zeros((c, H >> l, W >> l), device=device)
+        return tuple(torch.zeros((c, H >> l, W >> l), device=device, dtype=dtype)
                      for l, c in enumerate(rs4.HIDDEN))

@@ -11,7 +11,8 @@ RED-Net family (counterpart of deep3d_aerial_tpu/models/msrednet.py):
 
 warp_impl / red_impl: 'kernel' runs the CUDA kernels on CUDA tensors (their
 plain versions on CPU tensors); 'plain' runs the plain versions everywhere.
-Depth shards are not ported yet (ROADMAP, section A).
+dtype: float32 or bfloat16 (features, cost chunks and states; the softmax
+state stays float32). Depth shards are not ported yet (ROADMAP, section A).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..ops.depth_samplers import (
     window_depth_samples,
 )
 from .cascade import streaming_sweep
+from .blocks import compute_dtype
 from .cost_reg import RedStep4
 from .feature_net import FeatureNet, multi_view_features
 
@@ -37,8 +39,9 @@ class MSREDNet(nn.Module):
                  num_depth: int = 384, base_channels: int = 8,
                  norm: str = "group", plane_chunk: int = 8,
                  warp_impl: str = "kernel", red_impl: str = "kernel",
-                 depth_shards: int = 1):
+                 depth_shards: int = 1, dtype=torch.float32):
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         if warp_impl not in ("kernel", "plain"):
             raise ValueError(f"warp_impl {warp_impl!r} (kernel, plain)")
         if base_channels != 8:
@@ -72,7 +75,7 @@ class MSREDNet(nn.Module):
         mark = mark or (lambda label: None)
         dev = imgs.device
         feats = [f.permute(0, 2, 3, 1).contiguous()      # -> [V, h, w, C]
-                 for f in multi_view_features(self.feature, imgs)]
+                 for f in multi_view_features(self.feature, imgs.to(self.dtype))]
         mark("features")
         depth_min = torch.as_tensor(depth_min, dtype=torch.float32, device=dev)
         depth_max = torch.as_tensor(depth_max, dtype=torch.float32, device=dev)

@@ -3,7 +3,8 @@ deep3d_aerial_tpu/models/ucsnet.py): CasMVSNet's volume stages
 (models/casmvsnet.py) on a 'unet' feature pyramid, where every stage also
 gives the probability-weighted standard deviation of its depth,
 sigma = sqrt(max(sum_d prob_d (d - depth)^2, 1e-10)), and the next stage
-samples center +- lamb * sigma after resizing both bilinearly.
+samples center +- lamb * sigma after resizing both bilinearly. dtype as
+CasMVSNet's.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from .cascade import (
     soft_argmax_depth,
     window_confidence,
 )
+from .blocks import compute_dtype
 from .casmvsnet import check_volume_settings, stage_features
 from .cost_reg import CostRegNet3D
 from .feature_net import FeatureNet
@@ -33,9 +35,11 @@ class UCSNet(nn.Module):
     def __init__(self, ndepths: Tuple[int, ...] = (64, 32, 8), lamb: float = 1.5,
                  num_depth: int = 384, base_channels: int = 8,
                  arch: str = "unet", norm: str = "group",
-                 warp_impl: str = "kernel", depth_shards: int = 1):
+                 warp_impl: str = "kernel", depth_shards: int = 1,
+                 dtype=torch.float32):
         super().__init__()
         check_volume_settings("UCSNet", warp_impl, depth_shards)
+        self.dtype = compute_dtype(dtype)
         self.ndepths = tuple(int(d) for d in ndepths)
         self.lamb = float(lamb)
         self.num_depth = num_depth
@@ -51,7 +55,7 @@ class UCSNet(nn.Module):
         the depth's standard deviation sigma [h, w]."""
         mark = mark or (lambda label: None)
         dev = imgs.device
-        feats = stage_features(self.feature, imgs)
+        feats = stage_features(self.feature, imgs, self.dtype)
         mark("features")
         depth_min = torch.as_tensor(depth_min, dtype=torch.float32, device=dev)
         depth_max = torch.as_tensor(depth_max, dtype=torch.float32, device=dev)

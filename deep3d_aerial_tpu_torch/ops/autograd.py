@@ -14,6 +14,11 @@ are ctypes launches that autograd cannot see into:
             enable_grad, then torch.autograd.grad of its outputs with
             respect to every tensor whose gradient is needed
 
+Training has no compute dtype in the JAX package (its train/ has no dtype
+knob), so bfloat16 is inference only: a KernelFn given a bfloat16 tensor
+raises NotImplementedError, on no JAX entry point (ROADMAP.md). Without
+grad the wrappers launch their bfloat16 kernel as it is.
+
 `launch` and `plain` are plain callables of (input tensors, parameter
 tensors); non-tensor arguments (`up`, packed weights, shapes) reach them
 through closures, never through `apply`. `through_kernel` is what the
@@ -35,6 +40,11 @@ class KernelFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, launch: Callable, plain: Callable, n_params: int,
                 *tensors: torch.Tensor):
+        if any(t.dtype == torch.bfloat16 for t in tensors):
+            raise NotImplementedError(
+                "a kernel's gradient in bfloat16: the JAX package trains in "
+                "float32 only (no compute dtype in its train/), so the port "
+                "runs bfloat16 for inference, under no_grad (ROADMAP A.7)")
         ctx.plain = plain
         ctx.n_inputs = len(tensors) - n_params
         ctx.save_for_backward(*tensors)

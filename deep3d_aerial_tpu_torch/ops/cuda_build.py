@@ -40,20 +40,27 @@ _ARGTYPES = {
         "sweep_corr_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "sweep_cost_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "sweep_var_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "sweep_corr_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "sweep_cost_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "sweep_var_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "red_step2": {
         "red_step2_f32": [_P, _I, _P, _P, _P] + [_P] * 8 + [_I, _I, _I, _P],
-        "red_step2_param_floats": [_I],
+        "red_step2_bf16": [_P, _I, _P, _P, _P] + [_P] * 9 + [_I, _I, _I, _P],
+        "red_step2_param_floats": [_I, _I],
     },
     "red_step4": {
         "cf_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-        "cf_conv3x3_scratch_floats": [_I, _I, _I, _I, _I],
-        "cf_conv3x3_tickets": [_I, _I, _I, _I, _I],
-        "red_step4_param_floats": [_I],
-        "red_step4_scratch_floats": [_I, _I, _I],
-        "red_step4_tickets": [_I, _I, _I],
+        "cf_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "cf_conv3x3_scratch_floats": [_I, _I, _I, _I, _I, _I],
+        "cf_conv3x3_tickets": [_I, _I, _I, _I, _I, _I],
+        "red_step4_param_floats": [_I, _I],
+        "red_step4_scratch_floats": [_I, _I, _I, _I],
+        "red_step4_tickets": [_I, _I, _I, _I],
         "red_step4_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _I, _I, ctypes.POINTER(_I), _P],
+        "red_step4_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _I, _I, ctypes.POINTER(_I), _P],
     },
 }
 # entries that return a size instead of an error code

@@ -17,11 +17,20 @@ src_P @ inv(ref_P) (the plain versions also take [V, 3, 4]; the kernels
 read rows 0-2 of the [4, 4] matrices in place). The kernel source, with its
 design and bound, is csrc/sweep.cu.
 
+Features come in float32 or bfloat16 (ref and srcs alike); the output has
+their dtype. In bfloat16 every mode reads the features as they are, 2 bytes
+a channel, does its taps, products, weights and variance in float32, and
+rounds the output once to bfloat16: what the JAX package's Pallas sweep
+computes after prepare_sweep_operands upcasts the features, with its cost
+chunk cast to the feature dtype (models/cascade.py, models/adamvs.py).
+Projections, depths and weights stay float32.
+
 A wrapper launches the kernel for CUDA tensors, on their device (made the
 current one for the launch, since the C entries size their grids for the
 current device), and raises if the launch fails; it takes the plain
 version only for CPU tensors. Each wrapper counts
-its launches in `<wrapper>.launches`. Where autograd needs a gradient, the
+its launches in `<wrapper>.launches`, and those of its bfloat16 entry also
+in `<wrapper>.launches_bf16`. Where autograd needs a gradient, the
 launch goes through ops/autograd.py's KernelFn: the kernel forward, the
 plain version's VJP backward (the JAX package's custom VJPs), with
 gradients to ref, srcs, weights and depths (and rels when they need one).
@@ -38,6 +47,18 @@ from .warp import bilinear_sample, sweep_coordinates
 PLAIN_CHUNK = 8
 
 
+def _f32_math(plain):
+    """The plain version for features of any dtype: float32 arithmetic on
+    the upcast features, the output rounded once to their dtype."""
+    def run(ref, srcs, *rest):
+        if ref.dtype == torch.float32:
+            return plain(ref, srcs, *rest)
+        return plain(ref.float(), srcs.float(), *rest).to(ref.dtype)
+    run.__name__, run.__doc__ = plain.__name__, plain.__doc__
+    return run
+
+
+@_f32_math
 def sweep_corr_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
                      depths: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: [V, D, H, W] pair correlation of each source
@@ -53,6 +74,7 @@ def sweep_corr_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
     return out
 
 
+@_f32_math
 def sweep_cost_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
                      depths: torch.Tensor,
                      weights: torch.Tensor) -> torch.Tensor:
@@ -67,6 +89,7 @@ def sweep_cost_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
     return cost.permute(0, 3, 1, 2).contiguous()
 
 
+@_f32_math
 def sweep_var_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
                     depths: torch.Tensor) -> torch.Tensor:
     """Plain version of K2v: [K, C, H, W] variance over {ref} and the V
@@ -84,11 +107,21 @@ def sweep_var_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
     return (cost / n - mean * mean).permute(0, 3, 1, 2).contiguous()
 
 
-def _check_cuda(name: str, **tensors) -> None:
-    for k, t in tensors.items():
-        if not t.is_cuda or t.dtype != torch.float32:
+_ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _check_cuda(name: str, ref: torch.Tensor, srcs: torch.Tensor,
+                **tensors) -> str:
+    """Raise unless every tensor lies on the card, ref and srcs in float32
+    or bfloat16 alike and the rest in float32; the C entry's suffix."""
+    if ref.dtype not in _ENTRY or srcs.dtype != ref.dtype:
+        raise ValueError(f"{name}: ref and srcs must both be float32 or both "
+                         f"bfloat16, got {ref.dtype} and {srcs.dtype}")
+    for k, t in {"ref": ref, "srcs": srcs, **tensors}.items():
+        if not t.is_cuda or (k not in ("ref", "srcs") and t.dtype != torch.float32):
             raise ValueError(f"{name}: {k} must be a float32 CUDA tensor, "
                              f"got {t.dtype} on {t.device}")
+    return _ENTRY[ref.dtype]
 
 
 def _rels(name: str, rels: torch.Tensor, V: int, device) -> torch.Tensor:
@@ -121,19 +154,22 @@ def _launch_corr(ref, srcs, rels, depths):
                          f"{tuple(srcs.shape)}, depths {tuple(depths.shape)}")
     ref, srcs, depths = ref.contiguous(), srcs.contiguous(), depths.contiguous()
     rels = _rels("sweep_corr", rels, V, ref.device)
-    _check_cuda("sweep_corr", ref=ref, srcs=srcs, rels=rels, depths=depths)
-    out = torch.empty((V, D, H, W), device=ref.device, dtype=torch.float32)
+    suffix = _check_cuda("sweep_corr", ref, srcs, rels=rels, depths=depths)
+    out = torch.empty((V, D, H, W), device=ref.device, dtype=ref.dtype)
     lib = load("sweep")
     with torch.cuda.device(ref.device):
-        rc = lib.sweep_corr_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
+        rc = getattr(lib, f"sweep_corr_{suffix}")(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
                                 depths.data_ptr(), out.data_ptr(), V, D, H, W, C,
                                 torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_corr")
     sweep_corr.launches += 1
+    if suffix == "bf16":
+        sweep_corr.launches_bf16 += 1
     return out
 
 
 sweep_corr.launches = 0
+sweep_corr.launches_bf16 = 0
 
 
 def sweep_cost(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
@@ -159,21 +195,23 @@ def _launch_cost(ref, srcs, rels, depths, weights):
     ref, srcs = ref.contiguous(), srcs.contiguous()
     depths, weights = depths.contiguous(), weights.contiguous()
     rels = _rels("sweep_cost", rels, V, ref.device)
-    _check_cuda("sweep_cost", ref=ref, srcs=srcs, rels=rels, depths=depths,
-                weights=weights)
-    out = torch.empty((K, C, H, W), device=ref.device, dtype=torch.float32)
+    suffix = _check_cuda("sweep_cost", ref, srcs, rels=rels, depths=depths, weights=weights)
+    out = torch.empty((K, C, H, W), device=ref.device, dtype=ref.dtype)
     lib = load("sweep")
     with torch.cuda.device(ref.device):
-        rc = lib.sweep_cost_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
+        rc = getattr(lib, f"sweep_cost_{suffix}")(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
                                 depths.data_ptr(), weights.data_ptr(),
                                 out.data_ptr(), V, K, H, W, C,
                                 torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_cost")
     sweep_cost.launches += 1
+    if suffix == "bf16":
+        sweep_cost.launches_bf16 += 1
     return out
 
 
 sweep_cost.launches = 0
+sweep_cost.launches_bf16 = 0
 
 
 def sweep_var(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
@@ -195,16 +233,19 @@ def _launch_var(ref, srcs, rels, depths):
                          f"{tuple(srcs.shape)}, depths {tuple(depths.shape)}")
     ref, srcs, depths = ref.contiguous(), srcs.contiguous(), depths.contiguous()
     rels = _rels("sweep_var", rels, V, ref.device)
-    _check_cuda("sweep_var", ref=ref, srcs=srcs, rels=rels, depths=depths)
-    out = torch.empty((K, C, H, W), device=ref.device, dtype=torch.float32)
+    suffix = _check_cuda("sweep_var", ref, srcs, rels=rels, depths=depths)
+    out = torch.empty((K, C, H, W), device=ref.device, dtype=ref.dtype)
     lib = load("sweep")
     with torch.cuda.device(ref.device):
-        rc = lib.sweep_var_f32(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
+        rc = getattr(lib, f"sweep_var_{suffix}")(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
                                depths.data_ptr(), out.data_ptr(), V, K, H, W, C,
                                torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_var")
     sweep_var.launches += 1
+    if suffix == "bf16":
+        sweep_var.launches_bf16 += 1
     return out
 
 
 sweep_var.launches = 0
+sweep_var.launches_bf16 = 0

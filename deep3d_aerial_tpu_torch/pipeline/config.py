@@ -64,8 +64,9 @@ class PipelineConfig:
     # raises ValueError.
     warp_impl: str = "pallas"
     red_impl: str = "pallas"
-    # feature dtype: only 'float32' is ported; 'bfloat16' raises
-    # NotImplementedError (ROADMAP)
+    # the models' compute dtype: 'float32' or 'bfloat16' (features, cost
+    # volumes, regularizer states; the written maps stay float32); any
+    # other value raises ValueError
     compute_dtype: str = "float32"
     # a switch of the TPU sweep's source windows; the CUDA sweep reads its
     # taps straight from device memory and has none, so any value but None
@@ -192,6 +193,7 @@ class PipelineConfig:
                 "allow_random_weights": self.allow_random_weights,
                 "display_depth": self.display_depth,
                 "warp_precision": self.warp_precision,
+                "compute_dtype": self.compute_dtype,
                 "save_normals": self.save_normals,
                 "save_dmap": self.save_dmap,
             },

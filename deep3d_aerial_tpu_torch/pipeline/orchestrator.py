@@ -21,8 +21,9 @@ from the `.mvs` scene through the native core, Taubin refine, the
 photometric refine in PyTorch autograd on the pipeline's device when
 switched on, the UV atlas texture), the DSM, and the pipelined run
 (`run_dense_pipelined`: fusion and mesh on a host thread while dense
-matching runs). `compute_dtype: bfloat16` and `warp_precision:
-compensated` are not: each raises NotImplementedError naming its ROADMAP
+matching runs), in `compute_dtype` float32 or bfloat16 (the models' dtype;
+the PFM, `.dmap` and PLY products stay float32). `warp_precision:
+compensated` is not: it raises NotImplementedError naming its ROADMAP
 item.
 
 The pipeline runs on a CUDA device unless the caller asks for the CPU
@@ -70,10 +71,10 @@ def _check_dense_config(cfg: PipelineConfig) -> None:
     work: an unported one raises NotImplementedError naming its ROADMAP
     item, one that has no meaning in the port raises ValueError."""
     from ..models import check_model_type
+    from ..models.blocks import compute_dtype
 
     check_model_type(cfg.model_type)
-    if cfg.compute_dtype != "float32":
-        raise _not_ported(f"compute_dtype {cfg.compute_dtype!r}", "A.7, bf16")
+    compute_dtype(cfg.compute_dtype)
     if cfg.warp_precision != "float32":
         raise _not_ported(f"warp_precision {cfg.warp_precision!r}",
                           "A.6, compensated warp")
@@ -214,7 +215,7 @@ class AerialPipeline:
         if cfg.depth_ratios:
             kwargs["depth_interval_ratios"] = tuple(
                 float(x) for x in cfg.depth_ratios)
-        model = build_model(cfg.model_type, **kwargs)
+        model = build_model(cfg.model_type, dtype=cfg.compute_dtype, **kwargs)
         if cfg.pretrain_weight and os.path.exists(cfg.pretrain_weight):
             load_jax_weights(model, cfg.pretrain_weight)
         elif cfg.allow_random_weights:
@@ -266,11 +267,13 @@ class AerialPipeline:
         cfg = self.cfg
         _check_dense_config(cfg)
         if self.device.type == "cuda":
-            # float32 compute: convolutions outside the kernels (feature
-            # net, pair hourglass) must not drop to TF32 on the card
+            # convolutions outside the kernels (feature net, pair and 3-D
+            # hourglasses) must not drop to TF32 on the card: float32 stays
+            # float32, bfloat16 takes cuDNN's bfloat16 convs (float32 sums)
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-            print("[mvs] compute_dtype float32: TF32 off for cuDNN and matmul")
+            print(f"[mvs] compute_dtype {cfg.compute_dtype}: TF32 off for "
+                  "cuDNN and matmul")
         ds = self.eval_dataset(view_filter, view_order)
         # host seconds of each batch (a forward per map through one
         # device->host copy), and the names of the maps in it

@@ -95,13 +95,13 @@ def main() -> int:
         fn.argtypes = [P, P, P, I, I, I, I, I, I, P, P, P, P]
         fn.restype = I
         for q in ("cf_conv3x3_scratch_floats", "cf_conv3x3_tickets"):
-            getattr(lib, q).argtypes = [I] * 5
+            getattr(lib, q).argtypes = [I] * 6
             getattr(lib, q).restype = ctypes.c_longlong
         row = []
         for (ci, co, H, W), x, pk, b, out in ops:
-            scratch = torch.empty(max(1, lib.cf_conv3x3_scratch_floats(ci, co, H, W, 0)),
+            scratch = torch.empty(max(1, lib.cf_conv3x3_scratch_floats(ci, co, H, W, 0, 0)),
                                   device=dev)
-            tickets = torch.zeros(max(1, lib.cf_conv3x3_tickets(ci, co, H, W, 0)),
+            tickets = torch.zeros(max(1, lib.cf_conv3x3_tickets(ci, co, H, W, 0, 0)),
                                   dtype=torch.int32, device=dev)
 
             def call():

@@ -3,10 +3,14 @@ one line per model), for comparing two checkouts on one card: run it from
 each checkout's root in turn (parent, change, change, parent, ...); it
 imports the chip_smoke.py and the package of the directory it runs in.
 
-    cd CHECKOUT && python3 /path/to/scripts/paired_main_rates.py parent|change
+    cd CHECKOUT && python3 /path/to/scripts/paired_main_rates.py parent|change [DTYPE]
 
+DTYPE is the pipeline's compute_dtype, float32 (the default, and the only
+one a checkout from before the bfloat16 modes takes) or bfloat16: run
+float32 and bfloat16 in turns from one checkout to compare the two.
 Prints `PAIR <label> <model> <maps/s>` per model (median over maps 2..6 of
-run_dense's host-clock seconds a map). Needs a CUDA device.
+run_dense's host-clock seconds a map), with the dtype after the label when
+one is given. Needs a CUDA device.
 """
 import sys
 from pathlib import Path
@@ -39,8 +43,11 @@ cases = [
     ("casmvsnet", (sweep_var,), {"sweep_var": sum(d // 8 for d in N)}, 0, True),
     ("ucsnet", (sweep_var,), {"sweep_var": sum(d // 8 for d in cs.UCS_NDEPTHS)}, 0, False),
 ]
+# a checkout from before the bfloat16 modes takes no compute_dtype
+extra = {"compute_dtype": sys.argv[2]} if len(sys.argv) > 2 else {}
+label = " ".join(sys.argv[1:3])
 for name, counters, per_map, eager, colmap in cases:
     _, steady, _ = cs.phase_main_path(dev, cam0, poses0, counters, per_map,
                                       model_type=name, eager_updates=eager,
-                                      colmap=colmap)
-    print(f"PAIR {sys.argv[1]} {name} {1.0 / steady:.3f} maps/s", flush=True)
+                                      colmap=colmap, **extra)
+    print(f"PAIR {label} {name} {1.0 / steady:.3f} maps/s", flush=True)

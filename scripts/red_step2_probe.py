@@ -32,10 +32,10 @@ from deep3d_aerial_tpu_torch.weights import init_random_weights  # noqa: E402
 
 SHAPES = [(32, 96, 128, True), (16, 192, 256, True), (8, 384, 512, False),
           (8, 1856, 2752, False)]
-MMA = """            mma_tf32(alh[i][n], al, bh0, bh1);
-            mma_tf32(ahl[i][n], ah, bl0, bl1);
-            mma_tf32(acc[i][n], ah, bh0, bh1);"""
-NO_MMA = "            acc[i][n][0] += __uint_as_float(ah[0] ^ bh0 ^ al[1] ^ bl1);"
+MMA = """              mma_tf32(alh[i][n], al, bh0, bh1);
+              mma_tf32(ahl[i][n], ah, bl0, bl1);
+              mma_tf32(acc[i][n], ah, bh0, bh1);"""
+NO_MMA = "              acc[i][n][0] += __uint_as_float(ah[0] ^ bh0 ^ al[1] ^ bl1);"
 LOAD = "cp_async4(dst + ch * cs + spos[k],"
 NO_LOAD = "if (false) cp_async4(dst + ch * cs + spos[k],"
 WARPS = "constexpr int kGruThreads = 512;"

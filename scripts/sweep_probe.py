@@ -41,8 +41,8 @@ from deep3d_aerial_tpu_torch.ops import sweep as sw  # noqa: E402
 from deep3d_aerial_tpu_torch.ops.cuda_build import NVCC_FLAGS, nvcc  # noqa: E402
 from deep3d_aerial_tpu_torch.utils.profiling import device_events  # noqa: E402
 
-TAPS = """  const float4 v0 = __ldg(b), v1 = __ldg(b + G);
-  const float4 v2 = __ldg(b + rowq), v3 = __ldg(b + rowq + G);"""
+TAPS = """  const float4 v0 = quad(b), v1 = quad(b + G);
+  const float4 v2 = quad(b + rowq), v3 = quad(b + rowq + G);"""
 NO_TAPS = """  const float4 v0 = make_float4(w.x, (float)off, w.z, w.w), v1 = v0, v2 = v0, v3 = v0;"""
 DESC = "  float p[3];\n#pragma unroll\n  for (int a = 0; a < 3; ++a) p[a] = __fadd_rn(__fmul_rn(g.r[a], d), g.t[a]);"
 MIN_BLOCKS = "constexpr long long kMinBlocks = 1024;"

@@ -157,7 +157,7 @@ class _FoldingReg:
     def init_states(self, *a, **kw):
         return self.mod.init_states(*a, **kw)
 
-    def plane_step(self, device):
+    def plane_step(self, device, dtype=torch.float32):
         def step(cost, s1, s2, osm=None, dv=None):
             self.calls.append(osm is not None)
             return rs2.red_step2(dict(self.mod.named_parameters()), cost, s1, s2,

@@ -161,3 +161,57 @@ def test_cuda_wrappers_never_take_the_plain_path_for_a_cuda_tensor(monkeypatch):
     assert sweep.sweep_var.launches == 0
     assert red_step2.red_step2.launches == red_step4.red_step4.launches == 0
     assert cf_conv.cf_conv3x3.launches == 0
+
+
+def test_cuda_wrappers_never_take_the_plain_path_for_a_cuda_bf16_tensor(monkeypatch):
+    """bfloat16 raises or launches: a bfloat16 tensor that says it is on
+    CUDA goes to the launcher of the kernel's bfloat16 mode, which on this
+    machine fails to build, never to the plain version or an upcast to the
+    float32 kernel."""
+    import torch
+
+    from deep3d_aerial_tpu_torch.ops import cf_conv, cuda_build, red_step2, red_step4, sweep
+
+    class FakeCuda(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    built = []
+
+    def no_build(name):
+        built.append(name)
+        raise RuntimeError(f"build {name}")
+
+    monkeypatch.setattr(cuda_build, "load", no_build)
+    bf = torch.bfloat16
+
+    def fake(*shape):
+        return torch.zeros(*shape, dtype=bf).as_subclass(FakeCuda)
+
+    t, d = fake(4, 4, 8), torch.zeros(2, 4, 4).as_subclass(FakeCuda)
+    rel = torch.eye(4).as_subclass(FakeCuda)[None]
+    with pytest.raises(RuntimeError, match="build sweep"):
+        sweep.sweep_corr(t, t[None], rel, d)
+    with pytest.raises(RuntimeError, match="build sweep"):
+        sweep.sweep_cost(t, t[None], rel, d, torch.ones(1, 4, 4).as_subclass(FakeCuda))
+    with pytest.raises(RuntimeError, match="build sweep"):
+        sweep.sweep_var(t, t[None], rel, d)
+    with pytest.raises((RuntimeError, ValueError)):
+        red_step2.red_step2({}, fake(8, 4, 4), fake(8, 4, 4), fake(16, 2, 2), up=True,
+                            packed=torch.zeros(4).as_subclass(FakeCuda))
+    with pytest.raises((RuntimeError, ValueError)):
+        cf_conv.cf_conv3x3(fake(8, 4, 4), torch.zeros(8, 8, 3, 3), torch.zeros(8),
+                           packed=torch.zeros(4).as_subclass(FakeCuda))
+    with pytest.raises((RuntimeError, ValueError)):
+        red_step4.red_step4({}, fake(8, 8, 8),
+                            *[fake(c, 8 >> l, 8 >> l) for l, c in enumerate((8, 16, 32, 64))],
+                            packed=torch.zeros(4).as_subclass(FakeCuda))
+    assert built[:3] == ["sweep"] * 3
+    assert sweep.sweep_corr.launches == sweep.sweep_cost.launches == 0
+    assert sweep.sweep_var.launches == 0
+    assert red_step2.red_step2.launches == red_step4.red_step4.launches == 0
+    assert cf_conv.cf_conv3x3.launches == 0
+    for fn in (sweep.sweep_corr, sweep.sweep_cost, sweep.sweep_var, red_step2.red_step2,
+               red_step4.red_step4, cf_conv.cf_conv3x3):
+        assert fn.launches_bf16 == 0

@@ -281,7 +281,7 @@ def test_red_step2_wrapper_refuses(dev):
     with pytest.raises(ValueError, match="packed"):
         rs.red_step2(params, cost, s1, s2, up=True,
                      packed=rs.pack_params(params, True)[:-4])
-    n12 = load("red_step2").red_step2_param_floats(12)  # a size the C entry accepts
+    n12 = load("red_step2").red_step2_param_floats(12, 0)  # a size the C entry accepts
     with pytest.raises(RuntimeError, match="channel"):
         rs.red_step2(params, torch.zeros((12, 12, 18), device=dev), s1, s2, up=True,
                      packed=torch.zeros(n12, device=dev))
@@ -709,3 +709,138 @@ def test_batched_inference_is_bit_equal_through_the_kernels(dev, tmp_path, monke
         files[batch] = {p.name: p.read_bytes()
                         for p in (ws / "dense" / "MVS").glob("*.pfm")}
     assert len(files[1]) == 18 and files[1] == files[2]
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 modes (chip_smoke.py's TOL_BF16_ULPS_*: in bfloat16 ulps of
+# each output's largest magnitude; a value near a rounding boundary can
+# round the other way after sums in another order)
+# ---------------------------------------------------------------------------
+
+BF = torch.bfloat16
+# the 384x512 point's stages: (channels, H, W)
+BF16_STAGES = [(32, 96, 128), (16, 192, 256), (8, 384, 512)]
+
+
+def _ulps(got, want):
+    """Largest |got - want| over each output, in bfloat16 ulps of that
+    output's largest magnitude."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        top = float(w.float().abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 2.0 ** -133
+        worst = max(worst, float((g.float() - w.float()).abs().max()) / ulp)
+    return worst
+
+
+@pytest.mark.parametrize("C,H,W", BF16_STAGES)
+def test_sweep_kernels_bf16_match_plain(dev, C, H, W):
+    rng = np.random.default_rng(900 + C)
+    ref, srcs, rel, d, wts = _sweep_inputs(dev, rng, C, H, W, 4, 8)
+    ref, srcs = ref.to(BF), srcs.to(BF)
+    for kern, plain, args in ((sw.sweep_cost, sw.sweep_cost_plain, (d, wts)),
+                              (sw.sweep_var, sw.sweep_var_plain, (d,)),
+                              (sw.sweep_corr, sw.sweep_corr_plain, (d,))):
+        n = kern.launches_bf16
+        got, want = kern(ref, srcs, rel, *args), plain(ref, srcs, rel, *args)
+        assert kern.launches_bf16 == n + 1, kern.__name__  # the bfloat16 entry ran
+        assert got.dtype == want.dtype == BF
+        assert _ulps((got,), (want,)) <= 2, kern.__name__
+
+
+@pytest.mark.parametrize("C,H,W", BF16_STAGES)
+def test_red_step2_kernel_bf16_matches_plain(dev, C, H, W):
+    """One step by the score entry, then three planes folded into the
+    online softmax, against the plain bfloat16 version and the float32
+    update on its rounded score."""
+    up = C != 8
+    mod = init_random_weights(RedStep2(C, up=up), seed=C).to(dev)
+    params, packed = dict(mod.named_parameters()), mod._packed_params(BF)
+    g = torch.Generator(device=dev).manual_seed(C)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(BF)  # noqa: E731
+    cost, s1, s2 = rnd(C, H, W), rnd(8, H, W) * 0.5, rnd(16, H // 2, W // 2) * 0.5
+    with torch.no_grad():
+        got = rs.red_step2(params, cost, s1, s2, up=up, packed=packed)
+        want = rs.red_step2_plain(params, cost, s1, s2, up=up)
+        assert all(t.dtype == BF for t in got + want)
+        assert _ulps(got, want) <= 8
+        shape = (2 * H, 2 * W) if up else (H, W)
+        osm_k = OnlineSoftmaxState.init(shape, device=dev)
+        osm_p = OnlineSoftmaxState.init(shape, device=dev)
+        a, b, pa, pb = s1, s2, s1, s2
+        for k in range(3):
+            c, dv = rnd(C, H, W), torch.full(shape, 100.0 + k, device=dev)
+            _, a, b = rs.red_step2(params, c, a, b, up=up, packed=packed, osm=osm_k, dv=dv)
+            sc, pa, pb = rs.red_step2_plain(params, c, pa, pb, up=up)
+            osm_p = OnlineSoftmaxState.update(osm_p, sc, dv)
+    assert _ulps(tuple(osm_k) + (a, b), tuple(osm_p) + (pa, pb)) <= 8
+
+
+@pytest.mark.parametrize("C,H,W", BF16_STAGES)
+def test_red_step4_kernel_bf16_matches_plain(dev, C, H, W):
+    mod = init_random_weights(RedStep4(C), seed=C).to(dev)
+    params, packed = dict(mod.named_parameters()), mod._packed.get(mod, BF)
+    g = torch.Generator(device=dev).manual_seed(C)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(BF)  # noqa: E731
+    sk = sp = [rnd(c, H >> l, W >> l) * 0.5 for l, c in enumerate((8, 16, 32, 64))]
+    n, nc = rs4.red_step4.launches_bf16, cc.cf_conv3x3.launches_bf16
+    with torch.no_grad():
+        for _ in range(3):
+            c = rnd(C, H, W)
+            got = rs4.red_step4(params, c, *sk, packed=packed)
+            want = rs4.red_step4_plain(params, c, *sp)
+            sk, sp = list(got[1:]), list(want[1:])
+    # the bfloat16 entries ran: K4's, and its conv template's
+    assert rs4.red_step4.launches_bf16 == n + 3
+    assert cc.cf_conv3x3.launches_bf16 == nc + 3 * CONV_LAUNCHES_PER_STEP
+    assert all(t.dtype == BF for t in got + want)
+    assert _ulps(got, want) <= 8
+
+
+@pytest.mark.parametrize("mode,ci,co,H,W", [("same", 16, 16, 384, 512),
+                                            ("down", 8, 16, 384, 512),
+                                            ("up", 16, 8, 192, 256),
+                                            ("same", 128, 128, 48, 64)])
+def test_cf_conv3x3_kernel_bf16_matches_plain(dev, mode, ci, co, H, W):
+    g = torch.Generator(device=dev).manual_seed(ci + co)
+    x = torch.randn((ci, H, W), generator=g, device=dev).to(BF)
+    w = torch.randn(((ci, co, 3, 3) if mode == "up" else (co, ci, 3, 3)), generator=g,
+                    device=dev) * (9 * ci) ** -0.5
+    b = torch.randn((co,), generator=g, device=dev) * 0.1
+    for relu in (False, True):
+        got = cc.cf_conv3x3(x, w, b, mode=mode, relu=relu)
+        want = cc.cf_conv3x3_plain(x, w, b, mode=mode, relu=relu)
+        assert got.dtype == want.dtype == BF
+        assert _ulps((got,), (want,)) <= 2
+
+
+@pytest.mark.parametrize("name", ["adamvs", "msrednet", "casmvsnet", "ucsnet"])
+def test_bf16_forward_kernel_vs_plain(dev, name):
+    """One bfloat16 forward at 128x160 through the kernels and through the
+    plain versions (same weights): within 2x the plain bfloat16 vs plain
+    float32 distance, or the float32 tolerances where larger
+    (chip_smoke.py's [e2e:bf16])."""
+    from deep3d_aerial_tpu_torch.models import build_model
+
+    rng = np.random.default_rng(7)
+    V, H, W = 3, 128, 160
+    imgs = torch.from_numpy(rng.normal(size=(V, H, W, 3)).astype(np.float32)).to(dev)
+    rel = torch.from_numpy(np.stack([_rels(rng, V - 1)] * 3)).to(dev)
+    plain = {"warp_impl": "plain"}
+    if name in ("adamvs", "msrednet"):
+        plain["red_impl"] = "plain"
+    nd = (16, 8, 8)
+    mk = init_random_weights(build_model(name, ndepths=nd, dtype=BF), seed=0).to(dev).eval()
+    outs = [mk]
+    for dt in (BF, torch.float32):
+        m = build_model(name, ndepths=nd, dtype=dt, **plain).to(dev).eval()
+        m.load_state_dict(mk.state_dict())
+        outs.append(m)
+    with torch.no_grad():
+        ok, op, o32 = (m(imgs, rel, 90.0, 110.0) for m in outs)
+    for s in ("stage1", "stage2", "stage3"):
+        for key, floor in (("depth", 2e-2), ("photometric_confidence", TOL)):
+            k, p, p32 = ok[s][key], op[s][key], o32[s][key]
+            assert k.dtype == torch.float32 and torch.isfinite(k).all()
+            gap = float((p - p32).abs().max())
+            assert float((k - p).abs().max()) <= max(2 * gap, floor), (s, key)

@@ -113,7 +113,7 @@ class _PerPlane:
     def init_states(self, *args, **kw):
         return self.module.init_states(*args, **kw)
 
-    def plane_step(self, device):
+    def plane_step(self, device, dtype=torch.float32):
         return self.module
 
 
@@ -135,7 +135,8 @@ def test_streaming_sweep_gathers_the_step_once(cost_mode, monkeypatch):
     reg = init_random_weights(reg, seed=4)
     calls = []
     step = reg.plane_step
-    monkeypatch.setattr(reg, "plane_step", lambda dev: calls.append(dev) or step(dev))
+    monkeypatch.setattr(reg, "plane_step",
+                        lambda dev, dtype: calls.append(dev) or step(dev, dtype))
     with torch.no_grad():
         got = streaming_sweep(reg, False, depths, ref, srcs, rels, None,
                               plane_chunk=4, cost_mode=cost_mode)

@@ -5,7 +5,12 @@ checkpoint on both sides (ndepths 16/8/8, num_depth 64, as it requires).
 Tolerances: depth maps within 1e-3 x (depth_max - depth_min) of each
 view's range and confidence within 1e-4, as for the model forward; the
 fused point count within 1%, since a pixel whose depth moved by that much
-can cross a consistency threshold.
+can cross a consistency threshold. With compute_dtype bfloat16, each
+view's depth map within 2x the JAX pipeline's own bfloat16-vs-float32
+distance (per map, on the same workspace and checkpoint) of the JAX
+pipeline's bfloat16 map, and each confidence map within the same plus 2
+bfloat16 ulps of its largest value: the rule of
+tests/test_torch_bf16_models.py.
 """
 
 import dataclasses
@@ -26,6 +31,7 @@ from deep3d_aerial_tpu_torch.pipeline.__main__ import main as port_main
 from deep3d_aerial_tpu_torch.pipeline.config import PipelineConfig
 from deep3d_aerial_tpu_torch.pipeline.orchestrator import AerialPipeline
 from tests.test_pipeline import build_synthetic_workspace
+from tests.test_torch_bf16_blocks import bf16_ulps
 
 torch.set_num_threads(1)
 
@@ -113,6 +119,40 @@ def test_cli_on_the_cpu(runs, tmp_path):
     assert list((ws / "dense" / "fusion").glob("scene_*.ply"))
 
 
+def test_dense_match_in_bfloat16_against_the_jax_pipeline(runs, tmp_path):
+    """compute_dtype bfloat16: the JAX pipeline's dense_match and the
+    port's (device cpu, then fusion) on copies of the workspace; every
+    view's PFMs within 2x the JAX pipeline's own bfloat16-vs-float32
+    distance (its float32 maps from `runs`) of the JAX bfloat16 maps, the
+    confidence (prob) maps plus 2 bfloat16 ulps of their largest value, as
+    in test_torch_bf16_models.py. Readings on the CPU (max|P - J| over its
+    bound): depth up to 0.60 (im_01), confidence up to 0.69 (im_07; 0.98
+    without the 2 ulps)."""
+    jws, tws, tpipe = runs
+    jb, tb = tmp_path / "jax_bf16", tmp_path / "port_bf16"
+    shutil.copytree(jws / "export", jb / "export")
+    shutil.copytree(tws / "export", tb / "export")
+    JPipeline(str(jb), JConfig(**CFG, pretrain_weight=CKPT,
+                               compute_dtype="bfloat16")).dense_match()
+    pipe = AerialPipeline(str(tb), PipelineConfig(
+        **CFG, pretrain_weight=tpipe.cfg.pretrain_weight, compute_dtype="bfloat16"),
+        device="cpu")
+    pipe.dense_match()
+    pipe.fuse_depth_map()
+    assert list((tb / "dense" / "fusion").glob("scene_*.ply"))
+    names = _names(jws)
+    assert _names(jb) == _names(tb) == names
+    for n in names:
+        for kind in ("init", "prob"):
+            f = f"{n}_{kind}.pfm"
+            p, j = (read_pfm(w / "dense" / "MVS" / f)[0] for w in (tb, jb))
+            j32 = read_pfm(jws / "dense" / "MVS" / f)[0]
+            assert p.dtype == np.float32 and np.isfinite(p).all()
+            gap = np.abs(j - j32).max()
+            floor = bf16_ulps(np.abs(j).max()) if kind == "prob" else 0.0
+            assert np.abs(p - j).max() <= 2 * gap + floor, (f, np.abs(p - j).max(), gap, floor)
+
+
 def test_config_copy_parses_like_the_jax_package(tmp_path):
     path = tmp_path / "cfg.yaml"
     JConfig(**CFG).to_yaml(path)
@@ -121,7 +161,7 @@ def test_config_copy_parses_like_the_jax_package(tmp_path):
 
 
 @pytest.mark.parametrize("setting,error", [
-    ({"compute_dtype": "bfloat16"}, NotImplementedError),
+    ({"compute_dtype": "float16"}, ValueError),
     ({"warp_precision": "compensated"}, NotImplementedError),
     ({"warp_impl": "xla"}, ValueError),
     ({"red_impl": "flax"}, ValueError),
