@@ -32,7 +32,18 @@ model's main path to fusion in bfloat16 with every bfloat16 kernel of the
 path counted, `[e2e:bf16:<model>]` holds each bfloat16 forward's kernels
 against its plain versions (within 2x bfloat16's own distance from
 float32) and profiles it, and `[fullres:bf16:adamvs]` runs one 1856x2752
-bfloat16 map (finite share 100%).
+bfloat16 map (finite share 100%). Then warp_precision 'compensated' (the
+double-single projection): `[kernel:compensated]` holds K1/K2/K2v's
+compensated modes, float32 and bfloat16, against their compensated plain
+versions at every stage shape of the 384x512 point and at 1856x2752, with
+the float32 projection's time beside each; `[main:compensated*]` runs the
+AdaMVS and CasMVSNet main paths to fusion, float32 and bfloat16, every
+sweep launch a compensated one; `[e2e:compensated]` holds AdaMVS's
+compensated forward kernels against plain; `[fullres:compensated:adamvs]`
+runs one 1856x2752 map (finite share 100%) against the float32
+projection's. `[shards:<model>]` runs each model at depth_shards 2, kernels
+against plain, its launches equal to depth_shards 1's, its seconds a map
+beside them.
 
     python3 chip_smoke.py
 
@@ -43,7 +54,10 @@ limit as nvidia-smi gives them, and the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Kernel numbers (one entry per kernel, then one per kernel's bfloat16
-mode, named `<kernel>:bf16`, from the bfloat16 phases, with `max_ulps`):
+mode, named `<kernel>:bf16`, from the bfloat16 phases, with `max_ulps`,
+then one per sweep's compensated mode, `<kernel>:compensated` and
+`<kernel>:bf16:compensated`, with `float32_mode_ms`, the float32
+projection's time on the same inputs):
 `ms`, `plain_ms`, `bound_ms` and `library_ms` are per depth map of the
 main path at 384x512 of the model that `per_map_of` names, i.e. the
 per-launch time at each stage's shape times that stage's launches per
@@ -425,13 +439,18 @@ OWN_KERNEL = re.compile(r"\b(sweep_\w+_kernel|red2_level\d_kernel|gru_(reset|upd
 def device_ms(fn, iters):
     """Mean device milliseconds per call, after one warm call: the summed
     durations of the device work (kernels, copies, fills) that `iters` calls
-    launch, from torch.profiler (CUPTI, `device_events`); the larger of two
-    sessions. The host's issue time and the gaps between launches are not
-    in it. Each session must list one event of the port's kernels for each
-    launch that the wrappers' counters add (`own_launches`) over the warm
-    call, times `iters`; a session that does not is measured again, and
-    five in a row raise. A lost event of a PyTorch or cuDNN kernel, which no
-    counter sees, would only lower a plain version's or a yardstick's sum."""
+    launch, from torch.profiler (CUPTI, `device_events`). The host's issue
+    time and the gaps between launches are not in it. Each session must
+    list one event of the port's kernels for each launch that the wrappers'
+    counters add (`own_launches`) over the warm call, times `iters`; a
+    session that does not is measured again, and five in a row raise. A
+    session of the port's kernels whose events are all theirs is thus
+    complete and is taken as it is; otherwise (plain versions, yardsticks)
+    the larger of two sessions is, since a lost event of a PyTorch or
+    cuDNN kernel, which no counter sees, would only lower the sum (a plain
+    version's session can even list no event at all). (Up to PR 10 every call took
+    two sessions; PR 11 took the second off the port's own kernels for the
+    script's time.)"""
     from deep3d_aerial_tpu_torch.utils.profiling import device_events
 
     before = own_launches()
@@ -445,8 +464,10 @@ def device_ms(fn, iters):
 
     def whole(evs):
         return sum(1 for e in evs if OWN_KERNEL.search(e.name)) == want
-    us = max(sum(e.time_range.elapsed_us() for e in device_events(run, whole))
-             for _ in range(2))
+    evs = device_events(run, whole)
+    us = sum(e.time_range.elapsed_us() for e in evs)
+    if not want or not all(OWN_KERNEL.search(e.name) for e in evs):
+        us = max(us, sum(e.time_range.elapsed_us() for e in device_events(run, whole)))
     if us <= 0:
         raise RuntimeError("torch.profiler saw no device work: device time not measured")
     return us / 1e3 / iters
@@ -498,27 +519,43 @@ def bound_ms(nbytes, flops, peak=PEAK_FP32):
 # projection (3 rays, p = ray*d + t, two divides) + floor/fraction + the
 # four bilinear weights, per (plane, pixel, view)
 GEOM_FLOPS = 30
+# the compensated projection (csrc/sweep.cu, a division counted as one
+# operation): per (plane, pixel, view) p = ray*d + t in double-single (3 x
+# (ds_mul 27 + ds_add 14)), the z guards, two compensated divisions (2 x
+# 47) and the behind test, 225, plus the float32 mode's taps and weights
+# after it; per (pixel, view) the double-single ray (3 x (2 ds_mul + 2
+# ds_add) = 246)
+GEOM_FLOPS_COMP = 243
+RAY_FLOPS_COMP = 246
+
+
+def _comp_flops(V, K, H, W, comp):
+    """The compensated projection's operations beyond GEOM_FLOPS."""
+    if not comp:
+        return 0
+    return V * K * H * W * (GEOM_FLOPS_COMP - GEOM_FLOPS) + V * H * W * RAY_FLOPS_COMP
 
 
 # `fb`: bytes of a feature and output element (4 float32, 2 bfloat16);
-# projections, depths and weights stay float32
-def sweep_corr_work(V, K, H, W, C, fb=4):
+# projections, depths and weights stay float32; `comp`: the compensated
+# projection
+def sweep_corr_work(V, K, H, W, C, fb=4, comp=False):
     nbytes = fb * ((V + 1) * H * W * C + V * K * H * W) + 4 * (K * H * W + 12 * V)
     flops = V * K * H * W * (GEOM_FLOPS + 8 * C + 2 * C)  # 4 taps, dot, mean
-    return nbytes, flops
+    return nbytes, flops + _comp_flops(V, K, H, W, comp)
 
 
-def sweep_cost_work(V, K, H, W, C, fb=4):
+def sweep_cost_work(V, K, H, W, C, fb=4, comp=False):
     nbytes = (fb * ((V + 1) * H * W * C + K * C * H * W)
               + 4 * (K * H * W + V * H * W + 12 * V))
     flops = K * H * W * (V * (GEOM_FLOPS + 11 * C + 1) + C)  # taps, *ref*w+, /
-    return nbytes, flops
+    return nbytes, flops + _comp_flops(V, K, H, W, comp)
 
 
-def sweep_var_work(V, K, H, W, C, fb=4):
+def sweep_var_work(V, K, H, W, C, fb=4, comp=False):
     nbytes = fb * ((V + 1) * H * W * C + K * C * H * W) + 4 * (K * H * W + 12 * V)
     flops = K * H * W * (V * (GEOM_FLOPS + 11 * C) + 5 * C)  # taps, s, q; var
-    return nbytes, flops
+    return nbytes, flops + _comp_flops(V, K, H, W, comp)
 
 
 def red_step4_convs(cin, H, W):
@@ -1436,7 +1473,7 @@ class _Marked(torch.nn.Module):
 
 def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
                     eager_updates=0, colmap=False, after=None,
-                    compute_dtype="float32", mesh=True):
+                    compute_dtype="float32", mesh=True, warp_precision="float32"):
     """AerialPipeline(...).run_dense() on a synthetic workspace: dense
     matching, fusion with the .mvs handoff, and the default mesh and DSM
     stages at 384x512, the model's default configuration (the graph cut's
@@ -1449,7 +1486,9 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
     holds a COLMAP model and the images only, and the run starts with the
     default view selection (image paths from `data_folder`); every
     selected reference view must get a depth map. `compute_dtype` is the
-    config's (`[main:bf16:<model>]` for bfloat16); without `mesh` the run
+    config's (`[main:bf16:<model>]` for bfloat16), and so is
+    `warp_precision` (`[main:compensated*]`: every sweep launch must be a
+    compensated one, and none in a float32 run); without `mesh` the run
     stops after fusion (no mesh, no DSM). Returns (launches, median
     seconds per map, median ms between the forward's marks by label)."""
     from deep3d_aerial_tpu_torch.io import text_formats as tf
@@ -1472,6 +1511,7 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
             position_threshold=2.0, depth_threshold=0.05,
             normal_threshold=180.0, model_type=model_type,
             compute_dtype=compute_dtype, run_create_mesh=mesh, run_create_dsm=mesh,
+            warp_precision=warp_precision,
         )
         pipe = AerialPipeline(str(ws), cfg, device=dev,
                               data_folder=str(ws / "images") if colmap else None)
@@ -1486,8 +1526,11 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
 
         cascade.OnlineSoftmaxState.update = staticmethod(counted)
         try:
+            sweeps = [c for c in counters if hasattr(c, "launches_compensated")]
             for c in counters:
                 c.launches = c.launches_bf16 = 0
+            for c in sweeps:
+                c.launches_compensated = 0
             t0 = time.perf_counter()
             with GraphCutCount() as graphcut:
                 pipe.run_dense(model=model)
@@ -1495,14 +1538,21 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
             total = time.perf_counter() - t0
             launches = {c.__name__: c.launches for c in counters}
             launches_bf16 = {c.__name__: c.launches_bf16 for c in counters}
+            launches_comp = {c.__name__: c.launches_compensated for c in sweeps}
         finally:
             cascade.OnlineSoftmaxState.update = staticmethod(update)
         # every launch of a bfloat16 run went to a kernel's bfloat16 entry,
-        # and none of a float32 run did
+        # and none of a float32 run did; likewise every sweep launch of a
+        # compensated run to a compensated entry
         want_bf16 = launches if compute_dtype == "bfloat16" else dict.fromkeys(launches, 0)
         if launches_bf16 != want_bf16:
             raise AssertionError(f"[main:{model_type}] {compute_dtype}: bfloat16-entry "
                                  f"launches {launches_bf16}, want {want_bf16}")
+        want_comp = {k: launches[k] if warp_precision == "compensated" else 0
+                     for k in launches_comp}
+        if launches_comp != want_comp:
+            raise AssertionError(f"[main:{model_type}] {warp_precision}: compensated "
+                                 f"launches {launches_comp}, want {want_comp}")
 
         maps = sorted((ws / "dense" / "MVS").glob("*_init.pfm"))
         n = len(maps)
@@ -1542,6 +1592,9 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
     tag = "main" if model_type == "adamvs" else f"main:{model_type}"
     if compute_dtype != "float32":
         tag = f"main:bf16:{model_type}"
+    if warp_precision != "float32":
+        tag = ("main:compensated" if (model_type, compute_dtype) == ("adamvs", "float32")
+               else "main:compensated:" + tag[len("main:"):])
     for name, k in per_map.items():
         if launches[name] != k * n:
             raise AssertionError(f"{name}: {launches[name]} launches on the "
@@ -1562,7 +1615,8 @@ def phase_main_path(dev, cam0, poses0, counters, per_map, model_type="adamvs",
         f"fused points {points}")
     log(f"[{tag}] launches " + json.dumps(launches) + " per map "
         + json.dumps(per_map) + "; of them at a bfloat16 entry "
-        + json.dumps(launches_bf16) + f"; eager online-softmax updates {updates[0]} "
+        + json.dumps(launches_bf16) + "; at a compensated entry "
+        + json.dumps(launches_comp) + f"; eager online-softmax updates {updates[0]} "
         f"({eager_updates} per map)")
     med = {k: float(np.median(v)) for k, v in stage_ms.items()}
     log(f"[{tag}] per-stage ms between CUDA events, idle gaps included "
@@ -1841,8 +1895,9 @@ def phase_refine_pipeline(dev, pipe, ws):
 
 def phase_refine_plane(dev):
     """[refine] (b): the 428x428-vertex plane of tests/test_mesh.py (183k
-    vertices, 364k faces, 2 views of a 64x64 image), both energies, 10
-    steps, card against CPU."""
+    vertices, 364k faces, 2 views of a 64x64 image), both energies, 5
+    steps at one scale (10 at two until PR 11 needed the script's time),
+    card against CPU."""
     from deep3d_aerial_tpu_torch.mesh.refine import PhotoRefineConfig
 
     n_side = 428
@@ -1859,7 +1914,7 @@ def phase_refine_plane(dev):
     views = [(img, K, T), (img + 0.01, K, T)]
     for energy in ("zncc", "variance"):
         refine_case(dev, verts, faces, views,
-                    PhotoRefineConfig(scales=2, iterations=5, energy=energy), "plane 428x428")
+                    PhotoRefineConfig(scales=1, iterations=5, energy=energy), "plane 428x428")
 
 
 def phase_fullres_pipeline(dev, camF, posesF):
@@ -2153,6 +2208,27 @@ def phase_fusion_cli(ws: Path, settings):
         f"las {secs['las']:.2f} s (host clock, views loaded included)")
 
 
+def compare_forwards(tag, mk, mp, inputs):
+    """A forward through the kernels (`mk`) against the same forward
+    through their plain versions (`mp`, same weights), per stage: depth
+    within TOL_DEPTH_FRAC of the range, confidence within TOL_CONF.
+    Returns both forwards' outputs."""
+    dmin, dmax = inputs[2:]
+    with torch.no_grad():
+        ok, op = mk(*inputs), mp(*inputs)
+    dtol = TOL_DEPTH_FRAC * (dmax - dmin)
+    for s in ("stage1", "stage2", "stage3"):
+        dd = float((ok[s]["depth"] - op[s]["depth"]).abs().max())
+        dc = float((ok[s]["photometric_confidence"]
+                    - op[s]["photometric_confidence"]).abs().max())
+        finite = bool(torch.isfinite(ok[s]["depth"]).all())
+        log(f"[{tag}] {s}: kernel vs plain depth max |diff| {dd:.3e} m (tol "
+            f"{dtol:.3e}), confidence {dc:.3e} (tol {TOL_CONF:g})")
+        if not (finite and dd <= dtol and dc <= TOL_CONF):
+            raise AssertionError(f"{tag} {s}: depth {dd}, conf {dc}, finite {finite}")
+    return ok, op
+
+
 def phase_end_to_end(dev, cam0, poses0):
     """One sample through the forward with the kernels and with their plain
     versions (same weights)."""
@@ -2163,20 +2239,8 @@ def phase_end_to_end(dev, cam0, poses0):
     mk = init_random_weights(AdaMVS(), seed=0).to(dev).eval()
     mp = AdaMVS(warp_impl="plain", red_impl="plain").to(dev).eval()
     mp.load_state_dict(mk.state_dict())
-    with torch.no_grad():
-        ok = mk(imgs, rel, dmin, dmax)
-        op = mp(imgs, rel, dmin, dmax)
+    ok, op = compare_forwards("e2e", mk, mp, (imgs, rel, dmin, dmax))
     dtol = TOL_DEPTH_FRAC * (dmax - dmin)
-    res = {}
-    for s in ("stage1", "stage2", "stage3"):
-        dd = float((ok[s]["depth"] - op[s]["depth"]).abs().max())
-        dc = float((ok[s]["photometric_confidence"]
-                    - op[s]["photometric_confidence"]).abs().max())
-        res[s] = (dd, dc)
-        log(f"[e2e] {s}: kernel vs plain depth max |diff| {dd:.3e} m "
-            f"(tol {dtol:.3e}), confidence {dc:.3e} (tol {TOL_CONF:g})")
-        if not (dd <= dtol and dc <= TOL_CONF):
-            raise AssertionError(f"end to end {s}: depth {dd}, conf {dc}")
     dp = float((ok["stage1"]["pair_results"] - op["stage1"]["pair_results"]).abs().max())
     log(f"[e2e] pair depth max |diff| {dp:.3e} m")
     if not dp <= dtol:
@@ -2184,7 +2248,6 @@ def phase_end_to_end(dev, cam0, poses0):
     profile_forward(mk, (imgs, rel, dmin, dmax),
                     {"sweep_pair": "K1 sweep_corr", "sweep_cost": "K2 sweep_cost",
                      "red2_level": "K3 red_step2"})
-    return res
 
 
 def phase_end_to_end_msrednet(dev, cam0, poses0):
@@ -2198,18 +2261,7 @@ def phase_end_to_end_msrednet(dev, cam0, poses0):
     mk = init_random_weights(MSREDNet(), seed=0).to(dev).eval()
     mp = MSREDNet(warp_impl="plain", red_impl="plain").to(dev).eval()
     mp.load_state_dict(mk.state_dict())
-    with torch.no_grad():
-        ok = mk(imgs, rel, dmin, dmax)
-        op = mp(imgs, rel, dmin, dmax)
-    dtol = TOL_DEPTH_FRAC * (dmax - dmin)
-    for s in ("stage1", "stage2", "stage3"):
-        dd = float((ok[s]["depth"] - op[s]["depth"]).abs().max())
-        dc = float((ok[s]["photometric_confidence"]
-                    - op[s]["photometric_confidence"]).abs().max())
-        log(f"[e2e:msrednet] {s}: kernel vs plain depth max |diff| {dd:.3e} m "
-            f"(tol {dtol:.3e}), confidence {dc:.3e} (tol {TOL_CONF:g})")
-        if not (dd <= dtol and dc <= TOL_CONF):
-            raise AssertionError(f"MSREDNet end to end {s}: depth {dd}, conf {dc}")
+    compare_forwards("e2e:msrednet", mk, mp, (imgs, rel, dmin, dmax))
     # two forwards profiled: exactly their conv-template launches
     want = 2 * RED4_CONVS * sum(NDEPTHS)
     busy, counts = profile_forward(
@@ -2249,17 +2301,43 @@ def phase_end_to_end_volume(dev, cam0, poses0, model_type):
     mk = init_random_weights(build_model(model_type), seed=0).to(dev).eval()
     mp = build_model(model_type, warp_impl="plain").to(dev).eval()
     mp.load_state_dict(mk.state_dict())
+    check_volume_forwards(f"e2e:{model_type}", model_type, mk, mp, (imgs, rel, dmin, dmax))
+    fams = {"sweep_var": "K2v sweep_var"}
+    fams.update({k: "cuDNN convs" for k in CONV_FAMILY})
+    busy, counts = profile_forward(mk, (imgs, rel, dmin, dmax), fams,
+                                   f"profile:{model_type}")
+    feat, _ = profile_forward(lambda x: stage_features(mk.feature, x), (imgs,),
+                              fams, f"profile:{model_type}:features")
+    if busy:
+        conv, conv2d = busy.get("cuDNN convs", 0.0), feat.get("cuDNN convs", 0.0)
+        log(f"[profile:{model_type}] device ms a forward: K2v "
+            f"{busy.get('K2v sweep_var', 0.0):.3f} in "
+            f"{counts.get('K2v sweep_var', 0)} launches; cuDNN convs {conv:.3f} "
+            f"(CostRegNet3D's 3-D {conv - conv2d:.3f}, FeatureNet's 2-D "
+            f"{conv2d:.3f}); other {busy.get('other (PyTorch ops, cuDNN)', 0.0):.3f}")
+    return busy
+
+
+def check_volume_forwards(tag, model_type, mk, mp, inputs):
+    """A CasMVSNet / UCSNet forward through K2v (`mk`) against the same
+    forward through its plain version (`mp`, same weights) on `inputs`:
+    depth (and UCSNet's sigma) within TOL_DEPTH_FRAC of the range,
+    confidence within TOL_CONF where both paths truncate the expected
+    plane index to the same plane. The scores are each stage's
+    CostRegNet3D output, its depth blocks (depth_shards) in order."""
+    dmin, dmax = inputs[2:]
     scores_k, scores_p = {}, {}
     hooks = [getattr(m, f"cost_reg{s}").register_forward_hook(
-        lambda mod, args, out, s=s, got=got: got.__setitem__(f"stage{s + 1}", out[0, 0]))
+        lambda mod, args, out, s=s, got=got: got.__setitem__(
+            f"stage{s + 1}", out[:, 0].reshape(-1, *out.shape[-2:])))
         for m, got in ((mk, scores_k), (mp, scores_p)) for s in range(3)]
     with torch.no_grad():
-        ok = mk(imgs, rel, dmin, dmax)
-        op = mp(imgs, rel, dmin, dmax)
+        ok = mk(*inputs)
+        op = mp(*inputs)
     for h in hooks:
         h.remove()
     dtol = TOL_DEPTH_FRAC * (dmax - dmin)
-    tag = f"e2e:{model_type}"
+    dev = ok["depth"].device
     for s in ("stage1", "stage2", "stage3"):
         diffs = {k: float((ok[s][k] - op[s][k]).abs().max()) for k in op[s]}
         finite = all(bool(torch.isfinite(v).all()) for v in ok[s].values())
@@ -2291,20 +2369,7 @@ def phase_end_to_end_volume(dev, cam0, poses0, model_type):
             if not finite or not v <= (TOL_CONF if k == "photometric_confidence" else dtol):
                 raise AssertionError(f"{model_type} end to end {s} {k}: {v} "
                                      f"(finite {finite})")
-    fams = {"sweep_var": "K2v sweep_var"}
-    fams.update({k: "cuDNN convs" for k in CONV_FAMILY})
-    busy, counts = profile_forward(mk, (imgs, rel, dmin, dmax), fams,
-                                   f"profile:{model_type}")
-    feat, _ = profile_forward(lambda x: stage_features(mk.feature, x), (imgs,),
-                              fams, f"profile:{model_type}:features")
-    if busy:
-        conv, conv2d = busy.get("cuDNN convs", 0.0), feat.get("cuDNN convs", 0.0)
-        log(f"[profile:{model_type}] device ms a forward: K2v "
-            f"{busy.get('K2v sweep_var', 0.0):.3f} in "
-            f"{counts.get('K2v sweep_var', 0)} launches; cuDNN convs {conv:.3f} "
-            f"(CostRegNet3D's 3-D {conv - conv2d:.3f}, FeatureNet's 2-D "
-            f"{conv2d:.3f}); other {busy.get('other (PyTorch ops, cuDNN)', 0.0):.3f}")
-    return busy
+    return ok
 
 
 def phase_end_to_end_bf16(dev, cam0, poses0, model_type):
@@ -2464,11 +2529,12 @@ STEP_COND = 3.0
 TRAIN_LR = 1e-3
 # [train:adamvs]: the trainer CLI's defaults (5 views, num_depth 384,
 # ndepths 48/32/8, max_h 384, max_w 768, batch 1, rmsprop at 1e-3) on a
-# WHU-layout folder rendered here: 4 train and 2 val reference views of a
-# 4 x 3 survey at 384 x 768 (8 train views until the bfloat16 phases
-# needed the script's time)
+# WHU-layout folder rendered here: 2 train and 2 val reference views of a
+# 4 x 3 survey at 384 x 768 (8 train views until the bfloat16 phases, 4
+# until the compensated-warp and depth-shard phases needed the script's
+# time)
 TRAIN_H, TRAIN_W = 384, 768
-TRAIN_REFS, VAL_REFS = list(range(4)), [9, 10]
+TRAIN_REFS, VAL_REFS = list(range(2)), [9, 10]
 TRAIN_EPOCHS = 2
 
 
@@ -2481,10 +2547,12 @@ def grad_case(dev, name, tag, fn, plain, tensors, calls, iters):
     of its outputs with respect to every tensor that requires one, through
     the Function (the kernel forward, `fn`) and by plain autograd on the
     card (`plain`); the max abs error over the max |grad| per input (raises
-    above TOL_GRAD_FN). Times (device ms a call): the Function's forward,
-    its backward (the plain version's recompute and VJP), and the plain
-    version's forward + backward. `calls`: the calls a map (a training
-    step's forward) makes at this shape."""
+    above TOL_GRAD_FN). Times (device ms a call): the Function's forward
+    and its backward (the plain version's recompute and VJP, which is all
+    that plain autograd's forward + backward would run: the two read
+    within 1% of each other in every run up to PR 10, so that yardstick is
+    no longer timed). `calls`: the calls a map (a training step's forward)
+    makes at this shape."""
     leaves = [t for t in tensors if t.requires_grad]
     outs = _tuple(fn())
     g = torch.Generator(device=dev).manual_seed(11)
@@ -2511,21 +2579,16 @@ def grad_case(dev, name, tag, fn, plain, tensors, calls, iters):
 
     def backward():
         torch.autograd.grad(held, leaves, proj, retain_graph=True)
-
-    def plain_fb():
-        torch.autograd.grad(_tuple(plain()), leaves, proj)
     # the plain VJPs take up to seconds a call and launch hundreds of
     # kernels: as many calls a session as fit in ~0.3 s, one to three
     n = max(1, min(3, int(0.3e3 / max(est, 1e-3))))
     bwd = device_ms(backward, n)
-    pfb = device_ms(plain_fb, n)
     log(f"[train:grad] {name:10s} {tag:30s} grad err {err:.2e} over {len(leaves)} "
         f"inputs (tol {TOL_GRAD_FN:g}); device ms: forward (kernel) {fwd:.4f}, "
-        f"backward (plain VJP) {bwd:.4f}, plain forward+backward {pfb:.4f}; "
-        f"calls a map {calls}")
+        f"backward (plain VJP) {bwd:.4f}; calls a map {calls}")
     del held
     return {"name": name, "shape": tag, "grad_err": err, "fwd_ms": fwd,
-            "bwd_ms": bwd, "plain_fb_ms": pfb, "calls": calls}
+            "bwd_ms": bwd, "calls": calls}
 
 
 def phase_train_grad(dev, cam0, poses0):
@@ -2611,15 +2674,14 @@ def phase_train_grad(dev, cam0, poses0):
     per_map = {}
     for r in records:
         e = per_map.setdefault(r["name"], {"bwd_ms": 0.0, "fwd_ms": 0.0,
-                                           "plain_fb_ms": 0.0, "grad_err": 0.0})
-        for k in ("bwd_ms", "fwd_ms", "plain_fb_ms"):
+                                           "grad_err": 0.0})
+        for k in ("bwd_ms", "fwd_ms"):
             e[k] += r[k] * r["calls"]
         e["grad_err"] = max(e["grad_err"], r["grad_err"])
     for name, e in per_map.items():
         log(f"[train:grad] {name}: per {H0}x{W0} map (calls a map x device ms a call, "
             f"summed over stages): forward {e['fwd_ms']:.3f} ms, backward (plain VJP) "
-            f"{e['bwd_ms']:.3f} ms, plain forward+backward {e['plain_fb_ms']:.3f} ms; "
-            f"largest grad err {e['grad_err']:.2e}")
+            f"{e['bwd_ms']:.3f} ms; largest grad err {e['grad_err']:.2e}")
     return per_map
 
 
@@ -3119,6 +3181,282 @@ def phase_bf16(dev, cam0, poses0, camF, posesF):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# the compensated warp (warp_precision 'compensated') and depth shards
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels_compensated(dev, cam0, poses0, camF, posesF):
+    """K1, K2 and K2v in the compensated projection (the `*_comp` entries)
+    against their compensated plain versions, in float32 (TOL_SWEEP,
+    TOL_VAR) and bfloat16 (TOL_BF16_ULPS_SWEEP): at every stage shape of
+    the 384x512 point (K1 at stage 1, K2 and K2v a chunk a stage), and K2
+    and K2v at the 1856x2752 frame's full-resolution stage (checked once
+    and the kernel timed, the plain version not: per_map 0). Beside each,
+    the float32 projection's device ms on the same inputs
+    (`float32_mode_ms`). Bounds count the chain's operations
+    (GEOM_FLOPS_COMP, RAY_FLOPS_COMP). Returns the records."""
+    from deep3d_aerial_tpu_torch.ops.sweep import (
+        sweep_corr,
+        sweep_corr_plain,
+        sweep_cost,
+        sweep_cost_plain,
+        sweep_var,
+        sweep_var_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    records = []
+    V1 = VIEWS - 1
+    shapes = [(stage, C, D, H0 >> (2 - stage), W0 >> (2 - stage), D // CHUNK)
+              for stage, (C, D) in enumerate(zip(CHANNELS, NDEPTHS))]
+    shapes.append((2, CHANNELS[2], CHUNK, FULL_H, FULL_W, 0))
+    with torch.no_grad():
+        for stage, C, D, H, W, per_map in shapes:
+            cam, poses = (cam0, poses0) if per_map else (camF, posesF)
+            rel = stage_rel(cam, poses, stage, dev)
+            d = stage_planes(cam, poses, stage, H, W, dev)
+            wts = torch.rand((V1, H, W), generator=g, device=dev) * 0.9 + 0.1
+            ref32 = torch.randn((H, W, C), generator=g, device=dev)
+            srcs32 = torch.randn((V1, H, W, C), generator=g, device=dev)
+            for dt, fb in ((torch.float32, 4), (torch.bfloat16, 2)):
+                ref, srcs = ref32.to(dt), srcs32.to(dt)
+                bf = dt == torch.bfloat16
+                suffix = ":bf16:compensated" if bf else ":compensated"
+                tag = (f"{'bf16 ' if bf else ''}stage{stage + 1} {H}x{W} C{C}"
+                       + ("" if per_map else " full-res"))
+                cases = [("sweep_cost", sweep_cost, sweep_cost_plain, sweep_cost_work,
+                          (d, wts), TOL_SWEEP, CHUNK, per_map),
+                         ("sweep_var", sweep_var, sweep_var_plain, sweep_var_work,
+                          (d,), TOL_VAR, CHUNK, per_map)]
+                if stage == 0:
+                    dpair = stage_planes(cam, poses, 0, H, W, dev, n=NDEPTHS[0])
+                    cases.insert(0, ("sweep_corr", sweep_corr, sweep_corr_plain,
+                                     sweep_corr_work, (dpair,), TOL_SWEEP, NDEPTHS[0], 1))
+                for name, kern, plain, work, args, tol, K, pm in cases:
+                    n = kern.launches_compensated
+
+                    def kernel_fn(kern=kern, args=args):
+                        return kern(ref, srcs, rel, *args, compensated=True)
+
+                    def plain_fn(plain=plain, args=args):
+                        return plain(ref, srcs, rel, *args, compensated=True)
+                    # K1's plain version is ~6000 small launches a call:
+                    # one call a profiler session
+                    iters = 4 if name == "sweep_corr" else 10
+                    if per_map:
+                        compare_kernel(records, name + suffix, tag + f" V{V1} K{K}",
+                                       kernel_fn, plain_fn, 0.0 if bf else tol,
+                                       work(V1, K, H, W, C, fb=fb, comp=True), pm, iters,
+                                       ulps=TOL_BF16_ULPS_SWEEP if bf else None)
+                    else:
+                        check_full_res(records, name + suffix, tag + f" V{V1} K{K}",
+                                       kernel_fn, plain_fn, tol, bf,
+                                       work(V1, K, H, W, C, fb=fb, comp=True))
+                    if kern.launches_compensated <= n:
+                        raise AssertionError(f"{name}{suffix}: no compensated launch")
+                    iters = 10 if per_map else 3
+                    f32_ms = device_ms(lambda kern=kern, args=args: kern(ref, srcs, rel, *args),
+                                       iters)
+                    records[-1]["float32_mode_ms"] = f32_ms
+                    log(f"[kernel:compensated] {name + suffix} {tag}: compensated "
+                        f"{records[-1]['ms']:.4f} ms, float32 projection {f32_ms:.4f} ms "
+                        f"({records[-1]['ms'] / f32_ms:.2f}x) a launch")
+            del ref32, srcs32, ref, srcs, wts, d
+            torch.cuda.empty_cache()
+    return records
+
+
+def check_full_res(records, name, shape_tag, kernel_fn, plain_fn, tol, bf, work):
+    """A kernel against its plain version at a full-resolution shape,
+    checked once (max abs error within `tol`, or TOL_BF16_ULPS_SWEEP in
+    bfloat16), the kernel's device ms timed, the plain version's not: a
+    record with per_map 0 and plain_ms None."""
+    out_k, out_p = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    err = float((out_k.float() - out_p.float()).abs().max())
+    n_ulps = bf16_ulps((out_k,), (out_p,)) if bf else None
+    finite = bool(torch.isfinite(out_k).all())
+    del out_k, out_p
+    ms = device_ms(kernel_fn, 3)
+    b_ms, b_by = bound_ms(*work)
+    records.append(dict(name=name, shape=shape_tag, max_abs_err=err, ulps=n_ulps,
+                        ms=ms, plain_ms=None, library_ms=None, bound_ms=b_ms,
+                        bound_by=b_by, per_map=0))
+    check = f"tol {tol:g}" if not bf else f"{n_ulps:.2f} bf16 ulps, tol {TOL_BF16_ULPS_SWEEP}"
+    log(f"[kernel] {name:10s} {shape_tag:28s} err {err:.3e} ({check}) device ms: "
+        f"kernel {ms:.4f} (plain not timed) bound {b_ms:.4f} ({b_by}, {b_ms / ms:.1%} "
+        "of it reached)")
+    ok = n_ulps <= TOL_BF16_ULPS_SWEEP if bf else err <= tol
+    if not finite or not ok:
+        raise AssertionError(f"{name} {shape_tag}: kernel vs plain max abs err {err} "
+                             f"({n_ulps} bf16 ulps) over its tolerance (finite={finite})")
+    if ms < b_ms:
+        raise AssertionError(f"{name} {shape_tag}: {ms} ms is below its {b_ms} ms bound")
+
+
+def phase_compensated(dev, cam0, poses0, camF, posesF):
+    """warp_precision 'compensated': `[kernel:compensated]`, then the main
+    path to fusion with every sweep launch a compensated one -- AdaMVS
+    (`[main:compensated]`, K1 and K2) and CasMVSNet (K2v), each in float32
+    and bfloat16 -- with AdaMVS's compensated forward kernel vs plain
+    (`[e2e:compensated]`), and one 1856x2752 AdaMVS map
+    (`[fullres:compensated:adamvs]`: 100% finite, its seconds, and its
+    largest depth difference from the float32 projection's map on the same
+    weights). Returns the compensated rows of the `kernels` line."""
+    from deep3d_aerial_tpu_torch.models import build_model
+    from deep3d_aerial_tpu_torch.ops.sweep import sweep_corr, sweep_cost, sweep_var
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    t = time.perf_counter()
+    records = phase_kernels_compensated(dev, cam0, poses0, camF, posesF)
+    log(f"[phase] kernel:compensated {time.perf_counter() - t:.1f} s")
+    runs = {("adamvs", "float32"): ((sweep_corr, sweep_cost),
+                                    {"sweep_corr": 1,
+                                     "sweep_cost": sum(d // CHUNK for d in NDEPTHS)}),
+            ("casmvsnet", "float32"): ((sweep_var,),
+                                       {"sweep_var": sum(d // CHUNK for d in NDEPTHS)})}
+    runs[("adamvs", "bfloat16")] = runs[("adamvs", "float32")]
+    runs[("casmvsnet", "bfloat16")] = runs[("casmvsnet", "float32")]
+    launches = {}
+    for (model_type, dtype), (counters, per_map) in runs.items():
+        t = time.perf_counter()
+        launches[(model_type, dtype)], _, _ = phase_main_path(
+            dev, cam0, poses0, counters, per_map, model_type=model_type,
+            compute_dtype=dtype, mesh=False, warp_precision="compensated")
+        log(f"[phase] main:compensated:{dtype}:{model_type} {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    inputs = sample(cam0, poses0, dev, ref=1)[:4]
+    mk = init_random_weights(build_model("adamvs", warp_precision="compensated"),
+                             seed=0).to(dev).eval()
+    mp = build_model("adamvs", warp_precision="compensated", warp_impl="plain",
+                     red_impl="plain").to(dev).eval()
+    mp.load_state_dict(mk.state_dict())
+    compare_forwards("e2e:compensated", mk, mp, inputs)
+    del mk, mp
+    log(f"[phase] e2e:compensated {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    imgs, rel, dmin, dmax, _ = sample(camF, posesF, dev, ref=1)
+    maps, took = {}, 0.0
+    for prec in ("float32", "compensated"):
+        model = init_random_weights(build_model("adamvs", warp_precision=prec),
+                                    seed=0).to(dev).eval()
+        with torch.no_grad():
+            maps[prec] = model(imgs, rel, dmin, dmax)["depth"]
+            if prec == "compensated":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                maps[prec] = model(imgs, rel, dmin, dmax)["depth"]
+                torch.cuda.synchronize()
+                took = time.perf_counter() - t0
+        del model
+    depth = maps["compensated"]
+    finite = float(torch.isfinite(depth).float().mean())
+    diff = (depth - maps["float32"]).abs()
+    log(f"[fullres:compensated:adamvs] {FULL_H}x{FULL_W} f={camF.fx:.1f}: "
+        f"{tuple(depth.shape)}, finite {finite * 100:.4f}% of pixels, {took:.3f} s per "
+        f"map; depth against the float32 projection's map: max |diff| "
+        f"{float(diff.max()):.4e} m, median {float(diff.median()):.4e} m, "
+        f"{float((diff > 1e-3).float().mean()) * 100:.3f}% of pixels over 1e-3 m")
+    if tuple(depth.shape) != (FULL_H, FULL_W) or finite != 1.0:
+        raise AssertionError(f"fullres:compensated map: shape {tuple(depth.shape)}, "
+                             f"finite share {finite}")
+    del maps, depth, diff
+    torch.cuda.empty_cache()
+    log(f"[phase] fullres:compensated:adamvs {time.perf_counter() - t:.1f} s")
+
+    paths = {"sweep_corr": ("adamvs", f"AdaMVS {H0}x{W0}"),
+             "sweep_cost": ("adamvs", f"AdaMVS {H0}x{W0}"),
+             "sweep_var": ("casmvsnet", f"CasMVSNet {H0}x{W0}")}
+    kernels = []
+    for dtype, suffix in (("float32", ":compensated"), ("bfloat16", ":bf16:compensated")):
+        for name, (model_type, path) in paths.items():
+            rs = [r for r in records if r["name"] == name + suffix]
+            main = [r for r in rs if r["per_map"]]
+            row = {
+                "name": name + suffix, "route": "cuda",
+                "source": "deep3d_aerial_tpu_torch/csrc/sweep.cu",
+                "replaces": "deep3d_aerial_tpu/ops/pallas_sweep.py:"
+                            + ("235" if name == "sweep_corr" else "520"),
+                "launches": launches[(model_type, dtype)][name],
+                "max_abs_err": max(r["max_abs_err"] for r in rs),
+                "ms": sum(r["ms"] * r["per_map"] for r in main),
+                "plain_ms": sum(r["plain_ms"] * r["per_map"] for r in main),
+                "bound_ms": sum(r["bound_ms"] * r["per_map"] for r in main),
+                "bound_by": max(main, key=lambda r: r["bound_ms"] * r["per_map"])["bound_by"],
+                "library_ms": None,
+                "float32_mode_ms": sum(r["float32_mode_ms"] * r["per_map"] for r in main),
+                "per_map_of": f"{path} {'bf16 ' if dtype == 'bfloat16' else ''}map, "
+                              "warp_precision compensated",
+            }
+            if dtype == "bfloat16":
+                row["max_ulps"] = max(r["ulps"] for r in rs)
+            if row["launches"] <= 0:
+                raise AssertionError(f"{row['name']}: no launch on its compensated main path")
+            kernels.append(row)
+    return kernels
+
+
+SHARD_COUNTERS = {"adamvs": ("sweep_corr", "sweep_cost", "red_step2"),
+                  "msrednet": ("sweep_var", "red_step4", "cf_conv3x3"),
+                  "casmvsnet": ("sweep_var",), "ucsnet": ("sweep_var",)}
+
+
+def phase_shards(dev, cam0, poses0, model_type):
+    """`[shards:<model>]`: the model at depth_shards 2 (384x512, published
+    widths, seeded weights) through the kernels against its plain versions
+    (the forward limits; the volume models by check_volume_forwards), its
+    kernel launches a forward equal to depth_shards 1's, and the seconds a
+    map beside depth_shards 1's (host clock through a synchronize, median
+    of 3 after a warm forward, alternating)."""
+    from deep3d_aerial_tpu_torch.models import build_model
+    from deep3d_aerial_tpu_torch.ops import cf_conv, red_step2, red_step4, sweep
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    wrappers = {"sweep_corr": sweep.sweep_corr, "sweep_cost": sweep.sweep_cost,
+                "sweep_var": sweep.sweep_var, "red_step2": red_step2.red_step2,
+                "red_step4": red_step4.red_step4, "cf_conv3x3": cf_conv.cf_conv3x3}
+    counters = [wrappers[n] for n in SHARD_COUNTERS[model_type]]
+    inputs = sample(cam0, poses0, dev, ref=1)[:4]
+    models = {n: build_model(model_type, depth_shards=n).to(dev).eval() for n in (1, 2)}
+    init_random_weights(models[2], seed=0)
+    models[1].load_state_dict(models[2].state_dict())
+    plain = {"warp_impl": "plain"}
+    if model_type in ("adamvs", "msrednet"):
+        plain["red_impl"] = "plain"
+    mp = build_model(model_type, depth_shards=2, **plain).to(dev).eval()
+    mp.load_state_dict(models[2].state_dict())
+    tag = f"shards:{model_type}"
+    if model_type in ("casmvsnet", "ucsnet"):
+        check_volume_forwards(tag, model_type, models[2], mp, inputs)
+    else:
+        compare_forwards(tag, models[2], mp, inputs)
+    del mp
+    launches, secs = {}, {1: [], 2: []}
+    with torch.no_grad():
+        for n in (1, 2):
+            before = [c.launches for c in counters]
+            models[n](*inputs)
+            torch.cuda.synchronize()
+            launches[n] = {c.__name__: c.launches - b for c, b in zip(counters, before)}
+        for _ in range(3):
+            for n in (1, 2):
+                t0 = time.perf_counter()
+                models[n](*inputs)
+                torch.cuda.synchronize()
+                secs[n].append(time.perf_counter() - t0)
+    med = {n: float(np.median(v)) for n, v in secs.items()}
+    log(f"[{tag}] depth_shards 2 at {H0}x{W0}, ndepths {models[2].ndepths}: launches a "
+        f"forward {json.dumps(launches[2])} (depth_shards 1: {json.dumps(launches[1])}); "
+        f"seconds a map (median of 3) {med[2]:.4f} against {med[1]:.4f} "
+        f"({med[2] / med[1]:.3f}x)")
+    if launches[2] != launches[1] or not all(launches[2].values()):
+        raise AssertionError(f"{tag}: launches {launches[2]} against {launches[1]}")
+    return med
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3242,6 +3580,13 @@ def main() -> int:
     # the bfloat16 operating point: every kernel's bfloat16 mode
     bf16_kernels = phase_bf16(dev, cam0, poses0, camF, posesF)
 
+    # the compensated warp and depth shards
+    comp_kernels = phase_compensated(dev, cam0, poses0, camF, posesF)
+    for model_type in SHARD_COUNTERS:
+        t = time.perf_counter()
+        phase_shards(dev, cam0, poses0, model_type)
+        log(f"[phase] shards:{model_type} {time.perf_counter() - t:.1f} s")
+
     # training: each kernel's autograd Function, one step kernel vs plain
     # per model, the trainer at its CLI's defaults, three steps per model
     t = time.perf_counter()
@@ -3317,7 +3662,7 @@ def main() -> int:
                     "own Function at one conv shape",
         "train_launches_per_step": {"msrednet": train["msrednet"]["launches"]["cf_conv3x3"]},
     })
-    kernels += bf16_kernels
+    kernels += bf16_kernels + comp_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -76,6 +76,24 @@
 //   is rounded to bfloat16 once, where it is stored. Projections, depths
 //   and weights stay float32. This halves the feature and output bytes of
 //   the bound.
+// - Compensated projection (the *_comp entries, in float32 and bfloat16;
+//   DENSEMATCH.warp_precision 'compensated', the JAX package's
+//   sweep_coordinates(highp=True), deep3d_aerial_tpu/ops/warp.py:45-89 and
+//   :130-198): one template flag on the projection. Each value is an
+//   unevaluated (hi, lo) float32 pair (double-single, Dekker/Knuth): the
+//   ray r0*x + r1*y + r2 once per (pixel, view), then per (plane, pixel,
+//   view) p = ray * d + t and one compensated division per coordinate,
+//   where the float32 mode projects. Every op is a round-to-nearest
+//   intrinsic, as in the plain chain (ops/warp.py), so the error-free
+//   transformations stay error-free (an FMA inside a split, a product or
+//   a sum would change the low word). Taps, weights, channel reduction
+//   and output are the float32 mode's. The chain costs ~200 operations
+//   and four divisions a projection against ~10 and two, and the
+//   projection already bounds the sweeps' issue, so this mode is the
+//   slower one by design. The one-thread-per-pixel kernels walk planes
+//   outside views: they keep each view's double-single ray in dynamic
+//   shared memory ([V][6][kThreads] floats, each thread its own column)
+//   instead of recomputing it per plane.
 
 #include <cuda_runtime.h>
 
@@ -88,6 +106,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnsupported = 10000;  // channel count without an instance
 constexpr int kBadSize = 10001;      // H or W below 2, or H*W*C >= 2^31
+constexpr int kTooManyViews = 10002; // compensated rays of V views over shared memory
+// shared memory a block may take on an H100 (the compensated ray cache)
+constexpr int kMaxSharedBytes = 232448;
 // Cost and variance take one lane per channel quad from C = kQuadLanesFrom
 // on, one thread per pixel below it (the *_wide kernels).
 constexpr int kQuadLanesFrom = 16;
@@ -139,22 +160,160 @@ __device__ __forceinline__ float4 quad(const uint2* p) {
   return make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
 }
 
+// Double-single arithmetic: a value is hi + lo, two float32 words. The
+// helpers are ops/warp.py's (_two_sum .. _ds_div), op by op, each op
+// rounded once.
+struct DS {
+  float hi, lo;
+};
+
+__device__ __forceinline__ DS two_sum(float a, float b) {
+  const float s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  return {s, __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb))};
+}
+
+// Veltkamp split of a float32 into two 12-bit halves (2^12 + 1)
+__device__ __forceinline__ DS split(float a) {
+  const float c = __fmul_rn(a, 4097.f);
+  const float hi = __fsub_rn(c, __fsub_rn(c, a));
+  return {hi, __fsub_rn(a, hi)};
+}
+
+// a * b = p + e exactly: ((ah*bh - p) + ah*bl + al*bh) + al*bl
+__device__ __forceinline__ DS two_prod(float a, float b) {
+  const float p = __fmul_rn(a, b);
+  const DS x = split(a), y = split(b);
+  float e = __fsub_rn(__fmul_rn(x.hi, y.hi), p);
+  e = __fadd_rn(e, __fmul_rn(x.hi, y.lo));
+  e = __fadd_rn(e, __fmul_rn(x.lo, y.hi));
+  return {p, __fadd_rn(e, __fmul_rn(x.lo, y.lo))};
+}
+
+__device__ __forceinline__ DS ds_add(DS x, DS y) {
+  const DS s = two_sum(x.hi, y.hi);
+  return two_sum(s.hi, __fadd_rn(__fadd_rn(s.lo, x.lo), y.lo));
+}
+
+__device__ __forceinline__ DS ds_mul(DS x, DS y) {
+  const DS p = two_prod(x.hi, y.hi);
+  return two_sum(p.hi, __fadd_rn(__fadd_rn(p.lo, __fmul_rn(x.hi, y.lo)),
+                                 __fmul_rn(x.lo, y.hi)));
+}
+
+// (x.hi + x.lo) / (z.hi + z.lo): the quotient and one correction from the
+// residual x - q*z, evaluated in double-single
+__device__ __forceinline__ float ds_div(DS x, DS z) {
+  const float q = __fdiv_rn(x.hi, z.hi);
+  const DS qz = ds_mul(DS{q, 0.f}, z);
+  const DS r = ds_add(x, DS{-qz.hi, -qz.lo});
+  return __fadd_rn(q, __fdiv_rn(__fadd_rn(r.hi, r.lo), z.hi));
+}
+
 // Rows 0-2 of a view's rel (its [4, 4] matrix, 16-byte aligned rows)
-// applied to ref pixel (px, py): p(d) = r * d + t.
+// applied to ref pixel (px, py): p(d) = r * d + t. The compensated
+// projection keeps r in double-single (RayDS).
 struct Ray {
   float r[3], t[3];
 };
+struct RayDS {
+  DS r[3];
+  float t[3];
+};
+template <bool Comp>
+using RayOf = typename std::conditional<Comp, RayDS, Ray>::type;
 
-__device__ __forceinline__ Ray make_ray(const float* __restrict__ rel,
-                                        float px, float py) {
-  Ray g;
+template <bool Comp>
+__device__ __forceinline__ RayOf<Comp> make_ray(const float* __restrict__ rel,
+                                                float px, float py) {
+  RayOf<Comp> g;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float4 m = __ldg(reinterpret_cast<const float4*>(rel) + a);
-    g.r[a] = __fadd_rn(__fadd_rn(__fmul_rn(m.x, px), __fmul_rn(m.y, py)), m.z);
+    if constexpr (Comp) {
+      g.r[a] = ds_add(ds_add(ds_mul(DS{px, 0.f}, DS{m.x, 0.f}),
+                             ds_mul(DS{py, 0.f}, DS{m.y, 0.f})),
+                      DS{m.z, 0.f});
+    } else {
+      g.r[a] = __fadd_rn(__fadd_rn(__fmul_rn(m.x, px), __fmul_rn(m.y, py)), m.z);
+    }
     g.t[a] = m.w;
   }
   return g;
+}
+
+// The source coordinates (xs, ys) of ref pixel (ray g) at depth d; a point
+// at or behind the source camera (z <= 1e-6) gets -1e9 (no tap).
+__device__ __forceinline__ void project(const Ray& g, float d, float& xs, float& ys) {
+  float p[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) p[a] = __fadd_rn(__fmul_rn(g.r[a], d), g.t[a]);
+  const float z = p[2];
+  const float sz = fabsf(z) < 1e-8f ? 1e-8f : z;
+  xs = __fdiv_rn(p[0], sz);
+  ys = __fdiv_rn(p[1], sz);
+  if (!(z > 1e-6f)) {
+    xs = -1e9f;
+    ys = -1e9f;
+  }
+}
+
+// The compensated chain, in ops/warp.py's guard order: |zhi| < 1e-8 takes
+// the safe z (1e-8, 0), z = zhi + zlo decides "behind".
+__device__ __forceinline__ void project(const RayDS& g, float d, float& xs, float& ys) {
+  DS p[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) p[a] = ds_add(ds_mul(g.r[a], DS{d, 0.f}), DS{g.t[a], 0.f});
+  const float z = __fadd_rn(p[2].hi, p[2].lo);
+  const bool bad = fabsf(p[2].hi) < 1e-8f;
+  const DS sz = {bad ? 1e-8f : p[2].hi, bad ? 0.f : p[2].lo};
+  xs = ds_div(p[0], sz);
+  ys = ds_div(p[1], sz);
+  if (!(z > 1e-6f)) {
+    xs = -1e9f;
+    ys = -1e9f;
+  }
+}
+
+// The one-thread-per-pixel kernels' rays: with Comp, computed once per
+// view into `cache` ([V][6][kThreads] floats of dynamic shared memory,
+// this thread's column) and read back per plane; else made per plane
+// from the rel, as the float32 projection always did.
+template <bool Comp>
+__device__ __forceinline__ void cache_rays(float* cache, const float* __restrict__ rels,
+                                           int V, float px, float py) {
+  if constexpr (Comp) {
+    for (int v = 0; v < V; ++v) {
+      const RayDS g = make_ray<true>(rels + 16 * v, px, py);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        cache[(v * 6 + 2 * a) * kThreads + threadIdx.x] = g.r[a].hi;
+        cache[(v * 6 + 2 * a + 1) * kThreads + threadIdx.x] = g.r[a].lo;
+      }
+    }
+  }
+}
+
+template <bool Comp>
+__device__ __forceinline__ RayOf<Comp> view_ray(const float* cache,
+                                                const float* __restrict__ rels, int v,
+                                                float px, float py) {
+  if constexpr (Comp) {
+    RayDS g;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      g.r[a] = DS{cache[(v * 6 + 2 * a) * kThreads + threadIdx.x],
+                  cache[(v * 6 + 2 * a + 1) * kThreads + threadIdx.x]};
+      g.t[a] = __ldg(rels + 16 * v + 4 * a + 3);
+    }
+    return g;
+  } else {
+    return make_ray<false>(rels + 16 * v, px, py);
+  }
+}
+
+inline long long ray_cache_bytes(int V) {
+  return (long long)V * 6 * kThreads * (long long)sizeof(float);
 }
 
 // The block's tap descriptors of one view: for each (plane j, pixel p) the
@@ -166,21 +325,13 @@ struct Descs {
   int off[KT][NPIX];
 };
 
-// The descriptor of ref pixel (ray g) at depth d, G quads a source pixel
-// (see the design note above). Needs H, W >= 2.
-__device__ __forceinline__ void describe(const Ray& g, float d, int H, int W,
+// The descriptor of ref pixel (ray g, Ray or RayDS) at depth d, G quads a
+// source pixel (see the design note above). Needs H, W >= 2.
+template <class R>
+__device__ __forceinline__ void describe(const R& g, float d, int H, int W,
                                          int G, int& off, float4& w) {
-  float p[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) p[a] = __fadd_rn(__fmul_rn(g.r[a], d), g.t[a]);
-  const float z = p[2];
-  const float sz = fabsf(z) < 1e-8f ? 1e-8f : z;
-  float xs = __fdiv_rn(p[0], sz);
-  float ys = __fdiv_rn(p[1], sz);
-  if (!(z > 1e-6f)) {
-    xs = -1e9f;
-    ys = -1e9f;
-  }
+  float xs, ys;
+  project(g, d, xs, ys);
   const float x0 = floorf(xs), y0 = floorf(ys);
   const float fx = __fsub_rn(xs, x0), fy = __fsub_rn(ys, y0);
   const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy);
@@ -218,9 +369,9 @@ __device__ __forceinline__ float4 gather(const Q* __restrict__ srcq,
 // Lane q of a pixel describes planes j = jj * G + q of its view (each
 // (pixel, plane, view) is projected once, not once per quad); __syncwarp
 // suffices, since a pixel's G lanes share a warp.
-template <int C, int KT>
+template <int C, int KT, class R>
 __device__ __forceinline__ void describe_view(Descs<KT, Tile<C>::NPIX>& ds,
-                                              const Tile<C>& t, const Ray& g,
+                                              const Tile<C>& t, const R& g,
                                               const float* d, int H, int W) {
   constexpr int G = Tile<C>::G, KPL = (KT + G - 1) / G;
   __syncwarp();  // the previous view's descriptors are read
@@ -297,7 +448,7 @@ __device__ __forceinline__ void reduce_scatter(float* a, int q) {
   }
 }
 
-template <int C, int KT, class T>
+template <int C, int KT, class T, bool Comp>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 sweep_pair_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
                   const float* __restrict__ rels, const float* __restrict__ depths,
@@ -314,7 +465,7 @@ sweep_pair_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
   const float4 rv = quad(reinterpret_cast<const Quad<T>*>(ref + pix * C) + t.q);
   float d[KPL];
   lane_depths<C, KT>(d, t, depths, k0, D, HW, pix);
-  describe_view<C, KT>(ds, t, make_ray(rels + 16 * v, (float)t.x, (float)t.y),
+  describe_view<C, KT>(ds, t, make_ray<Comp>(rels + 16 * v, (float)t.x, (float)t.y),
                        d, H, W);
   const Quad<T>* src = reinterpret_cast<const Quad<T>*>(srcs) + (long long)v * HW * G + t.q;
   float dot[KT];
@@ -336,7 +487,7 @@ sweep_pair_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
   }
 }
 
-template <int C, class T>
+template <int C, class T, bool Comp>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 sweep_cost_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
                   const float* __restrict__ rels, const float* __restrict__ depths,
@@ -358,7 +509,7 @@ sweep_cost_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
   for (int j = 0; j < KT; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
   float wsum = 0.f;
   for (int v = 0; v < V; ++v) {
-    describe_view<C, KT>(ds, t, make_ray(rels + 16 * v, (float)t.x, (float)t.y),
+    describe_view<C, KT>(ds, t, make_ray<Comp>(rels + 16 * v, (float)t.x, (float)t.y),
                          d, H, W);
     const float wv = __ldg(weights + v * HW + pix);
     const Quad<T>* src = reinterpret_cast<const Quad<T>*>(srcs) + (long long)v * HW * G + t.q;
@@ -382,7 +533,7 @@ sweep_cost_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
   }
 }
 
-template <int C, class T>
+template <int C, class T, bool Comp>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 sweep_var_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
                  const float* __restrict__ rels, const float* __restrict__ depths,
@@ -406,7 +557,7 @@ sweep_var_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
     sq[j] = make_float4(rv.x * rv.x, rv.y * rv.y, rv.z * rv.z, rv.w * rv.w);
   }
   for (int v = 0; v < V; ++v) {
-    describe_view<C, KT>(ds, t, make_ray(rels + 16 * v, (float)t.x, (float)t.y),
+    describe_view<C, KT>(ds, t, make_ray<Comp>(rels + 16 * v, (float)t.x, (float)t.y),
                          d, H, W);
     const Quad<T>* src = reinterpret_cast<const Quad<T>*>(srcs) + (long long)v * HW * G + t.q;
 #pragma unroll
@@ -433,7 +584,7 @@ sweep_var_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
 // itself. A block covers kThreads consecutive pixels of the flattened
 // image (x fastest, so the stores of a channel are 128-byte runs) and
 // walks planes k0 .. k1-1.
-template <int C, class T>
+template <int C, class T, bool Comp>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSMWide)
 sweep_cost_wide_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
                        const float* __restrict__ rels, const float* __restrict__ depths,
@@ -451,6 +602,8 @@ sweep_cost_wide_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
   float wsum = 0.f;
   for (int v = 0; v < V; ++v) wsum += __ldg(weights + v * HW + pix);
   const float denom = wsum + 1e-5f;
+  extern __shared__ float rays[];
+  cache_rays<Comp>(rays, rels, V, (float)x, (float)y);
   const Quad<T>* src = reinterpret_cast<const Quad<T>*>(srcs);
   const int k0 = blockIdx.y * KB, k1 = min(K, k0 + KB);
   for (int k = k0; k < k1; ++k) {
@@ -462,7 +615,7 @@ sweep_cost_wide_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
     for (int v = 0; v < V; ++v) {
       int off;
       float4 w;
-      describe(make_ray(rels + 16 * v, (float)x, (float)y), d, H, W, G, off, w);
+      describe(view_ray<Comp>(rays, rels, v, (float)x, (float)y), d, H, W, G, off, w);
       const float wv = __ldg(weights + v * HW + pix);
       const Quad<T>* sv = src + v * HW * G;
 #pragma unroll
@@ -486,7 +639,7 @@ sweep_cost_wide_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
   }
 }
 
-template <int C, class T>
+template <int C, class T, bool Comp>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSMWide)
 sweep_var_wide_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
                       const float* __restrict__ rels, const float* __restrict__ depths,
@@ -501,6 +654,8 @@ sweep_var_wide_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
 #pragma unroll
   for (int q = 0; q < G; ++q) rv[q] = quad(reinterpret_cast<const Quad<T>*>(ref + pix * C) + q);
   const float n = (float)(V + 1);
+  extern __shared__ float rays[];
+  cache_rays<Comp>(rays, rels, V, (float)x, (float)y);
   const Quad<T>* src = reinterpret_cast<const Quad<T>*>(srcs);
   const int k0 = blockIdx.y * KB, k1 = min(K, k0 + KB);
   for (int k = k0; k < k1; ++k) {
@@ -517,7 +672,7 @@ sweep_var_wide_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
     for (int v = 0; v < V; ++v) {
       int off;
       float4 w;
-      describe(make_ray(rels + 16 * v, (float)x, (float)y), d, H, W, G, off, w);
+      describe(view_ray<Comp>(rays, rels, v, (float)x, (float)y), d, H, W, G, off, w);
       const Quad<T>* sv = src + v * HW * G;
 #pragma unroll
       for (int q = 0; q < G; ++q) {
@@ -558,92 +713,117 @@ inline int planes_per_block(unsigned blocks, int K) {
   return kb;
 }
 
-template <int C, int KT, class T>
+template <int C, int KT, class T, bool Comp>
 void launch_pair(const T* ref, const T* srcs, const float* rels,
                  const float* depths, T* out, int V, int D, int H, int W,
                  cudaStream_t s) {
   const dim3 grid(tiles_for<C>(H, W), (unsigned)(V * ((D + KT - 1) / KT)));
-  sweep_pair_kernel<C, KT, T><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, D,
-                                                        H, W);
+  sweep_pair_kernel<C, KT, T, Comp><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, out,
+                                                              V, D, H, W);
 }
 
-template <int C, class T>
-void launch_cost(const T* ref, const T* srcs, const float* rels,
-                 const float* depths, const float* weights, T* out, int V,
-                 int K, int H, int W, cudaStream_t s) {
-  if (C < kQuadLanesFrom) {
+// Dynamic shared memory of a one-thread-per-pixel kernel: the compensated
+// rays of V views, or none. Returns a CUDA error, or kTooManyViews.
+template <class Kernel>
+int wide_shared(Kernel kernel, bool comp, int V, size_t& bytes) {
+  bytes = 0;
+  if (!comp) return 0;
+  const long long b = ray_cache_bytes(V);
+  if (b > kMaxSharedBytes) return kTooManyViews;
+  bytes = (size_t)b;
+  if (b <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)b);
+}
+
+template <int C, class T, bool Comp>
+int launch_cost(const T* ref, const T* srcs, const float* rels,
+                const float* depths, const float* weights, T* out, int V,
+                int K, int H, int W, cudaStream_t s) {
+  if constexpr (C < kQuadLanesFrom) {
     const unsigned blocks = wide_blocks(H, W);
     const int kb = planes_per_block(blocks, K);
-    sweep_cost_wide_kernel<C, T><<<dim3(blocks, (K + kb - 1) / kb), kThreads, 0, s>>>(
+    size_t smem;
+    const int rc = wide_shared(sweep_cost_wide_kernel<C, T, Comp>, Comp, V, smem);
+    if (rc != 0) return rc;
+    sweep_cost_wide_kernel<C, T, Comp><<<dim3(blocks, (K + kb - 1) / kb), kThreads, smem, s>>>(
         ref, srcs, rels, depths, weights, out, V, K, H, W, kb);
-    return;
+  } else {
+    const dim3 grid(tiles_for<C>(H, W), (K + kCostPlanes - 1) / kCostPlanes);
+    sweep_cost_kernel<C, T, Comp><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths,
+                                                            weights, out, V, K, H, W);
   }
-  const dim3 grid(tiles_for<C>(H, W), (K + kCostPlanes - 1) / kCostPlanes);
-  sweep_cost_kernel<C, T><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, weights,
-                                                    out, V, K, H, W);
+  return 0;
 }
 
-template <int C, class T>
-void launch_var(const T* ref, const T* srcs, const float* rels,
-                const float* depths, T* out, int V, int K, int H, int W,
-                cudaStream_t s) {
-  if (C < kQuadLanesFrom) {
+template <int C, class T, bool Comp>
+int launch_var(const T* ref, const T* srcs, const float* rels,
+               const float* depths, T* out, int V, int K, int H, int W,
+               cudaStream_t s) {
+  if constexpr (C < kQuadLanesFrom) {
     const unsigned blocks = wide_blocks(H, W);
     const int kb = planes_per_block(blocks, K);
-    sweep_var_wide_kernel<C, T><<<dim3(blocks, (K + kb - 1) / kb), kThreads, 0, s>>>(
+    size_t smem;
+    const int rc = wide_shared(sweep_var_wide_kernel<C, T, Comp>, Comp, V, smem);
+    if (rc != 0) return rc;
+    sweep_var_wide_kernel<C, T, Comp><<<dim3(blocks, (K + kb - 1) / kb), kThreads, smem, s>>>(
         ref, srcs, rels, depths, out, V, K, H, W, kb);
-    return;
+  } else {
+    const dim3 grid(tiles_for<C>(H, W), (K + kVarPlanes - 1) / kVarPlanes);
+    sweep_var_kernel<C, T, Comp><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, out, V,
+                                                           K, H, W);
   }
-  const dim3 grid(tiles_for<C>(H, W), (K + kVarPlanes - 1) / kVarPlanes);
-  sweep_var_kernel<C, T><<<grid, kThreads, 0, s>>>(ref, srcs, rels, depths, out, V, K,
-                                                   H, W);
+  return 0;
 }
 
-// The entries of one feature type T (float or bfloat16 bits).
-template <class T>
+// The entries of one feature type T (float or bfloat16 bits) and one
+// projection (Comp: compensated).
+template <class T, bool Comp>
 int corr_entry(const T* ref, const T* srcs, const float* rels, const float* depths,
                T* out, int V, int D, int H, int W, int C, void* stream) {
   if ((long long)V * D * H * W == 0) return 0;
   if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
-    case 8: launch_pair<8, 8, T>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
-    case 16: launch_pair<16, 8, T>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
-    case 32: launch_pair<32, 8, T>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
+    case 8: launch_pair<8, 8, T, Comp>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
+    case 16: launch_pair<16, 8, T, Comp>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
+    case 32: launch_pair<32, 8, T, Comp>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
     default: return kUnsupported;
   }
   return (int)cudaGetLastError();
 }
 
-template <class T>
+template <class T, bool Comp>
 int cost_entry(const T* ref, const T* srcs, const float* rels, const float* depths,
                const float* weights, T* out, int V, int K, int H, int W, int C,
                void* stream) {
   if ((long long)K * H * W == 0) return 0;
   if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
   cudaStream_t s = (cudaStream_t)stream;
+  int rc;
   switch (C) {
-    case 8: launch_cost<8, T>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
-    case 16: launch_cost<16, T>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
-    case 32: launch_cost<32, T>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
+    case 8: rc = launch_cost<8, T, Comp>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
+    case 16: rc = launch_cost<16, T, Comp>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
+    case 32: rc = launch_cost<32, T, Comp>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
     default: return kUnsupported;
   }
-  return (int)cudaGetLastError();
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
-template <class T>
+template <class T, bool Comp>
 int var_entry(const T* ref, const T* srcs, const float* rels, const float* depths,
               T* out, int V, int K, int H, int W, int C, void* stream) {
   if ((long long)K * H * W == 0) return 0;
   if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
   cudaStream_t s = (cudaStream_t)stream;
+  int rc;
   switch (C) {
-    case 8: launch_var<8, T>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
-    case 16: launch_var<16, T>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
-    case 32: launch_var<32, T>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
+    case 8: rc = launch_var<8, T, Comp>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
+    case 16: rc = launch_var<16, T, Comp>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
+    case 32: rc = launch_var<32, T, Comp>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
     default: return kUnsupported;
   }
-  return (int)cudaGetLastError();
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -651,52 +831,40 @@ int var_entry(const T* ref, const T* srcs, const float* rels, const float* depth
 extern "C" const char* error_string(int code) {
   if (code == kUnsupported) return "unsupported channel count (take 8, 16 or 32)";
   if (code == kBadSize) return "unsupported image size (take H, W >= 2 and H*W*C < 2^31)";
+  if (code == kTooManyViews)
+    return "too many source views for the compensated projection's ray cache "
+           "(take V <= 37)";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Pair mode (K1). ref [H,W,C], srcs [V,H,W,C], rels [V,4,4],
-// depths [D,H,W] -> out [V,D,H,W], every view's volume in one launch.
-extern "C" int sweep_corr_f32(const float* ref, const float* srcs,
-                              const float* rels, const float* depths,
-                              float* out, int V, int D, int H, int W, int C,
-                              void* stream) {
-  return corr_entry<float>(ref, srcs, rels, depths, out, V, D, H, W, C, stream);
-}
+// The entries, sweep_<mode>_<f32|bf16>[_comp]: ref, srcs and out in float32
+// or bfloat16, the rest float32; _comp takes the compensated projection.
+//   pair mode (K1)      sweep_corr: ref [H,W,C], srcs [V,H,W,C], rels [V,4,4],
+//                       depths [D,H,W] -> out [V,D,H,W], every view's volume
+//                       in one launch
+//   cost mode (K2)      sweep_cost: ... depths [K,H,W], weights [V,H,W]
+//                       -> out [K,C,H,W]
+//   variance mode (K2v) sweep_var: ... depths [K,H,W] -> out [K,C,H,W]
+#define SWEEP_ENTRIES(SUFFIX, T, COMP)                                               \
+  extern "C" int sweep_corr_##SUFFIX(const T* ref, const T* srcs, const float* rels,  \
+                                     const float* depths, T* out, int V, int D,     \
+                                     int H, int W, int C, void* stream) {           \
+    return corr_entry<T, COMP>(ref, srcs, rels, depths, out, V, D, H, W, C, stream); \
+  }                                                                                 \
+  extern "C" int sweep_cost_##SUFFIX(const T* ref, const T* srcs, const float* rels,  \
+                                     const float* depths, const float* weights,     \
+                                     T* out, int V, int K, int H, int W, int C,     \
+                                     void* stream) {                                \
+    return cost_entry<T, COMP>(ref, srcs, rels, depths, weights, out, V, K, H, W, C,  \
+                               stream);                                             \
+  }                                                                                 \
+  extern "C" int sweep_var_##SUFFIX(const T* ref, const T* srcs, const float* rels,   \
+                                    const float* depths, T* out, int V, int K,      \
+                                    int H, int W, int C, void* stream) {            \
+    return var_entry<T, COMP>(ref, srcs, rels, depths, out, V, K, H, W, C, stream);  \
+  }
 
-// Cost mode (K2). ref [H,W,C], srcs [V,H,W,C], rels [V,4,4], depths [K,H,W],
-// weights [V,H,W] -> out [K,C,H,W].
-extern "C" int sweep_cost_f32(const float* ref, const float* srcs,
-                              const float* rels, const float* depths,
-                              const float* weights, float* out, int V, int K,
-                              int H, int W, int C, void* stream) {
-  return cost_entry<float>(ref, srcs, rels, depths, weights, out, V, K, H, W, C, stream);
-}
-
-// Variance mode (K2v). ref [H,W,C], srcs [V,H,W,C], rels [V,4,4],
-// depths [K,H,W] -> out [K,C,H,W].
-extern "C" int sweep_var_f32(const float* ref, const float* srcs,
-                             const float* rels, const float* depths, float* out,
-                             int V, int K, int H, int W, int C, void* stream) {
-  return var_entry<float>(ref, srcs, rels, depths, out, V, K, H, W, C, stream);
-}
-
-// The bfloat16 modes: ref, srcs and out in bfloat16, the rest as above.
-extern "C" int sweep_corr_bf16(const bf16_t* ref, const bf16_t* srcs,
-                               const float* rels, const float* depths,
-                               bf16_t* out, int V, int D, int H, int W, int C,
-                               void* stream) {
-  return corr_entry<bf16_t>(ref, srcs, rels, depths, out, V, D, H, W, C, stream);
-}
-
-extern "C" int sweep_cost_bf16(const bf16_t* ref, const bf16_t* srcs,
-                               const float* rels, const float* depths,
-                               const float* weights, bf16_t* out, int V, int K,
-                               int H, int W, int C, void* stream) {
-  return cost_entry<bf16_t>(ref, srcs, rels, depths, weights, out, V, K, H, W, C, stream);
-}
-
-extern "C" int sweep_var_bf16(const bf16_t* ref, const bf16_t* srcs,
-                              const float* rels, const float* depths, bf16_t* out,
-                              int V, int K, int H, int W, int C, void* stream) {
-  return var_entry<bf16_t>(ref, srcs, rels, depths, out, V, K, H, W, C, stream);
-}
+SWEEP_ENTRIES(f32, float, false)
+SWEEP_ENTRIES(bf16, bf16_t, false)
+SWEEP_ENTRIES(f32_comp, float, true)
+SWEEP_ENTRIES(bf16_comp, bf16_t, true)

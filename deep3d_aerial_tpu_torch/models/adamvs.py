@@ -17,6 +17,11 @@ dtype: float32, or bfloat16 (the JAX package's dtype=jnp.bfloat16): the
 images are cast to it, and features, pair volumes, cost chunks and states
 follow; the pair branch's softmax, the view weights and the sweeps' outputs
 stay float32.
+warp_precision: 'float32', or 'compensated' (the double-single projection
+in every sweep, the pair volumes' included; the JAX package's
+set_high_precision_warp(True)). depth_shards: each stage's planes swept as
+that many independent blocks merged exactly (models/cascade.py); the pair
+branch is not blocked.
 """
 
 from __future__ import annotations
@@ -33,14 +38,14 @@ from ..ops.depth_samplers import (
 )
 from ..ops.sweep import sweep_corr, sweep_corr_plain
 from .cascade import streaming_sweep
-from .blocks import compute_dtype
+from .blocks import compensated_warp, compute_dtype
 from .cost_reg import CostRegNet2D, RedStep2
 from .feature_net import FeatureNet, multi_view_features
 
 
 def pair_corr_volumes(f1: torch.Tensor, rel1: torch.Tensor,
-                      depths1: torch.Tensor,
-                      warp_impl: str = "kernel") -> torch.Tensor:
+                      depths1: torch.Tensor, warp_impl: str = "kernel",
+                      compensated: bool = False) -> torch.Tensor:
     """Per-source-view correlation volumes [V-1, D, H1, W1] from stage-1
     features f1 [V, H1, W1, C] (channels-last), rel1 [V-1, 4, 4] and the
     uniform planes depths1 [D]: one K1 launch writes them all."""
@@ -48,7 +53,7 @@ def pair_corr_volumes(f1: torch.Tensor, rel1: torch.Tensor,
     D = depths1.shape[0]
     d_hw = depths1[:, None, None].expand(D, H1, W1).contiguous()
     corr_fn = sweep_corr if warp_impl == "kernel" else sweep_corr_plain
-    return corr_fn(f1[0], f1[1:], rel1, d_hw)
+    return corr_fn(f1[0], f1[1:], rel1, d_hw, compensated)
 
 
 class PairBranch(nn.Module):
@@ -72,12 +77,15 @@ class AdaMVS(nn.Module):
                  num_depth: int = 384, base_channels: int = 8,
                  norm: str = "group", plane_chunk: int = 8,
                  warp_impl: str = "kernel", red_impl: str = "kernel",
+                 depth_shards: int = 1, warp_precision: str = "float32",
                  dtype=torch.float32):
         super().__init__()
         for name, impl in (("warp_impl", warp_impl), ("red_impl", red_impl)):
             if impl not in ("kernel", "plain"):
                 raise ValueError(f"{name} {impl!r} (kernel, plain)")
         self.dtype = compute_dtype(dtype)
+        self.compensated = compensated_warp(warp_precision)
+        self.depth_shards = int(depth_shards)
         self.ndepths = tuple(int(d) for d in ndepths)
         self.depth_interval_ratios = tuple(float(r) for r in depth_interval_ratios)
         self.num_depth = num_depth
@@ -116,7 +124,7 @@ class AdaMVS(nn.Module):
         # stage 1: per-view matching -> view weights
         depths1 = uniform_depth_samples(depth_min, depth_max, self.ndepths[0])
         pair_corrs = pair_corr_volumes(feats[0], rel_projs[0], depths1,
-                                       self.warp_impl)
+                                       self.warp_impl, self.compensated)
         view_weights, pair_depths = self.pair_reg(pair_corrs, depths1)
         mark("pair")
 
@@ -136,7 +144,8 @@ class AdaMVS(nn.Module):
             depth, conf = streaming_sweep(
                 getattr(self, f"red{s}"), up, depths, f[0], f[1:],
                 rel_projs[s], weights, plane_chunk=self.plane_chunk,
-                warp_impl=self.warp_impl)
+                warp_impl=self.warp_impl, depth_shards=self.depth_shards,
+                compensated=self.compensated)
             outputs[f"stage{s + 1}"] = {"depth": depth,
                                         "photometric_confidence": conf}
             if s == 0:

@@ -95,6 +95,20 @@ def compute_dtype(dtype) -> torch.dtype:
     return dt
 
 
+WARP_PRECISIONS = ("float32", "compensated")
+
+
+def compensated_warp(warp_precision: str) -> bool:
+    """Whether a model's sweeps project with the double-single chain:
+    warp_precision 'compensated' (DENSEMATCH.warp_precision, the JAX
+    package's set_high_precision_warp(True)) or 'float32'; anything else
+    raises ValueError naming both."""
+    if warp_precision not in WARP_PRECISIONS:
+        raise ValueError(f"warp_precision {warp_precision!r}: the models take "
+                         "'float32' or 'compensated'")
+    return warp_precision == "compensated"
+
+
 CONVS = {2: Conv2d, 3: Conv3d}
 CONV_TRANSPOSES = {2: ConvTranspose2d, 3: ConvTranspose3d}
 

@@ -18,8 +18,18 @@ dtype=jnp.bfloat16) give cost chunks, volumes and regularizer states in
 bfloat16; the geometry, the view weights, the online-softmax state and the
 heads stay float32 (the scores are upcast before the softmax).
 
-Ported here: one depth block. Depth shards are not ported yet (ROADMAP A,
-depth shards).
+`compensated` (the models' warp_precision 'compensated') projects every
+sweep with the double-single chain (ops/warp.py; the sweep kernels'
+compensated mode on CUDA).
+
+Depth shards (`depth_shards` = n > 1, the JAX package's 'sp' blocks): D is
+split into n contiguous blocks (`split_depth_blocks`, n the largest divisor
+of D up to depth_shards), each swept or regularized on its own with the
+same parameters, the recurrent states restarting at each block, and the
+streaming sweep merges the blocks' online-softmax states exactly
+(`OnlineSoftmaxState.merge_axis0`). It is part of the model, not of the
+layout: here the blocks run one after another on one device, through the
+same kernels and the same launches as one block.
 """
 
 from __future__ import annotations
@@ -37,25 +47,28 @@ State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def variance_cost_plane(ref_feat: torch.Tensor, src_feats: torch.Tensor,
-                        rel_projs: torch.Tensor, depth_plane) -> torch.Tensor:
+                        rel_projs: torch.Tensor, depth_plane,
+                        compensated: bool = False) -> torch.Tensor:
     """Variance cost at one plane ([H, W] or scalar) -> [H, W, C]:
     E[f^2] - E[f]^2 over the ref feature and the V-1 warped source
     features (K2v's plain version at one plane)."""
     H, W = ref_feat.shape[:2]
     d = torch.as_tensor(depth_plane, dtype=torch.float32, device=ref_feat.device)
     d = torch.broadcast_to(d, (H, W))[None]
-    return sweep_var_plain(ref_feat, src_feats, rel_projs, d)[0].permute(1, 2, 0)
+    return sweep_var_plain(ref_feat, src_feats, rel_projs, d,
+                           compensated)[0].permute(1, 2, 0)
 
 
 def correlation_cost_plane(ref_feat: torch.Tensor, src_feats: torch.Tensor,
                            rel_projs: torch.Tensor, depth_plane,
-                           weights: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           weights: Optional[torch.Tensor] = None,
+                           compensated: bool = False) -> torch.Tensor:
     """Product-correlation cost at one plane -> [H, W, C]: weighted by
     weights [V-1, H, W] (AdaMVS view weights), or the plain mean over
     views when None."""
     H, W = ref_feat.shape[:2]
-    warped = torch.stack([plane_sweep_warp_single(f, r, depth_plane, (H, W))
+    warped = torch.stack([plane_sweep_warp_single(f, r, depth_plane, (H, W),
+                                                  compensated)
                           for f, r in zip(src_feats, rel_projs)])
     corr = warped * ref_feat[None]
     if weights is None:
@@ -84,17 +97,42 @@ class OnlineSoftmaxState:
         return online_softmax_update(state, score, depth_value)
 
     @staticmethod
+    def merge_axis0(states: State) -> State:
+        """Exact merge of per-depth-block states stacked on axis 0: the
+        algebra of `update`, across blocks, out of place. A block that saw
+        no plane (m = -inf) contributes nothing."""
+        m, s, acc, pmax = states
+        m_g = m.amax(dim=0)
+        scale = torch.exp(m - m_g[None])
+        scale = torch.where(torch.isfinite(m), scale, torch.zeros_like(scale))
+        return (m_g, (s * scale).sum(0), (acc * scale).sum(0),
+                (pmax * scale).amax(dim=0))
+
+    @staticmethod
     def finalize(state: State) -> Tuple[torch.Tensor, torch.Tensor]:
         _, s, acc, pmax = state
         s = s + 1e-10
         return acc / s, pmax / s
 
 
+def split_depth_blocks(depths: torch.Tensor, depth_shards: int):
+    """-> (n, depths or [n, D/n, ...] blocks); n = the largest divisor of
+    D not exceeding depth_shards."""
+    D = depths.shape[0]
+    n = max(1, int(depth_shards))
+    while D % n:
+        n -= 1
+    if n == 1:
+        return 1, depths
+    return n, depths.reshape(n, D // n, *depths.shape[1:])
+
+
 def streaming_sweep(reg, up: bool, depths: torch.Tensor,
                     ref_feat: torch.Tensor, src_feats: torch.Tensor,
                     rel_projs: torch.Tensor, weights: Optional[torch.Tensor],
                     plane_chunk: int = 8, warp_impl: str = "kernel",
-                    cost_mode: str = "correlation"
+                    cost_mode: str = "correlation", depth_shards: int = 1,
+                    compensated: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked scan over depth planes with O(H*W) state -> (depth, conf).
 
@@ -114,7 +152,15 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
     follow the in-place update.
     warp_impl 'kernel' builds each chunk's
     cost with the CUDA kernel (K2, K2v) on CUDA tensors, 'plain' always with
-    its plain version.
+    its plain version; `compensated` takes the double-single projection.
+
+    depth_shards = n > 1 (n from split_depth_blocks) sweeps n contiguous
+    blocks of D/n planes one after another, each from fresh regularizer
+    states (reg.init_states) and its own softmax state (a folding step folds
+    into its block's), then merges the n states exactly (merge_axis0). The
+    chunks are the one-block sweep's (K the largest divisor of D up to
+    plane_chunk; a chunk may span two blocks), so the cost launches and
+    the steps are the same as with one block.
     """
     H, W = ref_feat.shape[:2]
     dev = ref_feat.device
@@ -127,20 +173,20 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
         var_fn = sweep_var if warp_impl == "kernel" else sweep_var_plain
 
         def cost_fn(chunk):
-            return var_fn(ref_feat, src_feats, rel_projs, chunk)
+            return var_fn(ref_feat, src_feats, rel_projs, chunk, compensated)
     elif cost_mode == "correlation":
         if weights is None:
             weights = torch.ones((src_feats.shape[0], H, W), device=dev)
         corr_fn = sweep_cost if warp_impl == "kernel" else sweep_cost_plain
 
         def cost_fn(chunk):
-            return corr_fn(ref_feat, src_feats, rel_projs, chunk, weights)
+            return corr_fn(ref_feat, src_feats, rel_projs, chunk, weights, compensated)
     else:
         raise ValueError(f"cost_mode {cost_mode!r} (correlation, variance)")
 
     out_shape = (2 * H, 2 * W) if up else (H, W)
-    osm = OnlineSoftmaxState.init(out_shape, device=dev)
-    states = reg.init_states(H, W, device=dev, dtype=ref_feat.dtype)
+    n, _ = split_depth_blocks(depths, depth_shards)
+    block = D // n
     step = reg.plane_step(dev, ref_feat.dtype)
     # the fold updates the softmax state in place, which autograd cannot
     # follow: with grad enabled the step returns its score (through K3's
@@ -150,6 +196,7 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
     K = max(1, min(int(plane_chunk), D))
     while D % K:
         K -= 1
+    blocks = []  # the softmax state of each finished block
     for start in range(0, D, K):
         chunk = depths[start:start + K].contiguous()
         costs = cost_fn(chunk)
@@ -157,11 +204,20 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
         dvs = upsample_axis_lerp(upsample_axis_lerp(chunk, 2, -2), 2, -1) \
             if up else chunk
         for k in range(K):
+            if (start + k) % block == 0:  # a block starts: fresh states
+                if start + k:
+                    blocks.append(osm)
+                osm = OnlineSoftmaxState.init(out_shape, device=dev)
+                states = reg.init_states(H, W, device=dev, dtype=ref_feat.dtype)
             if fold:
                 _, *states = step(costs[k], *states, osm=osm, dv=dvs[k])
             else:
                 score, *states = step(costs[k], *states)
                 osm = OnlineSoftmaxState.update(osm, score, dvs[k])
+    if blocks:
+        blocks.append(osm)
+        osm = OnlineSoftmaxState.merge_axis0(
+            tuple(torch.stack(parts) for parts in zip(*blocks)))
     return OnlineSoftmaxState.finalize(osm)
 
 
@@ -171,8 +227,8 @@ VOLUME_CHUNK = 8
 
 
 def variance_cost_volume(feats: torch.Tensor, rel: torch.Tensor,
-                         depths: torch.Tensor,
-                         warp_impl: str = "kernel") -> torch.Tensor:
+                         depths: torch.Tensor, warp_impl: str = "kernel",
+                         compensated: bool = False) -> torch.Tensor:
     """The whole variance cost volume for the 3-D regularizer.
 
     feats [V, H, W, C] (channels-last, ref first), rel [V-1, 4, 4], depths
@@ -181,7 +237,8 @@ def variance_cost_volume(feats: torch.Tensor, rel: torch.Tensor,
     the V-1 warped source features. Built in chunks of K planes, K the
     largest divisor of D up to VOLUME_CHUNK; each chunk is one sweep_var
     call (one K2v launch on CUDA tensors with warp_impl 'kernel'; its plain
-    version on CPU tensors or with 'plain') and one copy into the volume.
+    version on CPU tensors or with 'plain') and one copy into the volume;
+    `compensated` takes the double-single projection.
     """
     if warp_impl not in ("kernel", "plain"):
         raise ValueError(f"warp_impl {warp_impl!r} (kernel, plain)")
@@ -196,7 +253,8 @@ def variance_cost_volume(feats: torch.Tensor, rel: torch.Tensor,
         K -= 1
     vol = torch.empty((1, C, D, H, W), device=ref.device, dtype=ref.dtype)
     for start in range(0, D, K):
-        chunk = var_fn(ref, srcs, rel, depths[start:start + K].contiguous())
+        chunk = var_fn(ref, srcs, rel, depths[start:start + K].contiguous(),
+                       compensated)
         vol[0, :, start:start + K].copy_(chunk.transpose(0, 1))
     return vol
 
@@ -204,16 +262,31 @@ def variance_cost_volume(feats: torch.Tensor, rel: torch.Tensor,
 def blocked_volume_scores(reg: Callable[[torch.Tensor], torch.Tensor],
                           feats: torch.Tensor, rel: torch.Tensor,
                           depths: torch.Tensor, warp_impl: str = "kernel",
-                          mark: Optional[Callable[[str], None]] = None
+                          mark: Optional[Callable[[str], None]] = None,
+                          depth_shards: int = 1, compensated: bool = False
                           ) -> torch.Tensor:
-    """Variance cost volume + 3-D regularizer -> scores [D, H, W], as one
-    depth block (the models refuse depth_shards other than 1). `mark(label)`,
-    when given, is called once the volume ('volume') and the regularizer
-    ('cost_reg') have been enqueued."""
+    """Variance cost volume + 3-D regularizer -> scores [D, H, W].
+
+    With depth_shards = n > 1 (n from split_depth_blocks) the volume is
+    regularized as n independent blocks of D/n planes with the same
+    parameters: the JAX package's blocked path, whose regularizer mixes
+    nothing across block boundaries. The volume of every plane does not
+    depend on the blocks, so it is built once, in the one-block chunks (the
+    same K2v launches); its blocks then go through the regularizer as one
+    batch of n ([n, C, D/n, H, W]: the 3-D GroupNorm takes its statistics
+    per sample and depth plane, so a batch of blocks is n blocks). Block
+    depths that are not multiples of 8 pad and crop as the JAX 'SAME' convs
+    do. `mark(label)`, when given, is called once the volume ('volume')
+    and the regularizer ('cost_reg') have been enqueued."""
     mark = mark or (lambda label: None)
-    vol = variance_cost_volume(feats, rel, depths, warp_impl=warp_impl)
+    vol = variance_cost_volume(feats, rel, depths, warp_impl=warp_impl,
+                               compensated=compensated)
     mark("volume")
-    scores = reg(vol)[0, 0]
+    n, _ = split_depth_blocks(depths, depth_shards)
+    if n > 1:
+        _, C, D, H, W = vol.shape
+        vol = vol.reshape(C, n, D // n, H, W).transpose(0, 1)
+    scores = reg(vol)[:, 0].reshape(-1, *vol.shape[-2:])
     mark("cost_reg")
     return scores
 

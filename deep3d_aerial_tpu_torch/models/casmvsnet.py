@@ -12,8 +12,10 @@
 warp_impl 'kernel' runs K2v on CUDA tensors (its plain version on CPU
 tensors); 'plain' runs the plain version everywhere. dtype float32 or
 bfloat16: features, the volume and CostRegNet3D (cuDNN bfloat16 3-D convs)
-in it; the head takes the scores in float32. Depth shards are not
-ported yet (ROADMAP A, depth shards).
+in it; the head takes the scores in float32. warp_precision
+'compensated' builds every volume with the double-single projection;
+depth_shards = n > 1 regularizes each stage's volume as n independent
+blocks of planes (models/cascade.py:blocked_volume_scores).
 """
 
 from __future__ import annotations
@@ -29,19 +31,15 @@ from ..ops.depth_samplers import (
     window_depth_samples,
 )
 from .cascade import blocked_volume_scores, masked_softmax_depth_head, window_confidence
-from .blocks import compute_dtype
+from .blocks import compensated_warp, compute_dtype
 from .cost_reg import CostRegNet3D
 from .feature_net import FeatureNet, multi_view_features
 
 
-def check_volume_settings(name: str, warp_impl: str, depth_shards: int) -> None:
-    """Refuse what the volume models do not run: an unknown warp_impl
-    (ValueError) or depth shards (NotImplementedError)."""
+def check_volume_settings(warp_impl: str) -> None:
+    """Refuse a warp_impl the volume models do not run (ValueError)."""
     if warp_impl not in ("kernel", "plain"):
         raise ValueError(f"warp_impl {warp_impl!r} (kernel, plain)")
-    if depth_shards != 1:
-        raise NotImplementedError(
-            f"{name} depth_shards is not ported yet (ROADMAP A.9: depth shards)")
 
 
 def stage_features(feature: FeatureNet, imgs: torch.Tensor,
@@ -58,10 +56,12 @@ class CasMVSNet(nn.Module):
                  num_depth: int = 384, base_channels: int = 8,
                  arch: str = "fpn", norm: str = "group",
                  warp_impl: str = "kernel", depth_shards: int = 1,
-                 dtype=torch.float32):
+                 warp_precision: str = "float32", dtype=torch.float32):
         super().__init__()
-        check_volume_settings("CasMVSNet", warp_impl, depth_shards)
+        check_volume_settings(warp_impl)
         self.dtype = compute_dtype(dtype)
+        self.compensated = compensated_warp(warp_precision)
+        self.depth_shards = int(depth_shards)
         self.ndepths = tuple(int(d) for d in ndepths)
         self.depth_interval_ratios = tuple(float(r) for r in depth_interval_ratios)
         self.num_depth = num_depth
@@ -105,7 +105,8 @@ class CasMVSNet(nn.Module):
             scores = blocked_volume_scores(
                 getattr(self, f"cost_reg{s}"), f, rel_projs[s], depths,
                 warp_impl=self.warp_impl,
-                mark=lambda label: mark(f"{tag}.{label}"))
+                mark=lambda label: mark(f"{tag}.{label}"),
+                depth_shards=self.depth_shards, compensated=self.compensated)
             prob, depth, _ = masked_softmax_depth_head(scores.float(), depths)
             conf = window_confidence(prob)
             outputs[tag] = {"depth": depth, "photometric_confidence": conf}

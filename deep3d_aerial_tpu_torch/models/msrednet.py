@@ -12,7 +12,7 @@ RED-Net family (counterpart of deep3d_aerial_tpu/models/msrednet.py):
 warp_impl / red_impl: 'kernel' runs the CUDA kernels on CUDA tensors (their
 plain versions on CPU tensors); 'plain' runs the plain versions everywhere.
 dtype: float32 or bfloat16 (features, cost chunks and states; the softmax
-state stays float32). Depth shards are not ported yet (ROADMAP, section A).
+state stays float32). warp_precision and depth_shards as AdaMVS's.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from ..ops.depth_samplers import (
     window_depth_samples,
 )
 from .cascade import streaming_sweep
-from .blocks import compute_dtype
+from .blocks import compensated_warp, compute_dtype
 from .cost_reg import RedStep4
 from .feature_net import FeatureNet, multi_view_features
 
@@ -39,19 +39,18 @@ class MSREDNet(nn.Module):
                  num_depth: int = 384, base_channels: int = 8,
                  norm: str = "group", plane_chunk: int = 8,
                  warp_impl: str = "kernel", red_impl: str = "kernel",
-                 depth_shards: int = 1, dtype=torch.float32):
+                 depth_shards: int = 1, warp_precision: str = "float32",
+                 dtype=torch.float32):
         super().__init__()
         self.dtype = compute_dtype(dtype)
+        self.compensated = compensated_warp(warp_precision)
+        self.depth_shards = int(depth_shards)
         if warp_impl not in ("kernel", "plain"):
             raise ValueError(f"warp_impl {warp_impl!r} (kernel, plain)")
         if base_channels != 8:
             raise NotImplementedError(
                 "MSREDNet is ported at its published base width 8 only "
                 "(RedStep4's hidden widths 8/16/32/64)")
-        if depth_shards != 1:
-            raise NotImplementedError(
-                "MSREDNet depth_shards is not ported yet (ROADMAP A: depth "
-                "shards)")
         self.ndepths = tuple(int(d) for d in ndepths)
         self.depth_interval_ratios = tuple(float(r) for r in depth_interval_ratios)
         self.num_depth = num_depth
@@ -96,7 +95,8 @@ class MSREDNet(nn.Module):
             depth, conf = streaming_sweep(
                 getattr(self, f"red{s}"), False, depths, f[0], f[1:],
                 rel_projs[s], None, plane_chunk=self.plane_chunk,
-                warp_impl=self.warp_impl, cost_mode="variance")
+                warp_impl=self.warp_impl, cost_mode="variance",
+                depth_shards=self.depth_shards, compensated=self.compensated)
             outputs[f"stage{s + 1}"] = {"depth": depth,
                                         "photometric_confidence": conf}
             mark(f"stage{s + 1}")

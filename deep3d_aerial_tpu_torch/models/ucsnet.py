@@ -3,8 +3,8 @@ deep3d_aerial_tpu/models/ucsnet.py): CasMVSNet's volume stages
 (models/casmvsnet.py) on a 'unet' feature pyramid, where every stage also
 gives the probability-weighted standard deviation of its depth,
 sigma = sqrt(max(sum_d prob_d (d - depth)^2, 1e-10)), and the next stage
-samples center +- lamb * sigma after resizing both bilinearly. dtype as
-CasMVSNet's.
+samples center +- lamb * sigma after resizing both bilinearly. dtype,
+warp_precision and depth_shards as CasMVSNet's.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from .cascade import (
     soft_argmax_depth,
     window_confidence,
 )
-from .blocks import compute_dtype
+from .blocks import compensated_warp, compute_dtype
 from .casmvsnet import check_volume_settings, stage_features
 from .cost_reg import CostRegNet3D
 from .feature_net import FeatureNet
@@ -36,10 +36,12 @@ class UCSNet(nn.Module):
                  num_depth: int = 384, base_channels: int = 8,
                  arch: str = "unet", norm: str = "group",
                  warp_impl: str = "kernel", depth_shards: int = 1,
-                 dtype=torch.float32):
+                 warp_precision: str = "float32", dtype=torch.float32):
         super().__init__()
-        check_volume_settings("UCSNet", warp_impl, depth_shards)
+        check_volume_settings(warp_impl)
         self.dtype = compute_dtype(dtype)
+        self.compensated = compensated_warp(warp_precision)
+        self.depth_shards = int(depth_shards)
         self.ndepths = tuple(int(d) for d in ndepths)
         self.lamb = float(lamb)
         self.num_depth = num_depth
@@ -75,7 +77,8 @@ class UCSNet(nn.Module):
             scores = blocked_volume_scores(
                 getattr(self, f"cost_reg{s}"), f, rel_projs[s].float(), depths,
                 warp_impl=self.warp_impl,
-                mark=lambda label: mark(f"{tag}.{label}"))
+                mark=lambda label: mark(f"{tag}.{label}"),
+                depth_shards=self.depth_shards, compensated=self.compensated)
             prob, depth, _ = masked_softmax_depth_head(scores.float(), depths)
             conf = window_confidence(prob)
             d = depths if depths.ndim == 3 else depths[:, None, None]

@@ -20,8 +20,10 @@ raises NotImplementedError, on no JAX entry point (ROADMAP.md). Without
 grad the wrappers launch their bfloat16 kernel as it is.
 
 `launch` and `plain` are plain callables of (input tensors, parameter
-tensors); non-tensor arguments (`up`, packed weights, shapes) reach them
-through closures, never through `apply`. `through_kernel` is what the
+tensors); non-tensor arguments (`up`, packed weights, shapes, the sweeps'
+`compensated` projection) reach them through closures, never through
+`apply`: a compensated launch's backward is the compensated plain
+version's VJP. `through_kernel` is what the
 wrappers call: the launch as it is when autograd needs nothing, the
 Function otherwise.
 """

@@ -35,15 +35,15 @@ _tickets: Dict[int, "torch.Tensor"] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+# the sweep entries: sweep_<mode>_<f32|bf16>[_comp] (the compensated
+# projection takes the same arguments)
+_SWEEP_ARGS = {"corr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+               "cost": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+               "var": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}
 _ARGTYPES = {
-    "sweep": {
-        "sweep_corr_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "sweep_cost_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "sweep_var_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "sweep_corr_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "sweep_cost_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "sweep_var_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    },
+    "sweep": {f"sweep_{mode}_{dt}{comp}": args
+              for mode, args in _SWEEP_ARGS.items()
+              for dt in ("f32", "bf16") for comp in ("", "_comp")},
     "red_step2": {
         "red_step2_f32": [_P, _I, _P, _P, _P] + [_P] * 8 + [_I, _I, _I, _P],
         "red_step2_bf16": [_P, _I, _P, _P, _P] + [_P] * 9 + [_I, _I, _I, _P],

@@ -34,9 +34,20 @@ in `<wrapper>.launches_bf16`. Where autograd needs a gradient, the
 launch goes through ops/autograd.py's KernelFn: the kernel forward, the
 plain version's VJP backward (the JAX package's custom VJPs), with
 gradients to ref, srcs, weights and depths (and rels when they need one).
+
+`compensated=True` (DENSEMATCH.warp_precision 'compensated') projects with
+the double-single chain of ops/warp.py: the plain versions call
+sweep_coordinates(..., compensated=True), the kernels take their
+compensated entries (`*_f32_comp`, `*_bf16_comp`: the same kernels with the
+chain in their projection, csrc/sweep.cu), in float32 and bfloat16 alike.
+Everything after the coordinates is as in the float32 projection. Each
+wrapper counts the compensated launches apart in
+`<wrapper>.launches_compensated` (and in `.launches`, as every launch).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -50,17 +61,17 @@ PLAIN_CHUNK = 8
 def _f32_math(plain):
     """The plain version for features of any dtype: float32 arithmetic on
     the upcast features, the output rounded once to their dtype."""
-    def run(ref, srcs, *rest):
+    def run(ref, srcs, *rest, **kw):
         if ref.dtype == torch.float32:
-            return plain(ref, srcs, *rest)
-        return plain(ref.float(), srcs.float(), *rest).to(ref.dtype)
+            return plain(ref, srcs, *rest, **kw)
+        return plain(ref.float(), srcs.float(), *rest, **kw).to(ref.dtype)
     run.__name__, run.__doc__ = plain.__name__, plain.__doc__
     return run
 
 
 @_f32_math
 def sweep_corr_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
-                     depths: torch.Tensor) -> torch.Tensor:
+                     depths: torch.Tensor, compensated: bool = False) -> torch.Tensor:
     """Plain version of K1: [V, D, H, W] pair correlation of each source
     view (the JAX package's pair_corr_volumes)."""
     H, W, _ = ref.shape
@@ -68,7 +79,8 @@ def sweep_corr_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
     out = ref.new_empty((V, D, H, W))
     for v in range(V):
         for i in range(0, D, PLAIN_CHUNK):
-            x, y, _ = sweep_coordinates(rels[v], depths[i:i + PLAIN_CHUNK], (H, W))
+            x, y, _ = sweep_coordinates(rels[v], depths[i:i + PLAIN_CHUNK], (H, W),
+                                        compensated)
             out[v, i:i + PLAIN_CHUNK] = (bilinear_sample(srcs[v], x, y)
                                          * ref[None]).mean(-1)
     return out
@@ -76,13 +88,13 @@ def sweep_corr_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
 
 @_f32_math
 def sweep_cost_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
-                     depths: torch.Tensor,
-                     weights: torch.Tensor) -> torch.Tensor:
+                     depths: torch.Tensor, weights: torch.Tensor,
+                     compensated: bool = False) -> torch.Tensor:
     """Plain version of K2: [K, C, H, W] confidence-weighted correlation."""
     H, W, _ = ref.shape
     acc = None
     for v in range(srcs.shape[0]):
-        x, y, _ = sweep_coordinates(rels[v], depths, (H, W))
+        x, y, _ = sweep_coordinates(rels[v], depths, (H, W), compensated)
         corr = (bilinear_sample(srcs[v], x, y) * ref[None]) * weights[v, :, :, None]
         acc = corr if acc is None else acc + corr
     cost = acc / (weights.sum(0) + 1e-5)[None, :, :, None]
@@ -91,13 +103,13 @@ def sweep_cost_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
 
 @_f32_math
 def sweep_var_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
-                    depths: torch.Tensor) -> torch.Tensor:
+                    depths: torch.Tensor, compensated: bool = False) -> torch.Tensor:
     """Plain version of K2v: [K, C, H, W] variance over {ref} and the V
     warped source views (the JAX package's variance_cost_plane per plane)."""
     H, W, _ = ref.shape
     s, q = None, None
     for v in range(srcs.shape[0]):
-        x, y, _ = sweep_coordinates(rels[v], depths, (H, W))
+        x, y, _ = sweep_coordinates(rels[v], depths, (H, W), compensated)
         w = bilinear_sample(srcs[v], x, y)
         s = w if s is None else s + w
         q = w * w if q is None else q + w * w
@@ -108,6 +120,12 @@ def sweep_var_plain(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
 
 
 _ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _entry(mode: str, suffix: str, compensated: bool) -> str:
+    """The C entry of a mode (corr, cost, var) for a feature dtype's
+    suffix, in the compensated projection or the float32 one."""
+    return f"sweep_{mode}_{suffix}" + ("_comp" if compensated else "")
 
 
 def _check_cuda(name: str, ref: torch.Tensor, srcs: torch.Tensor,
@@ -135,16 +153,30 @@ def _rels(name: str, rels: torch.Tensor, V: int, device) -> torch.Tensor:
     return rels
 
 
+def _mode(fn, compensated: bool):
+    """`fn` (a launch or a plain version) in the given projection mode."""
+    return functools.partial(fn, compensated=True) if compensated else fn
+
+
+def _count(wrapper, suffix: str, compensated: bool) -> None:
+    wrapper.launches += 1
+    if suffix == "bf16":
+        wrapper.launches_bf16 += 1
+    if compensated:
+        wrapper.launches_compensated += 1
+
+
 def sweep_corr(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
-               depths: torch.Tensor) -> torch.Tensor:
+               depths: torch.Tensor, compensated: bool = False) -> torch.Tensor:
     """K1: ref [H, W, C] (C in 8, 16, 32), srcs [V, H, W, C], rels
     [V, 4, 4], depths [D, H, W] -> [V, D, H, W], in one launch."""
     if not ref.is_cuda:
-        return sweep_corr_plain(ref, srcs, rels, depths)
-    return through_kernel(_launch_corr, sweep_corr_plain, (ref, srcs, rels, depths))
+        return sweep_corr_plain(ref, srcs, rels, depths, compensated)
+    return through_kernel(_mode(_launch_corr, compensated),
+                          _mode(sweep_corr_plain, compensated), (ref, srcs, rels, depths))
 
 
-def _launch_corr(ref, srcs, rels, depths):
+def _launch_corr(ref, srcs, rels, depths, compensated=False):
     from .cuda_build import check, load
 
     H, W, C = ref.shape
@@ -158,31 +190,33 @@ def _launch_corr(ref, srcs, rels, depths):
     out = torch.empty((V, D, H, W), device=ref.device, dtype=ref.dtype)
     lib = load("sweep")
     with torch.cuda.device(ref.device):
-        rc = getattr(lib, f"sweep_corr_{suffix}")(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
-                                depths.data_ptr(), out.data_ptr(), V, D, H, W, C,
-                                torch.cuda.current_stream(ref.device).cuda_stream)
+        rc = getattr(lib, _entry("corr", suffix, compensated))(
+            ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(), depths.data_ptr(),
+            out.data_ptr(), V, D, H, W, C,
+            torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_corr")
-    sweep_corr.launches += 1
-    if suffix == "bf16":
-        sweep_corr.launches_bf16 += 1
+    _count(sweep_corr, suffix, compensated)
     return out
 
 
 sweep_corr.launches = 0
 sweep_corr.launches_bf16 = 0
+sweep_corr.launches_compensated = 0
 
 
 def sweep_cost(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
-               depths: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+               depths: torch.Tensor, weights: torch.Tensor,
+               compensated: bool = False) -> torch.Tensor:
     """K2: ref [H, W, C] (C in 8, 16, 32), srcs [V, H, W, C], rels
     [V, 4, 4], depths [K, H, W], weights [V, H, W] -> [K, C, H, W]."""
     if not ref.is_cuda:
-        return sweep_cost_plain(ref, srcs, rels, depths, weights)
-    return through_kernel(_launch_cost, sweep_cost_plain,
+        return sweep_cost_plain(ref, srcs, rels, depths, weights, compensated)
+    return through_kernel(_mode(_launch_cost, compensated),
+                          _mode(sweep_cost_plain, compensated),
                           (ref, srcs, rels, depths, weights))
 
 
-def _launch_cost(ref, srcs, rels, depths, weights):
+def _launch_cost(ref, srcs, rels, depths, weights, compensated=False):
     from .cuda_build import check, load
 
     H, W, C = ref.shape
@@ -199,31 +233,31 @@ def _launch_cost(ref, srcs, rels, depths, weights):
     out = torch.empty((K, C, H, W), device=ref.device, dtype=ref.dtype)
     lib = load("sweep")
     with torch.cuda.device(ref.device):
-        rc = getattr(lib, f"sweep_cost_{suffix}")(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
-                                depths.data_ptr(), weights.data_ptr(),
-                                out.data_ptr(), V, K, H, W, C,
-                                torch.cuda.current_stream(ref.device).cuda_stream)
+        rc = getattr(lib, _entry("cost", suffix, compensated))(
+            ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(), depths.data_ptr(),
+            weights.data_ptr(), out.data_ptr(), V, K, H, W, C,
+            torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_cost")
-    sweep_cost.launches += 1
-    if suffix == "bf16":
-        sweep_cost.launches_bf16 += 1
+    _count(sweep_cost, suffix, compensated)
     return out
 
 
 sweep_cost.launches = 0
 sweep_cost.launches_bf16 = 0
+sweep_cost.launches_compensated = 0
 
 
 def sweep_var(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
-              depths: torch.Tensor) -> torch.Tensor:
+              depths: torch.Tensor, compensated: bool = False) -> torch.Tensor:
     """K2v: ref [H, W, C] (C in 8, 16, 32), srcs [V, H, W, C], rels
     [V, 4, 4], depths [K, H, W] -> [K, C, H, W]."""
     if not ref.is_cuda:
-        return sweep_var_plain(ref, srcs, rels, depths)
-    return through_kernel(_launch_var, sweep_var_plain, (ref, srcs, rels, depths))
+        return sweep_var_plain(ref, srcs, rels, depths, compensated)
+    return through_kernel(_mode(_launch_var, compensated),
+                          _mode(sweep_var_plain, compensated), (ref, srcs, rels, depths))
 
 
-def _launch_var(ref, srcs, rels, depths):
+def _launch_var(ref, srcs, rels, depths, compensated=False):
     from .cuda_build import check, load
 
     H, W, C = ref.shape
@@ -237,15 +271,15 @@ def _launch_var(ref, srcs, rels, depths):
     out = torch.empty((K, C, H, W), device=ref.device, dtype=ref.dtype)
     lib = load("sweep")
     with torch.cuda.device(ref.device):
-        rc = getattr(lib, f"sweep_var_{suffix}")(ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(),
-                               depths.data_ptr(), out.data_ptr(), V, K, H, W, C,
-                               torch.cuda.current_stream(ref.device).cuda_stream)
+        rc = getattr(lib, _entry("var", suffix, compensated))(
+            ref.data_ptr(), srcs.data_ptr(), rels.data_ptr(), depths.data_ptr(),
+            out.data_ptr(), V, K, H, W, C,
+            torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_var")
-    sweep_var.launches += 1
-    if suffix == "bf16":
-        sweep_var.launches_bf16 += 1
+    _count(sweep_var, suffix, compensated)
     return out
 
 
 sweep_var.launches = 0
 sweep_var.launches_bf16 = 0
+sweep_var.launches_compensated = 0

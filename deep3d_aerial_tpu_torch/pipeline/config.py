@@ -49,14 +49,16 @@ class PipelineConfig:
     # a missing/invalid pretrain_weight is a hard error, never a silent
     # degradation.
     allow_random_weights: bool = False
-    # colour previews of each depth map; not ported: True raises
-    # NotImplementedError (ROADMAP)
+    # colour previews of each depth map and its confidence, written to
+    # dense/MVS/color/ (<name>_init.png, <name>_prob.png)
     display_depth: bool = False
-    # ref views per forward; the port runs one, any other value raises
-    # NotImplementedError (ROADMAP)
+    # ref views per batch of forwards (dense_match runs a batch's forwards
+    # back to back, then one device->host copy)
     infer_batch_size: int = 1
     # 'float32' | 'compensated' — double-single projective chain for
-    # numerically deep scenes (reference float64 warp, module.py:560)
+    # numerically deep scenes (reference float64 warp, module.py:560): the
+    # sweep kernels' compensated mode on a CUDA device; any other value
+    # raises ValueError
     warp_precision: str = "float32"
     # compute-path implementations: only 'pallas' is taken. It runs the
     # hand-written CUDA kernels (ops/sweep.py, ops/red_step2.py) on a CUDA
@@ -189,13 +191,20 @@ class PipelineConfig:
                 "num_depth": self.num_depth, "min_interval": self.min_interval,
                 "model_type": self.model_type,
                 "ndepths": list(self.ndepths) if self.ndepths else None,
+                "depth_ratios": (
+                    list(self.depth_ratios) if self.depth_ratios else None
+                ),
                 "pretrain_weight": self.pretrain_weight,
                 "allow_random_weights": self.allow_random_weights,
                 "display_depth": self.display_depth,
                 "warp_precision": self.warp_precision,
-                "compute_dtype": self.compute_dtype,
                 "save_normals": self.save_normals,
                 "save_dmap": self.save_dmap,
+                "warp_impl": self.warp_impl,
+                "red_impl": self.red_impl,
+                "compute_dtype": self.compute_dtype,
+                "infer_batch_size": self.infer_batch_size,
+                "strict_coverage": self.strict_coverage,
             },
             "FUSION": {
                 "run_depth_fusion": self.run_depth_fusion,

@@ -22,9 +22,9 @@ photometric refine in PyTorch autograd on the pipeline's device when
 switched on, the UV atlas texture), the DSM, and the pipelined run
 (`run_dense_pipelined`: fusion and mesh on a host thread while dense
 matching runs), in `compute_dtype` float32 or bfloat16 (the models' dtype;
-the PFM, `.dmap` and PLY products stay float32). `warp_precision:
-compensated` is not: it raises NotImplementedError naming its ROADMAP
-item.
+the PFM, `.dmap` and PLY products stay float32), and in `warp_precision`
+float32 or compensated (the models' argument: the double-single projection
+in every sweep).
 
 The pipeline runs on a CUDA device unless the caller asks for the CPU
 (`device="cpu"`); with no CUDA device and no such request it raises.
@@ -60,24 +60,16 @@ def _join(*parts):
     return os.path.join(*parts)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP "
-        f"{item}); switch it off in the config or run deep3d_aerial_tpu")
-
-
 def _check_dense_config(cfg: PipelineConfig) -> None:
     """Refuse a dense-matching setting the port does not run, before any
-    work: an unported one raises NotImplementedError naming its ROADMAP
-    item, one that has no meaning in the port raises ValueError."""
+    work: an unknown value, or one that has no meaning in the port, raises
+    ValueError."""
     from ..models import check_model_type
-    from ..models.blocks import compute_dtype
+    from ..models.blocks import compensated_warp, compute_dtype
 
     check_model_type(cfg.model_type)
     compute_dtype(cfg.compute_dtype)
-    if cfg.warp_precision != "float32":
-        raise _not_ported(f"warp_precision {cfg.warp_precision!r}",
-                          "A.6, compensated warp")
+    compensated_warp(cfg.warp_precision)
     for key in ("warp_impl", "red_impl"):
         if getattr(cfg, key) != "pallas":
             raise ValueError(
@@ -215,7 +207,8 @@ class AerialPipeline:
         if cfg.depth_ratios:
             kwargs["depth_interval_ratios"] = tuple(
                 float(x) for x in cfg.depth_ratios)
-        model = build_model(cfg.model_type, dtype=cfg.compute_dtype, **kwargs)
+        model = build_model(cfg.model_type, dtype=cfg.compute_dtype,
+                            warp_precision=cfg.warp_precision, **kwargs)
         if cfg.pretrain_weight and os.path.exists(cfg.pretrain_weight):
             load_jax_weights(model, cfg.pretrain_weight)
         elif cfg.allow_random_weights:

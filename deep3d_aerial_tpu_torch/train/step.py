@@ -9,8 +9,11 @@ mean. The kernels run forward and their plain versions' VJPs backward
 non-finite loss every gradient is zeroed and the optimizer update is still
 applied (its moments decay, its count advances), as in the JAX step.
 
-A mesh (dp > 1, depth shards on 'sp') is not ported: multi-GPU training is
-ROADMAP A.10.
+A model built with depth_shards > 1 trains here too, its depth blocks one
+after another on one device (models/cascade.py; the merge of the blocks'
+softmax states is out of place, so autograd follows it). A mesh (dp > 1,
+the blocks on 'sp' devices) is not ported: multi-GPU training is ROADMAP
+A.10.
 """
 
 from __future__ import annotations

@@ -844,3 +844,115 @@ def test_bf16_forward_kernel_vs_plain(dev, name):
             assert k.dtype == torch.float32 and torch.isfinite(k).all()
             gap = float((p - p32).abs().max())
             assert float((k - p).abs().max()) <= max(2 * gap, floor), (s, key)
+
+
+# ---------------------------------------------------------------------------
+# the compensated projection (the *_comp entries) and depth shards
+# ---------------------------------------------------------------------------
+
+# the deep scene of tests/test_warp.py (|ray| ~ 4e4, depths ~5e4, a
+# translation that cancels ray * d back into the image), for two views
+DEEP_REL = np.array([[1.0002, 3e-4, -40000.0, 2.1735e9],
+                     [-2.1e-4, 0.9998, -35000.0, 1.9020e9],
+                     [1.5e-6, -2.5e-6, 1.0001, 12.5],
+                     [0, 0, 0, 1.0]], np.float32)
+
+
+def _check_compensated(kern, plain, ref, srcs, rel, args, ulps=None):
+    n, nc = kern.launches, kern.launches_compensated
+    got = kern(ref, srcs, rel, *args, compensated=True)
+    want = plain(ref, srcs, rel, *args, compensated=True)
+    assert kern.launches == n + 1 and kern.launches_compensated == nc + 1, kern.__name__
+    if ulps is None:
+        torch.testing.assert_close(got, want, rtol=0, atol=TOL)
+    else:
+        assert _ulps((got,), (want,)) <= ulps, kern.__name__
+    return got
+
+
+@pytest.mark.parametrize("C,H,W,K", [(8, 13, 21, 8), (16, 40, 33, 5), (32, 96, 128, 8),
+                                     (8, 384, 512, 13)])
+def test_sweep_kernels_compensated_match_plain(dev, C, H, W, K):
+    """K1, K2 and K2v in the compensated projection against their plain
+    versions in it (float32: 1e-4; the bfloat16 entries: 2 bfloat16 ulps),
+    each a compensated launch; the last view sees planes from behind."""
+    rng = np.random.default_rng(500 + C + K)
+    ref, srcs, rels, depths, wts = _sweep_inputs(dev, rng, C, H, W, 4, K)
+    for r, s, ulps in ((ref, srcs, None), (ref.to(BF), srcs.to(BF), 2)):
+        for kern, plain, args in ((sw.sweep_corr, sw.sweep_corr_plain, (depths,)),
+                                  (sw.sweep_cost, sw.sweep_cost_plain, (depths, wts)),
+                                  (sw.sweep_var, sw.sweep_var_plain, (depths,))):
+            _check_compensated(kern, plain, r, s, rels, args, ulps)
+
+
+@pytest.mark.parametrize("C", [8, 32])
+def test_sweep_kernels_compensated_at_a_deep_scene(dev, C):
+    """At the deep scene the compensated kernels agree with their plain
+    versions and sample elsewhere than the float32 projection."""
+    rng = np.random.default_rng(C)
+    H, W, V = 16, 128, 2
+    rel = np.stack([DEEP_REL, DEEP_REL * np.float32(1 + 1e-6)])
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    ref, srcs = t(rng.normal(size=(H, W, C))), t(rng.normal(size=(V, H, W, C)))
+    depths = t(54321.75 + rng.uniform(-1, 1, size=(8, H, W)))
+    wts = t(rng.uniform(0.1, 1.0, size=(V, H, W)))
+    for kern, plain, args in ((sw.sweep_corr, sw.sweep_corr_plain, (depths,)),
+                              (sw.sweep_cost, sw.sweep_cost_plain, (depths, wts)),
+                              (sw.sweep_var, sw.sweep_var_plain, (depths,))):
+        got = _check_compensated(kern, plain, ref, srcs, t(rel), args)
+        assert float((got - kern(ref, srcs, t(rel), *args)).abs().max()) > 1e-4
+
+
+def test_compensated_function_gradient_matches_plain_autograd(dev):
+    """K2's autograd Function in the compensated projection: its backward
+    is the compensated plain version's VJP (1e-5 of the largest entry, as
+    the float32 Functions)."""
+    rng = np.random.default_rng(77)
+    _, _, leaves = _grad_inputs(dev, rng, "sweep_cost")
+    ref, srcs, depths, wts = leaves
+    rels = torch.tensor(_rels(rng, srcs.shape[0]), device=dev)
+    nc = sw.sweep_cost.launches_compensated
+    out = sw.sweep_cost(ref, srcs, rels, depths, wts, compensated=True)
+    assert "KernelFn" in type(out.grad_fn).__name__
+    assert sw.sweep_cost.launches_compensated == nc + 1
+    proj = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, proj)
+    want = torch.autograd.grad(
+        sw.sweep_cost_plain(ref, srcs, rels, depths, wts, compensated=True), leaves, proj)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("name", ["adamvs", "msrednet"])
+def test_depth_shards_forward_kernel_vs_plain(dev, name):
+    """A forward at depth_shards = 2 (128x160, 3 views, ndepths 16/8/8)
+    through the kernels against the plain versions (the float32 forward
+    tolerances), with the kernels launched as often as at depth_shards = 1."""
+    from deep3d_aerial_tpu_torch.models import build_model
+
+    rng = np.random.default_rng(8)
+    V, H, W = 3, 128, 160
+    imgs = torch.from_numpy(rng.normal(size=(V, H, W, 3)).astype(np.float32)).to(dev)
+    rel = torch.from_numpy(np.stack([_rels(rng, V - 1)] * 3)).to(dev)
+    nd = (16, 8, 8)
+    counters = ((sw.sweep_corr, sw.sweep_cost, rs.red_step2) if name == "adamvs"
+                else (sw.sweep_var, rs4.red_step4, cc.cf_conv3x3))
+    launches = {}
+    outs = {}
+    for shards in (1, 2):
+        mk = init_random_weights(build_model(name, ndepths=nd, depth_shards=shards),
+                                 seed=0).to(dev).eval()
+        before = [c.launches for c in counters]
+        with torch.no_grad():
+            outs[shards] = mk(imgs, rel, 90.0, 110.0)
+        launches[shards] = [c.launches - b for c, b in zip(counters, before)]
+    assert launches[2] == launches[1] and all(launches[2])
+    mp = build_model(name, ndepths=nd, depth_shards=2, warp_impl="plain",
+                     red_impl="plain").to(dev).eval()
+    mp.load_state_dict(mk.state_dict())
+    with torch.no_grad():
+        op = mp(imgs, rel, 90.0, 110.0)
+    for s in ("stage1", "stage2", "stage3"):
+        for key, tol in (("depth", 1e-3 * 20.0), ("photometric_confidence", TOL)):
+            assert torch.isfinite(outs[2][s][key]).all()
+            torch.testing.assert_close(outs[2][s][key], op[s][key], rtol=0, atol=tol)

@@ -204,7 +204,7 @@ def test_msrednet_plain_impls_and_registry(jax_forward):
 
 
 @pytest.mark.parametrize("kw,error", [
-    ({"depth_shards": 2}, NotImplementedError),
+    ({"warp_precision": "float64"}, ValueError),
     ({"base_channels": 16}, NotImplementedError),
     ({"warp_impl": "xla"}, ValueError),
     ({"red_impl": "flax"}, ValueError),
