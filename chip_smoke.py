@@ -10,7 +10,9 @@ kernel path with the plain path end to end, and runs one 1856x2752
 production frame. `[refine]` holds the photometric refine on the card
 against the CPU (on the AdaMVS path's mesh, and on a 183k-vertex plane),
 and `[main:fullres]` runs the default pipeline end to end on the
-1856x2752 survey. `[main:pipelined]` runs that survey in three scene
+1856x2752 survey. `[main:pipelined]` runs a 2 x 2 survey at 1856x2752
+(PIPELINED_NX: until PR 12 the 3 x 2 one in three blocks, 281.7 s with
+`[fusion:cli]`; the cut pays for the multi-card phases) in two scene
 blocks sharing views twice, run_dense one map at a time and
 run_dense_pipelined in batches of 2 with `.dmap` and depth previews, and
 holds the two to the same bytes in every product (maps, fused clouds,
@@ -43,12 +45,23 @@ compensated forward kernels against plain; `[fullres:compensated:adamvs]`
 runs one 1856x2752 map (finite share 100%) against the float32
 projection's. `[shards:<model>]` runs each model at depth_shards 2, kernels
 against plain, its launches equal to depth_shards 1's, its seconds a map
-beside them.
+beside them. Then the multi-card phases (parallel/: dp x sp over
+torch.distributed): `[parallel:infer:<adamvs|casmvsnet>]` runs
+make_infer_step at the 384x512 point with depth_shards 2 on a mesh of sp 2
+and dp the card pairs (up to 4 cards; NCCL, one rank a card) or, on one
+card, two gloo ranks sharing cuda:0 (the line says which, and that its
+times are no collective times), in processes spawned by
+parallel.launch.spawn, against the one-process forward on cuda:0 under
+cudnn.deterministic, each rank's launches held to `sharded_launches`;
+`[parallel:train]` one sharded AdaMVS train step against the one-process
+step ([train:step]'s limits, parameters equal on every rank);
+`[multihost]` launch_local with 2 hosts on the 384x512 survey in three
+blocks against a one-host dense_match: maps and fused blocks byte-equal.
 
     python3 chip_smoke.py
 
 Needs a CUDA device and the repository around it; exits non-zero, printing
-no result, otherwise. Any failed check raises. The last three lines of
+no result, otherwise. Each `[phase]` line also goes to standard error. Any failed check raises. The last three lines of
 standard output are: the `kernels` JSON line, the card's name and power
 limit as nvidia-smi gives them, and the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -206,6 +219,10 @@ GRAPHCUT_POINTS = 8000
 
 def log(*a):
     print(*a, flush=True)
+    # each phase's end goes to standard error too: a run stopped by a time
+    # limit then shows there the last phase that it finished
+    if a and str(a[0]).startswith("[phase]"):
+        print(*a, file=sys.stderr, flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2003,9 +2020,17 @@ def forward_seconds(model, s, dev, n):
 # runs under these
 
 
-def phase_pipelined(dev, camF, posesF, counters, per_map):
-    """[main:pipelined] the 1856x2752 survey in three scene blocks, one per
-    column, that share source views (fusion_num 2), AdaMVS with seeded
+# [main:pipelined]'s survey: PIPELINED_NX columns of PIPELINED_NY views at
+# 1856x2752, one scene block a column. PR 11 ran the 3 x 2 survey (6 maps,
+# 3 blocks: 281.7 s with [fusion:cli], most of it the two runs' mesh
+# stages); 2 x 2 (4 maps, 2 blocks) pays for the multi-card phases
+PIPELINED_NX, PIPELINED_NY = 2, 2
+
+
+def phase_pipelined(dev, counters, per_map):
+    """[main:pipelined] the 1856x2752 survey of PIPELINED_NX x PIPELINED_NY
+    views in PIPELINED_NX scene blocks, one per column, that share source
+    views (fusion_num 2), AdaMVS with seeded
     random weights, every default stage (the graph cut's input capped),
     normals saved; two runs on copies of one workspace: run_dense one map
     at a time, and run_dense_pipelined with infer_batch_size 2, `.dmap` and
@@ -2020,7 +2045,9 @@ def phase_pipelined(dev, camF, posesF, counters, per_map):
     # scaled with the focal length from 384x512: random weights give each
     # map a near-constant depth that misses its neighbours' by up to ~1 m,
     # which moves a reprojection by ~12 px at f = 3727 (by ~2 px at 384x512),
-    # and at 2 px two of the three blocks fused 0 and 5 points
+    # and at 2 px two of the three blocks of the 3 x 2 survey fused 0 and 5
+    # points
+    camF, posesF = survey(FULL_W, FULL_H, nx=PIPELINED_NX, ny=PIPELINED_NY)
     settings = dict(
         image_w=FULL_W, image_h=FULL_H, image_scale=1.0, view_num=VIEWS,
         allow_random_weights=True, run_view_selection=False, save_normals=True,
@@ -2046,7 +2073,7 @@ def _pipelined_runs(dev, camF, posesF, counters, per_map, settings):
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        write_workspace(tmp / "src", camF, posesF, dev, columns=3)
+        write_workspace(tmp / "src", camF, posesF, dev, columns=PIPELINED_NX)
         runs = {}
         for tag, kw in (("sequential", {}),
                         ("pipelined", {"infer_batch_size": 2, "save_dmap": True,
@@ -2080,8 +2107,9 @@ def _pipelined_runs(dev, camF, posesF, counters, per_map, settings):
                     raise AssertionError(f"[main:pipelined] {tag}: {name} launched "
                                          f"{r['launches'][name]} times, expected {k} x {n_maps}")
         stats = check_mesh_dsm(pip["ws"], pip["cfg"], pip["graphcut"])
-        if stats["blocks"] != 3:
-            raise AssertionError(f"[main:pipelined] {stats['blocks']} fused blocks, expected 3")
+        if stats["blocks"] != PIPELINED_NX:
+            raise AssertionError(f"[main:pipelined] {stats['blocks']} fused blocks, expected "
+                                 f"{PIPELINED_NX}")
         compared = {}
         for sub, pattern in (("dense/MVS", "*.pfm"), ("dense/MVS", "*.txt"),
                              ("dense/fusion", "*"), ("mesh", "*"), ("dsm", "*"),
@@ -2106,7 +2134,8 @@ def _pipelined_runs(dev, camF, posesF, counters, per_map, settings):
                 if Image.open(png).size != (FULL_W, FULL_H):
                     raise AssertionError(f"[main:pipelined] {png.name}: {Image.open(png).size}")
         t = pip["pipe"].timeline
-        log(f"[main:pipelined] {n_maps} maps at {FULL_H}x{FULL_W}, 3 blocks sharing views "
+        log(f"[main:pipelined] {n_maps} maps at {FULL_H}x{FULL_W}, {PIPELINED_NX} "
+            f"blocks sharing views "
             f"(fusion_num 2, position_threshold {settings['position_threshold']:.3f} px), "
             f"fused points {stats['points']}, graph cut on {stats['graphcut_points']}: "
             f"byte-equal between the runs " + json.dumps(compared)
@@ -2142,7 +2171,7 @@ def _pipelined_runs(dev, camF, posesF, counters, per_map, settings):
         def fuse():  # one block at a time, so that the join waits less
             with torch.no_grad():
                 while not stop.is_set():
-                    probe.fuse_depth_map(block_indices=[fused[0] % 3])
+                    probe.fuse_depth_map(block_indices=[fused[0] % PIPELINED_NX])
                     fused[0] += 1
 
         worker = threading.Thread(target=fuse)
@@ -2201,7 +2230,7 @@ def phase_fusion_cli(ws: Path, settings):
             if border.read_bytes() != ply.with_suffix(".txt").read_bytes():
                 raise AssertionError(f"[fusion:cli] {border} differs from {ply.stem}.txt")
         counts.append(len(p))
-    if len(counts) != 3 or sum(counts) == 0:
+    if len(counts) != PIPELINED_NX or sum(counts) == 0:
         raise AssertionError(f"[fusion:cli] blocks fused: {counts}")
     log(f"[fusion:cli] {len(counts)} blocks, points {counts} in PLY and LAS alike (LAS "
         f"within {worst:.2e} m of the PLY), borders equal; ply {secs['ply']:.2f} s, "
@@ -2324,18 +2353,20 @@ def check_volume_forwards(tag, model_type, mk, mp, inputs):
     depth (and UCSNet's sigma) within TOL_DEPTH_FRAC of the range,
     confidence within TOL_CONF where both paths truncate the expected
     plane index to the same plane. The scores are each stage's
-    CostRegNet3D output, its depth blocks (depth_shards) in order."""
+    CostRegNet3D outputs, one call a depth block (depth_shards), in order."""
     dmin, dmax = inputs[2:]
-    scores_k, scores_p = {}, {}
+    calls_k, calls_p = {}, {}
     hooks = [getattr(m, f"cost_reg{s}").register_forward_hook(
-        lambda mod, args, out, s=s, got=got: got.__setitem__(
-            f"stage{s + 1}", out[:, 0].reshape(-1, *out.shape[-2:])))
-        for m, got in ((mk, scores_k), (mp, scores_p)) for s in range(3)]
+        lambda mod, args, out, s=s, got=got: got.setdefault(f"stage{s + 1}", []).append(
+            out[:, 0].reshape(-1, *out.shape[-2:])))
+        for m, got in ((mk, calls_k), (mp, calls_p)) for s in range(3)]
     with torch.no_grad():
         ok = mk(*inputs)
         op = mp(*inputs)
     for h in hooks:
         h.remove()
+    scores_k, scores_p = ({s: torch.cat(v) for s, v in got.items()}
+                          for got in (calls_k, calls_p))
     dtol = TOL_DEPTH_FRAC * (dmax - dmin)
     dev = ok["depth"].device
     for s in ("stage1", "stage2", "stage3"):
@@ -3457,6 +3488,356 @@ def phase_shards(dev, cam0, poses0, model_type):
     return med
 
 
+# ---------------------------------------------------------------------------
+# multi-card: dp x sp (parallel/) and the multi-host driver
+# ---------------------------------------------------------------------------
+
+# planes a sharded rank takes a kernel launch (the streaming sweep's chunk
+# and the volume's: the largest divisor of a block's planes up to 8)
+PARALLEL_MODELS = ("adamvs", "casmvsnet")
+PARALLEL_STEPS = 3
+
+
+def parallel_layout():
+    """(backend, dp, sp, note): sp 2 and dp the card pairs (up to 4 cards)
+    on NCCL, one rank a card; on one card two gloo ranks sharing cuda:0."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return "nccl", min(2, n // 2), 2, f"NCCL, one rank a card, {n} card(s)"
+    return "gloo", 1, 2, ("gloo, both ranks on cuda:0 (1 card): its times are no "
+                          "collective times")
+
+
+def rank_launches():
+    from deep3d_aerial_tpu_torch.ops import red_step2, sweep
+
+    return {f.__name__: f.launches for f in (sweep.sweep_corr, sweep.sweep_cost,
+                                             sweep.sweep_var, red_step2.red_step2)}
+
+
+def sharded_launches(name):
+    """A rank's launches a map at sp 2 and depth_shards 2: K1 once, K3 once
+    a plane of its block (half a map's), K2 and K2v once a chunk of its
+    block (the largest divisor of D/2 up to 8 planes: half a map's at
+    stages of 48 and 32 planes, one launch of 4 planes at the 8-plane
+    stage, where one process takes one launch of 8)."""
+    from deep3d_aerial_tpu_torch.models.cascade import largest_divisor
+
+    chunks = sum(d // 2 // largest_divisor(d // 2, CHUNK) for d in NDEPTHS)
+    return {"adamvs": dict(sweep_corr=1, sweep_cost=chunks, sweep_var=0,
+                           red_step2=sum(NDEPTHS) // 2),
+            "casmvsnet": dict(sweep_corr=0, sweep_cost=0, sweep_var=chunks,
+                              red_step2=0)}[name]
+
+
+def parallel_rank(dev, path, dp, sp):
+    """One rank of [parallel:infer] and [parallel:train] (spawned by
+    parallel.launch.spawn): the sharded infer step of each model on the
+    whole batch (launches, seconds a call, the gathers' ms), then
+    PARALLEL_STEPS sharded AdaMVS train steps on this rank's share (the
+    first one's logs, gradients and parameters; ms a step and of its
+    all-reduce from CUDA events at the step's marks)."""
+    from deep3d_aerial_tpu_torch.models import build_model
+    from deep3d_aerial_tpu_torch.parallel import make_mesh, shard_batch
+    from deep3d_aerial_tpu_torch.parallel.context import gather_rows
+    from deep3d_aerial_tpu_torch.parallel.train_step import make_infer_step, make_train_step
+    from deep3d_aerial_tpu_torch.train.optim import make_optimizer
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = torch.load(path, weights_only=False)
+    batch = data["batch"]
+    mesh = make_mesh({"dp": dp, "sp": sp})
+    out = {"rank": mesh.rank, "coords": mesh.coords, "device": str(dev)}
+    args = [batch[k] for k in ("imgs", "rel_projs", "depth_min", "depth_max")]
+    for name in PARALLEL_MODELS:
+        model = build_model(name, depth_shards=2).to(dev).eval()
+        model.load_state_dict(data["weights"][name])
+        infer = make_infer_step(model, mesh)
+        mesh.gathered.clear()
+        before = rank_launches()
+        res = infer(*args)
+        torch.cuda.synchronize(dev)
+        launches = {k: v - before[k] for k, v in rank_launches().items()}
+        gathers = dict(mesh.gathered)
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            infer(*args)
+            torch.cuda.synchronize(dev)
+            secs.append(time.perf_counter() - t0)
+        gather_ms = 0.0
+        for (axis, shape, dtype), count in gathers.items():
+            rows = torch.zeros(shape, dtype=dtype, device=dev)
+            times = []
+            for _ in range(6):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                gather_rows(rows, mesh, axis)
+                torch.cuda.synchronize(dev)
+                times.append(time.perf_counter() - t0)
+            gather_ms += count * float(np.median(times[1:])) * 1e3
+        out[name] = {"out": {k: v.cpu() for k, v in res.items()}, "launches": launches,
+                     "secs": float(np.median(secs)), "gathers": sum(gathers.values()),
+                     "gather_ms": gather_ms}
+        del model, infer, res
+
+    model = build_model("adamvs", depth_shards=2).to(dev)
+    model.load_state_dict(data["weights"]["train"])
+    opt = make_optimizer(model.named_parameters(), TRAIN_LR)
+    grads = {}
+    update = opt.step
+
+    def first_grads(g):
+        if not grads:
+            grads.update({n: t.detach().cpu().clone() for n, t in g.items()})
+        update(g)
+    opt.step = first_grads
+    timer = StepTimer(make_train_step(model, opt, pair_weight=1.0, mesh=mesh))
+    share = shard_batch(batch, mesh)
+    for i in range(PARALLEL_STEPS):
+        logs = timer(share)
+        if i == 0:
+            out["train"] = {"logs": logs, "grads": dict(grads), "params": {
+                n: p.detach().cpu().clone() for n, p in model.named_parameters()}}
+    out["train"]["split"] = timer.split(skip=1)
+    return out
+
+
+def phase_parallel(dev, cam0, poses0, smi):
+    """[parallel:infer] and [parallel:train]: make_infer_step at the
+    384x512 operating point (5 views, 48/32/8, 384 hypotheses, seeded
+    weights, depth_shards 2) of AdaMVS (K1, K2, K3) and CasMVSNet (K2v,
+    CostRegNet3D) on a dp x sp mesh (parallel_layout) against the
+    one-process forward of the same batch on cuda:0 (depth within
+    TOL_DEPTH_FRAC of the range, confidence within TOL_CONF; exact equality
+    reported: under cudnn.deterministic a rank repeats the one-process
+    arithmetic of its blocks); each rank's launches against the rule (K1
+    once a map, K3 half a map's, K2 and K2v a launch a chunk of the rank's
+    block), seconds a map beside one card's, the gathers' ms. Then one
+    sharded AdaMVS train step through the kernels' autograd Functions
+    against the one-process step on the same global batch ([train:step]'s
+    limits on the loss, the gradients and the parameters after the
+    update), every rank's parameters equal bit for bit; ms a step and of
+    its all-reduce. Returns the first rank's launches a map by model."""
+    from deep3d_aerial_tpu_torch.models import build_model
+    from deep3d_aerial_tpu_torch.parallel.launch import spawn
+    from deep3d_aerial_tpu_torch.parallel.train_step import make_infer_step
+    from deep3d_aerial_tpu_torch.train.optim import make_optimizer
+    from deep3d_aerial_tpu_torch.train.step import make_train_step
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    backend, dp, sp, note = parallel_layout()
+    ranks = dp * sp
+    where = f"{ranks} ranks dp {dp} x sp {sp}, {note}; {smi}"
+    samples = [sample(cam0, poses0, dev, ref=r) for r in range(dp)]
+    batch = {"imgs": np.stack([s[0].cpu().numpy() for s in samples]),
+             "rel_projs": np.stack([s[1].cpu().numpy() for s in samples]),
+             "depth_min": np.array([s[2] for s in samples], np.float32),
+             "depth_max": np.array([s[3] for s in samples], np.float32),
+             "depth_gt": np.stack([s[4].cpu().numpy() for s in samples]),
+             "mask": np.stack([(s[4] > 0).float().cpu().numpy() for s in samples])}
+    weights = {n: init_random_weights(build_model(n, depth_shards=2), seed=0).state_dict()
+               for n in PARALLEL_MODELS}
+    weights["train"] = train_model("adamvs", depth_shards=2).state_dict()
+    args = [batch[k] for k in ("imgs", "rel_projs", "depth_min", "depth_max")]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = {}
+        for name in PARALLEL_MODELS:
+            model = build_model(name, depth_shards=2).to(dev).eval()
+            model.load_state_dict(weights[name])
+            infer = make_infer_step(model)
+            before = rank_launches()
+            res = infer(*args)
+            torch.cuda.synchronize()
+            launches = {k: v - before[k] for k, v in rank_launches().items()}
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                infer(*args)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            one[name] = {"out": {k: v.cpu() for k, v in res.items()}, "launches": launches,
+                         "secs": float(np.median(secs))}
+            del model, infer, res
+        model = build_model("adamvs", depth_shards=2).to(dev)
+        model.load_state_dict(weights["train"])
+        opt = make_optimizer(model.named_parameters(), TRAIN_LR)
+        grads = {}
+        update = opt.step
+        opt.step = lambda g: grads.update({n: t.detach().cpu().clone()
+                                           for n, t in g.items()}) or update(g)
+        logs1 = make_train_step(model, opt, pair_weight=1.0)(batch)
+        params1 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        # the gradient's conditioning, as [train:step:*] measures it: the
+        # same step on images scaled by (1 + 2^-22)
+        model.load_state_dict(weights["train"])
+        opt = make_optimizer(model.named_parameters(), TRAIN_LR)
+        nudged = {}
+        update = opt.step
+        opt.step = lambda g: nudged.update({n: t.detach().cpu().clone()
+                                            for n, t in g.items()}) or update(g)
+        make_train_step(model, opt, pair_weight=1.0)(
+            dict(batch, imgs=batch["imgs"] * np.float32(1 + 2.0 ** -22)))
+        del model, opt
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "parallel.pt")
+        torch.save({"batch": batch, "weights": weights}, path)
+        t0 = time.perf_counter()
+        recs = spawn(parallel_rank, ranks, path, dp, sp, device="cuda", backend=backend)
+        spawn_s = time.perf_counter() - t0
+
+    per_rank = {}
+    for name in PARALLEL_MODELS:
+        full = one[name]["launches"]
+        maps_a_rank = len(samples) // dp
+        want = {k: v * maps_a_rank for k, v in sharded_launches(name).items()}
+        exact, dd, dc = True, 0.0, 0.0
+        for rec in recs:
+            got = rec[name]
+            if got["launches"] != want:
+                raise AssertionError(f"[parallel:infer:{name}] rank {rec['rank']} launched "
+                                     f"{got['launches']}, expected {want}")
+            for b, s in enumerate(samples):
+                dtol = TOL_DEPTH_FRAC * (s[3] - s[2])
+                a, r = got["out"]["depth"][b], one[name]["out"]["depth"][b]
+                ca, cr = (got["out"]["photometric_confidence"][b],
+                          one[name]["out"]["photometric_confidence"][b])
+                exact = exact and torch.equal(a, r) and torch.equal(ca, cr)
+                dd, dc = max(dd, float((a - r).abs().max())), max(dc, float((ca - cr).abs().max()))
+                if not (torch.isfinite(a).all() and dd <= dtol and dc <= TOL_CONF):
+                    raise AssertionError(f"[parallel:infer:{name}] rank {rec['rank']} map {b}: "
+                                         f"depth {dd} (tol {dtol}), conf {dc}")
+        r0 = recs[0][name]
+        per_rank[name] = {k: v // maps_a_rank for k, v in r0["launches"].items() if v}
+        log(f"[parallel:infer:{name}] {where}: {len(samples)} map(s) at {H0}x{W0}, "
+            f"{VIEWS} views, ndepths {NDEPTHS}, depth_shards 2: every rank holds the "
+            f"batch's depth and confidence, against one process on cuda:0 depth max |diff| "
+            f"{dd:.3e} m, confidence {dc:.3e} ({'bit-equal' if exact else 'not bit-equal'} "
+            f"under cudnn.deterministic); launches a map on each rank "
+            f"{json.dumps(per_rank[name])} against one process's "
+            f"{json.dumps({k: v // len(samples) for k, v in full.items() if v})} (half the "
+            f"planes a rank); seconds a map: sharded {r0['secs'] / maps_a_rank:.4f} "
+            f"(rank 0, host clock through a sync, median of 3) against one card's "
+            f"{one[name]['secs'] / len(samples):.4f}; {r0['gathers']} gathers a call, "
+            f"{r0['gather_ms']:.3f} ms of gathers a call (each shape timed alone, "
+            f"median of 5)")
+
+    scale = max(float(g.abs().max()) for g in grads.values())
+    tr = recs[0]["train"]
+    loss_err = max(abs(tr["logs"][k] - logs1[k]) / max(abs(logs1[k]), 1e-30) for k in logs1)
+
+    def rel(a):
+        return {n: float((a[n] - g).abs().max()) / (float(g.abs().max()) + 1e-3 * scale)
+                for n, g in grads.items()}
+    rk, ru = rel(tr["grads"]), rel(nudged)
+    worst = max(rk, key=rk.get)
+    allowed = max(TOL_STEP_GRAD, STEP_COND * max(ru.values()))
+
+    def u(x):
+        return x / torch.sqrt(0.1 * x * x + 1e-8)
+    param_err = 0.0
+    for n, g in grads.items():
+        d = allowed * (float(g.abs().max()) + 1e-3 * scale)
+        atol = TRAIN_LR * (u(g + d) - u(g - d)) + 1e-6
+        param_err = max(param_err, float(((tr["params"][n] - params1[n]).abs() / atol).max()))
+    same = all(torch.equal(rec["train"]["params"][n], p) for rec in recs[1:]
+               for n, p in tr["params"].items())
+    split = tr["split"]
+    log(f"[parallel:train] {where}: one AdaMVS step (depth_shards 2, {len(samples)} map(s) "
+        f"a global batch) at {H0}x{W0} through the kernels' autograd Functions: loss "
+        f"{tr['logs']['total']:.6f} against one process's {logs1['total']:.6f} (largest "
+        f"log rel err {loss_err:.2e}, tol {TOL_STEP_LOSS:g}); gradient error {rk[worst]:.3e} "
+        f"({worst}); one process on images scaled by 1 + 2^-22: {max(ru.values()):.3e}; "
+        f"allowed {allowed:.3e}; params after the update at {param_err:.3f} of "
+        f"their tolerance; parameters {'equal' if same else 'NOT equal'} on every rank; "
+        f"ms a step {split['step']:.2f} = forward {split['forward']:.2f} + backward "
+        f"{split['backward']:.2f} + all-reduce {split['all_reduce']:.2f} + optimizer "
+        f"{split['optimizer']:.2f} (rank 0, CUDA events, median of steps 2..{PARALLEL_STEPS}); "
+        f"the ranks' processes {spawn_s:.1f} s from spawn to exit")
+    if not (np.isfinite(tr["logs"]["total"]) and loss_err <= TOL_STEP_LOSS
+            and rk[worst] <= allowed and param_err <= 1.0 and same):
+        raise AssertionError(f"[parallel:train] loss {loss_err}, grad {rk[worst]} ({worst}), "
+                             f"params {param_err}, equal across ranks {same}")
+    return per_rank
+
+
+def phase_multihost(dev, cam0, poses0, smi):
+    """[multihost]: parallel.multihost_driver.launch_local with 2 hosts on
+    the 384x512 3x2 survey in three column blocks (AdaMVS, seeded random
+    weights, fusion on, mesh and DSM off, cudnn.deterministic in the
+    hosts), host h on cuda:(h mod the cards); against a one-host
+    dense_match and block-by-block fusion of a copy of the workspace in
+    this process: ownership disjoint, every map written once and
+    byte-equal to the one host's, every block fused (byte-equal), a fetch
+    across hosts; the aggregate maps/s and the overlap seconds."""
+    from deep3d_aerial_tpu_torch.parallel.multihost_driver import launch_local
+    from deep3d_aerial_tpu_torch.pipeline.config import PipelineConfig
+    from deep3d_aerial_tpu_torch.pipeline.orchestrator import AerialPipeline
+
+    cfg = PipelineConfig(
+        image_w=W0, image_h=H0, image_scale=1.0, view_num=VIEWS,
+        allow_random_weights=True, run_view_selection=False,
+        fusion_num=2, geo_consist_num=2, photomatric_threshold=0.0,
+        position_threshold=2.0, depth_threshold=0.05, normal_threshold=180.0,
+        run_create_mesh=False, run_create_dsm=False)
+    n_cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_workspace(tmp / "src", cam0, poses0, dev, columns=3)
+        for tag in ("hosts", "one"):
+            shutil.copytree(tmp / "src", tmp / tag)
+        cfg.to_yaml(tmp / "cfg.yaml")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        agg = launch_local(str(tmp / "hosts"), str(tmp / "cfg.yaml"), 2, device="cuda",
+                           deterministic=True)
+        wall = time.perf_counter() - t0
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            pipe = AerialPipeline(str(tmp / "one"), cfg, device=dev)
+            pipe.dense_match()
+            torch.cuda.synchronize()
+            n_blocks = len(pipe.fusion_session().blocks)
+            for bi in range(n_blocks):
+                pipe.fuse_depth_map(block_indices=[bi])
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        recs = agg["hosts"]
+        owned = [set(r["owned_views"]) for r in recs]
+        mvs = tmp / "hosts" / "dense" / "MVS"
+        produced = sorted(p.name for p in mvs.glob("*_init.pfm"))
+        if owned[0] & owned[1] or len(produced) != len(owned[0] | owned[1]) \
+                or len(produced) != len(poses0):
+            raise AssertionError(f"[multihost] owned {owned}, maps {produced}")
+        maps, differ = same_files(tmp / "hosts", tmp / "one", "dense/MVS")
+        fused, fdiffer = same_files(tmp / "hosts", tmp / "one", "dense/fusion", "*.ply")
+        covered = sorted(b for r in recs for b in r["blocks"])
+        if differ or fdiffer or covered != list(range(n_blocks)) \
+                or len(fused) != n_blocks or not any(r["fetched_views"] for r in recs):
+            raise AssertionError(f"[multihost] maps differing {differ}, fused {fused} "
+                                 f"(differing {fdiffer}), blocks {covered} of {n_blocks}, "
+                                 f"fetches {[r['fetched_views'] for r in recs]}")
+    log(f"[multihost] 2 hosts on {min(2, n_cards)} card(s) ({smi}): {len(produced)} maps "
+        f"at {H0}x{W0} in {n_blocks} blocks, owned {[sorted(o) for o in owned]}, "
+        f"fetched {[r['fetched_views'] for r in recs]}; every map byte-equal to one host's "
+        f"({len(maps)} files of dense/MVS) and every block fused, byte-equal ({len(fused)} "
+        f"PLYs); aggregate {agg['agg_maps_per_s']:.3f} maps/s over the hosts' "
+        f"{agg['wall_seconds']:.2f} s (from each host's pipeline start: the model's build "
+        f"included, the process's start and imports not), overlap seconds "
+        f"{[round(r['overlap_seconds'], 3) for r in recs]}, per host "
+        + json.dumps([{k: round(r[k], 3) for k in ('mvs_seconds', 'fuse_seconds',
+                                                   'total_seconds')} | {"device": r["device"]}
+                      for r in recs]) + f"; launch_local {wall:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3530,7 +3911,7 @@ def main() -> int:
     log(f"[phase] main:fullres {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     pipelined_launches = phase_pipelined(
-        dev, camF, posesF, (sweep_corr, sweep_cost, red_step2),
+        dev, (sweep_corr, sweep_cost, red_step2),
         {"sweep_corr": 1, "sweep_cost": sum(d // CHUNK for d in NDEPTHS),
          "red_step2": sum(NDEPTHS)})
     log(f"[phase] main:pipelined {time.perf_counter() - t:.1f} s")
@@ -3587,6 +3968,14 @@ def main() -> int:
         phase_shards(dev, cam0, poses0, model_type)
         log(f"[phase] shards:{model_type} {time.perf_counter() - t:.1f} s")
 
+    # multi-card: dp x sp and the multi-host driver
+    t = time.perf_counter()
+    parallel_launches = phase_parallel(dev, cam0, poses0, smi)
+    log(f"[phase] parallel {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_multihost(dev, cam0, poses0, smi)
+    log(f"[phase] multihost {time.perf_counter() - t:.1f} s")
+
     # training: each kernel's autograd Function, one step kernel vs plain
     # per model, the trainer at its CLI's defaults, three steps per model
     t = time.perf_counter()
@@ -3641,6 +4030,11 @@ def main() -> int:
             "backward": "plain VJP (ops/autograd.py KernelFn)",
             "train_launches_per_step": {m: r["launches"][name] for m, r in train.items()
                                         if name in r["launches"]}})
+        by_model = "casmvsnet" if name == "sweep_var" else "adamvs"
+        if name in parallel_launches[by_model]:
+            kernels[-1]["sharded_launches_per_rank_map"] = {
+                by_model: parallel_launches[by_model][name],
+                "layout": "sp 2, depth_shards 2 ([parallel:infer])"}
         if name == "red_step2":  # not a library call: the convs alone
             kernels[-1]["convs_cudnn_ms"] = red2_yard
         if name == "sweep_var":  # every main path it runs on, in its own run

@@ -28,8 +28,12 @@ of D up to depth_shards), each swept or regularized on its own with the
 same parameters, the recurrent states restarting at each block, and the
 streaming sweep merges the blocks' online-softmax states exactly
 (`OnlineSoftmaxState.merge_axis0`). It is part of the model, not of the
-layout: here the blocks run one after another on one device, through the
-same kernels and the same launches as one block.
+layout: in one process the blocks run one after another on one device,
+through the same kernels and the same launches as one block. Under a mesh
+whose 'sp' axis shards them (parallel/context.py: use_mesh), a rank
+computes only its own blocks (`shard_range`) and gathers every block's
+result from the others (`constrain`) before the merge, which then runs as
+in one process.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from ..ops.red_step2 import online_softmax_update
 from ..ops.resize import upsample_axis_lerp
 from ..ops.sweep import sweep_cost, sweep_cost_plain, sweep_var, sweep_var_plain
 from ..ops.warp import plane_sweep_warp_single
+from ..parallel.context import constrain, shard_range
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -119,9 +124,7 @@ def split_depth_blocks(depths: torch.Tensor, depth_shards: int):
     """-> (n, depths or [n, D/n, ...] blocks); n = the largest divisor of
     D not exceeding depth_shards."""
     D = depths.shape[0]
-    n = max(1, int(depth_shards))
-    while D % n:
-        n -= 1
+    n = largest_divisor(D, depth_shards)
     if n == 1:
         return 1, depths
     return n, depths.reshape(n, D // n, *depths.shape[1:])
@@ -160,7 +163,12 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
     into its block's), then merges the n states exactly (merge_axis0). The
     chunks are the one-block sweep's (K the largest divisor of D up to
     plane_chunk; a chunk may span two blocks), so the cost launches and
-    the steps are the same as with one block.
+    the steps are the same as with one block. Under a mesh that shards the
+    blocks over s ranks, a rank sweeps only its n/s blocks (shard_range), in
+    chunks inside each block (K the largest divisor of D/n up to
+    plane_chunk), so it launches its share of the cost chunks and steps;
+    the blocks' states are gathered (constrain, one gather of the four
+    stacked) and merged as in one process.
     """
     H, W = ref_feat.shape[:2]
     dev = ref_feat.device
@@ -187,17 +195,17 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
     out_shape = (2 * H, 2 * W) if up else (H, W)
     n, _ = split_depth_blocks(depths, depth_shards)
     block = D // n
+    own = shard_range(n)
     step = reg.plane_step(dev, ref_feat.dtype)
     # the fold updates the softmax state in place, which autograd cannot
     # follow: with grad enabled the step returns its score (through K3's
     # KernelFn on CUDA) and the update is the out-of-place one
     fold = getattr(step, "folds_softmax", False) and not torch.is_grad_enabled()
-    # largest divisor of D not exceeding plane_chunk
-    K = max(1, min(int(plane_chunk), D))
-    while D % K:
-        K -= 1
-    blocks = []  # the softmax state of each finished block
-    for start in range(0, D, K):
+    # largest divisor of the planes (a sharded rank's: of a block's) not
+    # exceeding plane_chunk
+    K = largest_divisor(D if len(own) == n else block, plane_chunk)
+    blocks = []  # the softmax state of each of this rank's blocks
+    for start in range(own.start * block, own.stop * block, K):
         chunk = depths[start:start + K].contiguous()
         costs = cost_fn(chunk)
         # plane depths at the score resolution: integer 2x lerp
@@ -205,20 +213,29 @@ def streaming_sweep(reg, up: bool, depths: torch.Tensor,
             if up else chunk
         for k in range(K):
             if (start + k) % block == 0:  # a block starts: fresh states
-                if start + k:
-                    blocks.append(osm)
                 osm = OnlineSoftmaxState.init(out_shape, device=dev)
+                blocks.append(osm)
                 states = reg.init_states(H, W, device=dev, dtype=ref_feat.dtype)
             if fold:
                 _, *states = step(costs[k], *states, osm=osm, dv=dvs[k])
             else:
                 score, *states = step(costs[k], *states)
                 osm = OnlineSoftmaxState.update(osm, score, dvs[k])
-    if blocks:
-        blocks.append(osm)
-        osm = OnlineSoftmaxState.merge_axis0(
-            tuple(torch.stack(parts) for parts in zip(*blocks)))
-    return OnlineSoftmaxState.finalize(osm)
+                blocks[-1] = osm
+    if n == 1:
+        return OnlineSoftmaxState.finalize(blocks[0])
+    # [blocks, 4, ...] -> every block's, from the ranks that swept them
+    stacked = constrain(torch.stack([torch.stack(b) for b in blocks]))
+    return OnlineSoftmaxState.finalize(OnlineSoftmaxState.merge_axis0(
+        tuple(stacked.unbind(1))))
+
+
+def largest_divisor(n: int, cap: int) -> int:
+    """The largest divisor of n not exceeding cap (at least 1)."""
+    k = max(1, min(int(cap), n))
+    while n % k:
+        k -= 1
+    return k
 
 
 # planes per K2v launch of the volume path, at most (the JAX package's
@@ -248,9 +265,7 @@ def variance_cost_volume(feats: torch.Tensor, rel: torch.Tensor,
     if depths.ndim == 1:
         depths = depths[:, None, None].expand(D, H, W)
     var_fn = sweep_var if warp_impl == "kernel" else sweep_var_plain
-    K = min(VOLUME_CHUNK, D)
-    while D % K:
-        K -= 1
+    K = largest_divisor(D, VOLUME_CHUNK)
     vol = torch.empty((1, C, D, H, W), device=ref.device, dtype=ref.dtype)
     for start in range(0, D, K):
         chunk = var_fn(ref, srcs, rel, depths[start:start + K].contiguous(),
@@ -272,21 +287,35 @@ def blocked_volume_scores(reg: Callable[[torch.Tensor], torch.Tensor],
     parameters: the JAX package's blocked path, whose regularizer mixes
     nothing across block boundaries. The volume of every plane does not
     depend on the blocks, so it is built once, in the one-block chunks (the
-    same K2v launches); its blocks then go through the regularizer as one
-    batch of n ([n, C, D/n, H, W]: the 3-D GroupNorm takes its statistics
-    per sample and depth plane, so a batch of blocks is n blocks). Block
-    depths that are not multiples of 8 pad and crop as the JAX 'SAME' convs
-    do. `mark(label)`, when given, is called once the volume ('volume')
-    and the regularizer ('cost_reg') have been enqueued."""
+    same K2v launches); its blocks then go through the regularizer one at a
+    time, each as a batch of one: the 3-D convolutions round by batch size
+    (oneDNN on the CPU, cuDNN's choice of algorithm on the card), and a
+    block must come out the same wherever it is regularized. Block depths
+    that are not multiples of 8 pad and crop as the JAX 'SAME' convs do.
+    Under a mesh that shards the blocks over s ranks, a rank builds the
+    planes of its n/s blocks only (shard_range), each block's volume in
+    chunks of the largest divisor of D/n up to VOLUME_CHUNK, regularizes
+    them, and gathers every block's scores (constrain). `mark(label)`,
+    when given, is called once the volume ('volume') and the regularizer
+    ('cost_reg') have been enqueued."""
     mark = mark or (lambda label: None)
-    vol = variance_cost_volume(feats, rel, depths, warp_impl=warp_impl,
-                               compensated=compensated)
-    mark("volume")
     n, _ = split_depth_blocks(depths, depth_shards)
-    if n > 1:
-        _, C, D, H, W = vol.shape
-        vol = vol.reshape(C, n, D // n, H, W).transpose(0, 1)
-    scores = reg(vol)[:, 0].reshape(-1, *vol.shape[-2:])
+    D = depths.shape[0]
+    own = shard_range(n)
+    if len(own) == n:
+        vol = variance_cost_volume(feats, rel, depths, warp_impl=warp_impl,
+                                   compensated=compensated)[0]
+        blocks = vol.reshape(vol.shape[0], n, D // n, *vol.shape[2:]).unbind(1)
+    else:
+        b = D // n
+        blocks = [variance_cost_volume(feats, rel, depths[i * b:(i + 1) * b],
+                                       warp_impl=warp_impl, compensated=compensated)[0]
+                  for i in own]
+    mark("volume")
+    scores = torch.cat([reg(blk[None])[:, 0] for blk in blocks])
+    if len(own) < n:
+        scores = constrain(scores)
+    scores = scores.reshape(D, *scores.shape[-2:])
     mark("cost_reg")
     return scores
 

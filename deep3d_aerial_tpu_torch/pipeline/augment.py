@@ -11,8 +11,14 @@ from __future__ import annotations
 import numpy as np
 
 
+# the uniform draws random_photometric takes from its rng, whatever the
+# image: a dataset that skips a sample advances its rng by these per view
+PHOTOMETRIC_DRAWS = 4
+
+
 def random_photometric(img: np.ndarray, rng: np.random.Generator) -> np.ndarray:
-    """img uint8 [H, W, 3] -> augmented uint8."""
+    """img uint8 [H, W, 3] -> augmented uint8 (PHOTOMETRIC_DRAWS uniform
+    draws from rng)."""
     x = img.astype(np.float32)
 
     # color saturation: blend with per-pixel gray

@@ -35,6 +35,7 @@ import numpy as np
 
 from ..geometry.camera import Pose, stage_relative_projections
 from ..pipeline import preprocess
+from ..pipeline.augment import PHOTOMETRIC_DRAWS
 
 
 @dataclasses.dataclass
@@ -252,13 +253,32 @@ class WHUOMVSDataset:
             K_inv=np.linalg.inv(ref_K).astype(np.float32),
         )
 
-    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0):
-        """Yield stacked batch dicts ready for parallel.make_train_step."""
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                shard: Tuple[int, int] = (0, 1)):
+        """Yield stacked batch dicts ready for parallel.make_train_step.
+
+        shard (i, n): of each global batch of batch_size samples, only the
+        i-th of n equal contiguous shares (a dp rank's: the share
+        parallel.shard_batch takes), in the order one process would use;
+        the other samples are not read, but with augmentation their draws
+        are skipped, so each sample is augmented as in one process.
+        ValueError when n does not divide batch_size."""
+        index, count = shard
+        if batch_size % count:
+            raise ValueError(f"a batch of {batch_size} does not split into {count} "
+                             "equal shares")
+        share = range(index * batch_size // count, (index + 1) * batch_size // count)
         order = np.arange(len(self))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
         for i in range(0, len(order) - batch_size + 1, batch_size):
-            samples = [self.build(j) for j in order[i:i + batch_size]]
+            samples = []
+            for pos, j in enumerate(order[i:i + batch_size]):
+                if pos in share:
+                    samples.append(self.build(j))
+                elif self.augment:  # the draws build(j) would take
+                    self._aug_rng.uniform(
+                        size=PHOTOMETRIC_DRAWS * (1 + len(self.samples[j][2])))
             batch = {
                 "imgs": np.stack([s.imgs for s in samples]),
                 "rel_projs": np.stack([s.rel_projs for s in samples]),

@@ -11,18 +11,36 @@ applied (its moments decay, its count advances), as in the JAX step.
 
 A model built with depth_shards > 1 trains here too, its depth blocks one
 after another on one device (models/cascade.py; the merge of the blocks'
-softmax states is out of place, so autograd follows it). A mesh (dp > 1,
-the blocks on 'sp' devices) is not ported: multi-GPU training is ROADMAP
-A.10.
+softmax states is out of place, so autograd follows it).
+
+With a mesh (parallel/sharding.py: make_mesh; one process per rank), each
+rank runs the step on its dp share of the global batch (shard_batch) and
+on its sp share of the depth blocks (the model runs under use_mesh, which
+gathers the blocks: parallel/context.py). Gradient rule: every rank of an
+sp group computes the same loss L_b of its dp row's samples from the
+gathered blocks; the gather's backward sums the group's gradients at each
+rank's own blocks, so a rank's gradient is s x (L_b's gradient through its
+own blocks) + (L_b's gradient through the paths every rank computes alike,
+the features and the pair weights), and the group's local gradients sum to
+s x grad L_b. The all_reduce(SUM) of the local gradients over the whole
+mesh (dp x s ranks) divided by dp x s is therefore (1/dp) sum_b grad L_b:
+the gradient of the global batch's mean loss, as the JAX step's
+XLA-inserted all-reduce gives it. The logged loss and logs are global
+means (one all_reduce), the NaN guard reads the global loss, and every
+rank applies the same update to the same parameters: after the step they
+are equal bit for bit (an all_reduce leaves the same sum on every rank).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.context import use_mesh
 from .losses import cascade_depth_loss
 from .optim import Optimizer
 
@@ -61,13 +79,12 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
       imgs [B, V, H, W, 3], rel_projs [B, S, V-1, 4, 4],
       depth_min [B], depth_max [B], depth_gt [B, H, W], mask [B, H, W]
       (+ normal_gt [B, H, W, 3], K_inv [B, 3, 3] when normal_weight > 0)
+    With `mesh`, batch is this rank's dp share of the global batch
+    (parallel.shard_batch) and the logs are the global batch's.
     `mark(label)`, when given, is called once the forward ('forward'), the
-    backward ('backward') and the update ('optimizer') have been enqueued.
+    backward ('backward'), with a mesh the gradients' all-reduce
+    ('all_reduce'), and the update ('optimizer') have been enqueued.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "data- and depth-parallel training (a mesh, dp > 1) is not ported "
-            "yet: ROADMAP A.10 (multi-GPU)")
 
     def loss_one(b: Dict[str, torch.Tensor], i: int, with_normals: bool):
         out = model(b["imgs"][i], b["rel_projs"][i], b["depth_min"][i],
@@ -101,17 +118,43 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
         B = b["imgs"].shape[0]
         for p in optimizer.params.values():
             p.grad = None
-        logs = [loss_one(b, i, with_normals) for i in range(B)]
-        loss = torch.stack([l["total"] for l in logs]).mean()
-        mark("forward")
-        loss.backward()
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            logs = [loss_one(b, i, with_normals) for i in range(B)]
+            loss = torch.stack([l["total"] for l in logs]).mean()
+            mark("forward")
+            loss.backward()
         mark("backward")
-        finite = bool(torch.isfinite(loss))
-        grads = {n: (p.grad if finite and p.grad is not None else torch.zeros_like(p))
+        keys = list(logs[0])
+        means = torch.stack([torch.stack([torch.as_tensor(l[k]).detach().float().reshape(())
+                                          for l in logs]).mean() for k in keys])
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in optimizer.params.items()}
+        if mesh is not None:
+            grads, means = _all_reduce_mean(mesh, grads, means)
+            mark("all_reduce")
+        means = means.tolist()
+        total = means[keys.index("total")]
+        if not np.isfinite(total):
+            grads = {n: torch.zeros_like(g) for n, g in grads.items()}
         optimizer.step(grads)
         mark("optimizer")
-        return {k: float(torch.stack([torch.as_tensor(l[k]).detach() for l in logs]).mean())
-                for k in logs[0]}
+        return dict(zip(keys, means))
 
     return step
+
+
+def _all_reduce_mean(mesh, grads: Dict[str, torch.Tensor], logs: torch.Tensor):
+    """The mean over the mesh's ranks of each gradient and of the logs: one
+    all_reduce(SUM) of them packed flat, divided by the rank count (the
+    gradient rule in the module docstring)."""
+    names = list(grads)
+    flat = torch.cat([grads[n].reshape(-1) for n in names]
+                     + [logs.to(grads[names[0]].device)])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+    flat /= mesh.size
+    out, k = {}, 0
+    for n in names:
+        g = grads[n]
+        out[n] = flat[k:k + g.numel()].view_as(g)
+        k += g.numel()
+    return out, flat[k:]

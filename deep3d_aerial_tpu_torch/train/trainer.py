@@ -8,10 +8,19 @@ The Trainer runs on the card unless the caller asks for the CPU
 (`device="cpu"`); without a CUDA device it raises rather than fall back.
 On the card TF32 is off (float32 convolutions and matmuls), as in the
 pipeline's dense matching.
+
+With a mesh (parallel.make_mesh, one process a rank) every rank builds
+the same Trainer: the step is the sharded one (parallel/train_step.py),
+the batches it is handed are the rank's dp share of each global batch,
+`init` broadcasts rank 0's weights, `resume` loads on every rank, the
+evaluation runs every validation batch on every rank (the metrics are the
+same everywhere), and rank 0 alone prints and writes checkpoints,
+train_record.txt and the TensorBoard events.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -20,6 +29,8 @@ from typing import Callable, Dict, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.context import use_mesh
+from ..parallel.sharding import replicated
 from ..pipeline.orchestrator import resolve_device
 from ..weights import init_random_weights
 from . import checkpoint as ckpt
@@ -61,11 +72,9 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, cfg: TrainerConfig,
                  steps_per_epoch: int = 1000, mesh=None,
                  device: "str | torch.device" = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training (a mesh, dp > 1) is not ported yet: "
-                "ROADMAP A.10 (multi-GPU)")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -79,7 +88,7 @@ class Trainer:
             warmup_steps=cfg.warmup_steps)
         self.step_fn = make_train_step(
             self.model, self.optimizer, stage_weights=cfg.stage_weights,
-            pair_weight=cfg.pair_weight)
+            pair_weight=cfg.pair_weight, mesh=mesh)
         self.initialized = False
         self.epoch = 0
         self.global_step = 0
@@ -99,6 +108,8 @@ class Trainer:
         """Seeded random weights (weights.init_random_weights) and a fresh
         optimizer state."""
         init_random_weights(self.model, seed)
+        if self.mesh is not None:
+            replicated(self.model, self.mesh)
         self.optimizer.reset()
         self.initialized = True
 
@@ -122,7 +133,7 @@ class Trainer:
                 self.init()
             logs = self.step_fn(batch)
             self.global_step += 1
-            if step % self.cfg.log_every == 0:
+            if step % self.cfg.log_every == 0 and self.is_main:
                 print(f"[train] epoch {self.epoch} step {step}: "
                       f"loss={logs['total']:.4f} ({time.time() - t0:.1f}s)",
                       flush=True)
@@ -137,6 +148,12 @@ class Trainer:
     def evaluate(self, batches: Iterable[Dict[str, np.ndarray]]) -> Dict:
         """Validation metrics: outlier-capped abs error + <1/<3/<6 interval."""
         self.model.eval()
+        with use_mesh(self.mesh) if self.mesh is not None else contextlib.nullcontext():
+            acc = self._evaluate(batches)
+        self.model.train()
+        return {k: float(np.mean([a[k] for a in acc])) for k in acc[0]} if acc else {}
+
+    def _evaluate(self, batches) -> list:
         iv = self.cfg.min_interval
         acc = []
         for batch in batches:
@@ -155,8 +172,7 @@ class Trainer:
                      "acc_3": interval_accuracy(est, gt, m, 3.0, iv),
                      "acc_6": interval_accuracy(est, gt, m, 6.0, iv)}
                 acc.append({k: float(v) for k, v in r.items()})
-        self.model.train()
-        return {k: float(np.mean([a[k] for a in acc])) for k in acc[0]} if acc else {}
+        return acc
 
     def fit(self, train_batches_fn: Callable[[], Iterable],
             val_batches_fn: Optional[Callable[[], Iterable]] = None):
@@ -170,13 +186,15 @@ class Trainer:
             if val_batches_fn is not None:
                 val = self.evaluate(val_batches_fn())
                 abs_err = val.get("abs_error")
-                print(f"[eval] epoch {epoch}: {val}", flush=True)
-                from .tb_writer import save_scalars
+                if self.is_main:
+                    print(f"[eval] epoch {epoch}: {val}", flush=True)
+                    from .tb_writer import save_scalars
 
-                save_scalars(self.writer, "test", val, self.global_step)
-            ckpt.save_checkpoint(self.cfg.ckpt_dir, epoch, self.model,
-                                 self.optimizer, abs_err)
-            # per-epoch append log (the reference's train_record.txt)
-            with open(record_path, "a") as f:
-                f.write(f"epoch {epoch} train {train_logs} val {val}\n")
+                    save_scalars(self.writer, "test", val, self.global_step)
+            if self.is_main:
+                ckpt.save_checkpoint(self.cfg.ckpt_dir, epoch, self.model,
+                                     self.optimizer, abs_err)
+                # per-epoch append log (the reference's train_record.txt)
+                with open(record_path, "a") as f:
+                    f.write(f"epoch {epoch} train {train_logs} val {val}\n")
         return self.model

@@ -56,6 +56,38 @@ def test_importing_every_module_pulls_no_jax():
     assert res.stdout.startswith("ok")
 
 
+def test_every_module_imports_first():
+    """Each module of the port imports as the first of the port's modules
+    a program loads (no import cycle that only some orders survive): in a
+    fresh interpreter, the port's modules are dropped from sys.modules
+    before each import, so that each import runs the package's own from
+    scratch (torch and numpy stay loaded, to keep it quick)."""
+    mods = _modules()
+    assert "deep3d_aerial_tpu_torch.parallel.context" in mods
+    code = (
+        "import importlib, sys, traceback\n"
+        "import numpy, torch\n"
+        "bad = []\n"
+        f"for m in {mods!r}:\n"
+        "    for k in [k for k in sys.modules if k.split('.')[0] == "
+        "'deep3d_aerial_tpu_torch']:\n"
+        "        del sys.modules[k]\n"
+        "    try:\n"
+        "        importlib.import_module(m)\n"
+        "    except Exception:\n"
+        "        bad.append((m, traceback.format_exc(limit=-3)))\n"
+        "assert not bad, bad\n"
+        "import deep3d_aerial_tpu_torch.parallel as par\n"
+        "from deep3d_aerial_tpu_torch.train.step import make_train_step\n"
+        "assert par.make_train_step is make_train_step\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
 def test_no_source_names_jax():
     pat = re.compile(r"^\s*(import jax|from jax)|flax|deep3d_aerial_tpu\.",
                      re.MULTILINE)

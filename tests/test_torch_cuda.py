@@ -530,6 +530,107 @@ def test_kernels_launch_on_the_tensors_device():
 
 
 
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_sharded_infer_and_train_steps_on_the_card(dev, backend, tmp_path, monkeypatch):
+    """parallel/ on the card: 2 ranks of a {'dp': 1, 'sp': 2} mesh, NCCL one
+    rank a card (needs two cards) or gloo (any card; the ranks share a card
+    where there is one), AdaMVS (K1, K2, K3) and CasMVSNet (K2v) at
+    depth_shards 2 and 64x96, cuDNN deterministic everywhere (C.11): the
+    sharded forwards against the one-process forward on cuda:0 (depth
+    within 1e-3 x the depth range, confidence within 1e-4), each rank
+    launching K2 and K3 half as often as one process, K1 as often, and K2v
+    once a chunk of its own block (want()); then one sharded AdaMVS train
+    step through the kernels' autograd Functions against the one-process
+    step (loss 1e-4 relative; gradients within chip_smoke.py's
+    [train:step] limit: 1e-3 of a leaf's largest entry plus 1e-3 of the
+    model's largest, or 3x what one process's gradient moves by on images
+    scaled by 1 + 2^-22), every rank ending with the same parameters bit
+    for bit."""
+    from deep3d_aerial_tpu_torch.models import build_model
+    from deep3d_aerial_tpu_torch.models.cascade import VOLUME_CHUNK, largest_divisor
+    from deep3d_aerial_tpu_torch.parallel.launch import spawn
+    from deep3d_aerial_tpu_torch.parallel.train_step import make_infer_step
+    from deep3d_aerial_tpu_torch.train.optim import make_optimizer
+    from deep3d_aerial_tpu_torch.train.step import make_train_step
+    from deep3d_aerial_tpu_torch.weights import load_jax_weights, state_dict_to_tree
+    import torch_parallel_workers as workers
+
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL takes one rank a card: needs two CUDA devices")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    rng = np.random.default_rng(12)
+    B, V, H, W = 2, 3, 64, 96
+    batch = {"imgs": rng.normal(size=(B, V, H, W, 3)).astype(np.float32),
+             "rel_projs": np.stack([np.stack([_rels(rng, V - 1)] * 3)
+                                    for _ in range(B)]).astype(np.float32),
+             "depth_min": np.full((B,), 90.0, np.float32),
+             "depth_max": np.full((B,), 110.0, np.float32),
+             "depth_gt": rng.uniform(92, 108, (B, H, W)).astype(np.float32),
+             "mask": np.ones((B, H, W), np.float32)}
+    axes = {"dp": 1, "sp": 2}
+    models = {"adamvs": dict(ndepths=(16, 8, 8), num_depth=32, plane_chunk=4,
+                             depth_shards=2),
+              "casmvsnet": dict(ndepths=(16, 8, 8), num_depth=32, depth_shards=2)}
+
+    def want(name, kw, full):
+        """A rank's launches: K1 as one process; K2 and K3 half; K2v one
+        launch a chunk of its block, the largest divisor of D/2 up to 8
+        planes (cascade.VOLUME_CHUNK), for each of the B maps."""
+        if name == "adamvs":
+            return {k: (n if k == "sweep_corr" else n // 2) for k, n in full.items()}
+        chunks = sum(d // 2 // largest_divisor(d // 2, VOLUME_CHUNK) for d in kw["ndepths"])
+        return dict(full, sweep_var=B * chunks)
+
+    for name, kw in models.items():
+        flat = state_dict_to_tree(init_random_weights(build_model(name, **kw), seed=4))
+        path = tmp_path / f"{name}.npz"
+        workers.save(path, flat, batch)
+        recs = spawn(workers.infer_case, 2, str(path), name, kw, axes,
+                     device="cuda", backend=backend)
+        model = load_jax_weights(build_model(name, **kw), flat).to(dev).eval()
+        before = workers.launches()
+        one = make_infer_step(model)(batch["imgs"], batch["rel_projs"],
+                                     batch["depth_min"], batch["depth_max"])
+        torch.cuda.synchronize()
+        full = {k: v - before[k] for k, v in workers.launches().items()}
+        for rec in recs:
+            for key, tol in (("depth", 1e-3 * 20.0), ("photometric_confidence", 1e-4)):
+                got = rec["out"][key]
+                assert torch.isfinite(got).all()
+                torch.testing.assert_close(got, one[key].cpu(), rtol=0, atol=tol)
+            assert rec["launches"] == want(name, kw, full), (name, rec["launches"], full)
+        assert sum(full.values()) > 0
+
+    name, kw = "adamvs", models["adamvs"]
+    flat = state_dict_to_tree(init_random_weights(build_model(name, **kw), seed=5))
+    path = tmp_path / "train.npz"
+    workers.save(path, flat, batch)
+    recs = spawn(workers.train_case, 2, str(path), name, kw, axes, {"pair_weight": 1.0},
+                 device="cuda", backend=backend)
+
+    def one_step(imgs):
+        model = load_jax_weights(build_model(name, **kw), flat).to(dev)
+        opt = make_optimizer(model.named_parameters(), 1e-3)
+        grads = {}
+        update = opt.step
+        opt.step = lambda g: grads.update({n: t.detach().cpu().clone()
+                                           for n, t in g.items()}) or update(g)
+        return make_train_step(model, opt, pair_weight=1.0)(dict(batch, imgs=imgs)), grads
+    logs, grads = one_step(batch["imgs"])
+    _, nudged = one_step(batch["imgs"] * np.float32(1 + 2.0 ** -22))
+    scale = max(float(g.abs().max()) for g in grads.values())
+
+    def worst(other):
+        return max(float((other[n] - g).abs().max()) / (float(g.abs().max()) + 1e-3 * scale)
+                   for n, g in grads.items())
+    allowed = max(1e-3, 3.0 * worst(nudged))
+    for rec in recs:
+        assert abs(rec["logs"]["total"] - logs["total"]) <= 1e-4 * abs(logs["total"])
+        assert worst(rec["grads"]) <= allowed, (worst(rec["grads"]), allowed)
+        for n, p in recs[0]["params"].items():
+            assert torch.equal(rec["params"][n], p), n
+
+
 def _refine_grid(n, seed):
     """An n x n vertex grid 10 m wide at z = 10 (plus 2 cm of noise), and
     three nadir views of a smooth texture on it that disagree a little."""

@@ -209,13 +209,42 @@ def test_trainer_fit_and_cli_resume_on_the_cpu(whu_root, tmp_path):  # noqa: F81
     assert all(np.isfinite(v) for v in metrics.values())
 
 
-def test_train_entry_points_refuse_dp():
-    from deep3d_aerial_tpu_torch.train.__main__ import build, parse_args
-    from deep3d_aerial_tpu_torch.train.trainer import Trainer, TrainerConfig
+def test_train_cli_dp_2_on_the_cpu_ends_with_the_one_process_parameters(
+        whu_root, tmp_path):  # noqa: F811
+    """`python -m deep3d_aerial_tpu_torch.train --dp 2 --device cpu` (two
+    gloo ranks it spawns itself, one sample of each global batch of 2 a
+    rank, with --augment) trains one epoch and ends with the parameters and
+    optimizer state of a one-process run on the same global batches, bit
+    for bit: each sample's forward and backward are the same computation
+    in both (one intra-op thread everywhere: the CLI's ranks share its 2),
+    the augmentation draws of the sample a rank skips are skipped
+    (dataset_whu batches(shard=)), and (g0 + g1) / 2 over two ranks equals
+    the one-process 0.5 g0 + 0.5 g1 exactly (halving is exact, a sum of
+    two terms commutes)."""
+    import os
+    import subprocess
+    import sys
 
-    with pytest.raises(NotImplementedError, match="A.10"):
-        build(parse_args(["--data_folder", "x", "--dp", "2", "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        Trainer(torch.nn.Linear(1, 1), TrainerConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tstep.make_train_step(torch.nn.Linear(1, 1), None, mesh=object())
+    from deep3d_aerial_tpu_torch.train import checkpoint as ckpt
+    from deep3d_aerial_tpu_torch.train.__main__ import main
+
+    common = ["--data_folder", str(whu_root), "--gt_format", "pfm", "--view_num", "3",
+              "--numdepth", "64", "--max_h", "64", "--max_w", "96", "--device", "cpu",
+              "--model", "casmvsnet", "--batch_size", "2", "--augment", "--epochs", "1"]
+    res = subprocess.run(
+        [sys.executable, "-m", "deep3d_aerial_tpu_torch.train", *common,
+         "--logdir", str(tmp_path / "dp"), "--dp", "2"],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.count("[train] epoch 0 step 0") == 1  # rank 0 alone prints
+    one, _ = main(common + ["--logdir", str(tmp_path / "one")])
+    dp = build_model("casmvsnet", num_depth=64)
+    opt = make_optimizer(dp.named_parameters(), LR)
+    ckpt.restore_checkpoint(ckpt.latest_checkpoint(str(tmp_path / "dp")), dp, opt)
+    assert opt.count == one.optimizer.count == 1
+    for n, p in one.model.named_parameters():
+        assert torch.equal(dict(dp.named_parameters())[n].detach(), p.detach()), n
+        assert torch.equal(opt.nu[n], one.optimizer.nu[n]), n
+    assert (tmp_path / "dp" / "train_record.txt").read_text() == \
+        (tmp_path / "one" / "train_record.txt").read_text()
