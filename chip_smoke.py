@@ -57,8 +57,20 @@ cudnn.deterministic, each rank's launches held to `sharded_launches`;
 step ([train:step]'s limits, parameters equal on every rank);
 `[multihost]` launch_local with 2 hosts on the 384x512 survey in three
 blocks against a one-host dense_match: maps and fused blocks byte-equal.
+`[widths]` (after `[shards:*]`; alone with `--phases widths`) runs the
+kernels at the channel counts of base widths other than 8: AdaMVS and
+MSREDNet forwards at base 16, 3 and 4 (float32 and bfloat16) count each
+kernel's launches by channel count (the wrappers' `launches_by_width`),
+each against its plain forward; CasMVSNet with norm 'batch' and 'layer'
+against plain; DeformConv2d and depth_from_normal on the card against the
+CPU; K1/K2/K2v at C 64, 12 and 4 (each also once in the compensated
+projection) and K3 at Cin 64 and 4 against their plain versions, K4 and
+K5 at MSREDNet base 16's cost
+widths; their rows join the kernels line (`<kernel>:C<n>`,
+`red_step2:Cin<n>`, `red_step4:base16`, `cf_conv3x3:base16`, per map of
+the forward that launches the width).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases widths]
 
 Needs a CUDA device and the repository around it; exits non-zero, printing
 no result, otherwise. Each `[phase]` line also goes to standard error. Any failed check raises. The last three lines of
@@ -104,6 +116,7 @@ over the max |grad|) and `train_launches_per_step` (per model trained).
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import re
@@ -940,6 +953,73 @@ def phase_kernels(dev, cam0, poses0, camF, posesF):
     return records, yard
 
 
+def conv_operands(rnd, ci, co, H, W, mode):
+    """A K5 conv's input, weight (conv OIHW or transposed [in, out, 3, 3]),
+    bias and packed weight, drawn from `rnd`."""
+    from deep3d_aerial_tpu_torch.ops.cf_conv import pack_weight
+
+    x = rnd(ci, H, W)
+    w = rnd(*((ci, co, 3, 3) if mode == "up" else (co, ci, 3, 3)), scale=(9 * ci) ** -0.5)
+    return x, w, rnd(co, scale=0.1), pack_weight(w, mode)
+
+
+def k5_per_map(rnd, channels, records, what):
+    """K5 per map of a MSREDNet whose stages give RedStep4 the cost widths
+    `channels`: the 15 convs of each stage's step, D_stage times each, each
+    shape held against its plain version once and then launched as often
+    as a map launches it (kernel, plain version, library call). Returns the
+    per-map numbers; max_abs_err also covers the `records` named
+    cf_conv3x3."""
+    from deep3d_aerial_tpu_torch.ops.cf_conv import cf_conv3x3, cf_conv3x3_plain
+
+    items, err, b_by, old_bound = [], 0.0, {}, 0.0
+    for stage, (C, D) in enumerate(zip(channels, NDEPTHS)):
+        H, W = H0 >> (2 - stage), W0 >> (2 - stage)
+        for _, ci, co, h, w, mode in red_step4_convs(C, H, W):
+            x, wt, b, pk = conv_operands(rnd, ci, co, h, w, mode)
+            k = cf_conv3x3(x, wt, b, mode=mode, relu=False, packed=pk)
+            err = max(err, float((k - cf_conv3x3_plain(
+                x, wt, b, mode=mode, relu=False)).abs().max()))
+            bms, by = bound_ms(*conv_work(ci, co, h, w, mode), PEAK_TF32X3)
+            b_by[by] = b_by.get(by, 0.0) + bms * D
+            old_bound += bound_ms(*conv_work(ci, co, h, w, mode))[0] * D
+            items.append((D, x, wt, b, pk, mode))
+    if not err <= TOL_CONV:
+        raise AssertionError(f"cf_conv3x3 at the step's shapes: max abs err "
+                             f"{err} > {TOL_CONV}")
+
+    def per_map(make):
+        calls = [(D, make(x, w, b, pk, mode)) for D, x, w, b, pk, mode in items]
+
+        def run():
+            for D, fn in calls:
+                for _ in range(D):
+                    fn()
+        return device_ms(run, 1)
+
+    k5 = {
+        "ms": per_map(lambda x, w, b, pk, m: lambda: cf_conv3x3(
+            x, w, b, mode=m, relu=False, packed=pk)),
+        "plain_ms": per_map(lambda x, w, b, pk, m: lambda: cf_conv3x3_plain(
+            x, w, b, mode=m, relu=False)),
+        "library_ms": per_map(lambda x, w, b, pk, m: cudnn_conv(x, w, b, m)),
+        "bound_ms": sum(b_by.values()), "bound_by": max(b_by, key=b_by.get),
+        "max_abs_err": max([err] + [r["max_abs_err"] for r in records
+                                    if r["name"] == "cf_conv3x3"]),
+    }
+    if k5["ms"] < k5["bound_ms"]:
+        raise AssertionError(f"cf_conv3x3 per map: {k5['ms']} ms is below its "
+                             f"{k5['bound_ms']} ms bound")
+    log(f"[kernel] cf_conv3x3 per {what} ({len(items) // len(NDEPTHS)} convs x "
+        f"{sum(NDEPTHS)} steps, {len(items)} shapes, max abs err {err:.3e}): "
+        f"device ms kernel {k5['ms']:.4f} plain {k5['plain_ms']:.4f} library "
+        f"{k5['library_ms']:.4f} bound {k5['bound_ms']:.4f} (fp32 CUDA cores: "
+        f"{old_bound:.4f}) ({k5['bound_by']}, "
+        f"{k5['bound_ms'] / k5['ms']:.1%} of it reached)")
+    del items
+    return k5
+
+
 def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
     """Each MSREDNet kernel against its plain version at the main path's
     shapes (+ 1856x2752 stage 3 for K2v and K4): K2v per stage, K5 in each
@@ -948,11 +1028,7 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
     its plain version once and then launched as often as a map launches it
     (kernel, plain version, library call). Returns (records, K5 per map)."""
     from deep3d_aerial_tpu_torch.models.cost_reg import RedStep4
-    from deep3d_aerial_tpu_torch.ops.cf_conv import (
-        cf_conv3x3,
-        cf_conv3x3_plain,
-        pack_weight,
-    )
+    from deep3d_aerial_tpu_torch.ops.cf_conv import cf_conv3x3, cf_conv3x3_plain
     from deep3d_aerial_tpu_torch.ops.red_step4 import red_step4, red_step4_plain
     from deep3d_aerial_tpu_torch.ops.sweep import sweep_var, sweep_var_plain
     from deep3d_aerial_tpu_torch.weights import init_random_weights
@@ -966,12 +1042,6 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
 
     def compare(*args, **kw):
         compare_kernel(records, *args, **kw)
-
-    def conv_operands(ci, co, H, W, mode):
-        x = rnd(ci, H, W)
-        w = rnd(*((ci, co, 3, 3) if mode == "up" else (co, ci, 3, 3)),
-                scale=(9 * ci) ** -0.5)
-        return x, w, rnd(co, scale=0.1), pack_weight(w, mode)
 
     def var_case(cam, poses, stage, H, W, C, per_map, iters, tag):
         rel = stage_rel(cam, poses, stage, dev)
@@ -1048,7 +1118,7 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
             ("upconv1 16->8", 16, 8, H0 // 2, W0 // 2, "up", NDEPTHS[2]),
             ("gates4 128->128", 128, 128, H0 // 8, W0 // 8, "same", NDEPTHS[2]),
             ("gates4 128->128", 128, 128, H0 // 32, W0 // 32, "same", NDEPTHS[0])):
-        x, w, b, pk = conv_operands(ci, co, H, W, mode)
+        x, w, b, pk = conv_operands(rnd, ci, co, H, W, mode)
         compare("cf_conv3x3", f"{mode} {name} from {H}x{W}",
                 lambda: cf_conv3x3(x, w, b, mode=mode, relu=False, packed=pk),
                 lambda: cf_conv3x3_plain(x, w, b, mode=mode, relu=False),
@@ -1064,52 +1134,7 @@ def phase_kernels_msrednet(dev, cam0, poses0, camF, posesF):
     red4_case(8, FULL_H, FULL_W, NDEPTHS[2], 2, tag)
     torch.cuda.empty_cache()
 
-    # K5 per map: the 15 convs of each stage's step, D_stage times each
-    items, err, b_by, old_bound = [], 0.0, {}, 0.0
-    for stage, (C, D) in enumerate(zip(MSRED_CHANNELS, NDEPTHS)):
-        H, W = H0 >> (2 - stage), W0 >> (2 - stage)
-        for _, ci, co, h, w, mode in red_step4_convs(C, H, W):
-            x, wt, b, pk = conv_operands(ci, co, h, w, mode)
-            k = cf_conv3x3(x, wt, b, mode=mode, relu=False, packed=pk)
-            err = max(err, float((k - cf_conv3x3_plain(
-                x, wt, b, mode=mode, relu=False)).abs().max()))
-            bms, by = bound_ms(*conv_work(ci, co, h, w, mode), PEAK_TF32X3)
-            b_by[by] = b_by.get(by, 0.0) + bms * D
-            old_bound += bound_ms(*conv_work(ci, co, h, w, mode))[0] * D
-            items.append((D, x, wt, b, pk, mode))
-    if not err <= TOL_CONV:
-        raise AssertionError(f"cf_conv3x3 at the step's shapes: max abs err "
-                             f"{err} > {TOL_CONV}")
-
-    def per_map(make):
-        calls = [(D, make(x, w, b, pk, mode)) for D, x, w, b, pk, mode in items]
-
-        def run():
-            for D, fn in calls:
-                for _ in range(D):
-                    fn()
-        return device_ms(run, 1)
-
-    k5 = {
-        "ms": per_map(lambda x, w, b, pk, m: lambda: cf_conv3x3(
-            x, w, b, mode=m, relu=False, packed=pk)),
-        "plain_ms": per_map(lambda x, w, b, pk, m: lambda: cf_conv3x3_plain(
-            x, w, b, mode=m, relu=False)),
-        "library_ms": per_map(lambda x, w, b, pk, m: cudnn_conv(x, w, b, m)),
-        "bound_ms": sum(b_by.values()), "bound_by": max(b_by, key=b_by.get),
-        "max_abs_err": max([err] + [r["max_abs_err"] for r in records
-                                    if r["name"] == "cf_conv3x3"]),
-    }
-    if k5["ms"] < k5["bound_ms"]:
-        raise AssertionError(f"cf_conv3x3 per map: {k5['ms']} ms is below its "
-                             f"{k5['bound_ms']} ms bound")
-    log(f"[kernel] cf_conv3x3 per MSREDNet 384x512 map ({len(items) // len(NDEPTHS)} convs x "
-        f"{sum(NDEPTHS)} steps, {len(items)} shapes, max abs err {err:.3e}): "
-        f"device ms kernel {k5['ms']:.4f} plain {k5['plain_ms']:.4f} library "
-        f"{k5['library_ms']:.4f} bound {k5['bound_ms']:.4f} (fp32 CUDA cores: "
-        f"{old_bound:.4f}) ({k5['bound_by']}, "
-        f"{k5['bound_ms'] / k5['ms']:.1%} of it reached)")
-    del items
+    k5 = k5_per_map(rnd, MSRED_CHANNELS, records, f"MSREDNet {H0}x{W0} map")
     torch.cuda.empty_cache()
     return records, k5
 
@@ -2242,9 +2267,16 @@ def compare_forwards(tag, mk, mp, inputs):
     through their plain versions (`mp`, same weights), per stage: depth
     within TOL_DEPTH_FRAC of the range, confidence within TOL_CONF.
     Returns both forwards' outputs."""
-    dmin, dmax = inputs[2:]
     with torch.no_grad():
         ok, op = mk(*inputs), mp(*inputs)
+    hold_forward(tag, ok, op, *inputs[2:])
+    return ok, op
+
+
+def hold_forward(tag, ok, op, dmin, dmax):
+    """A float32 forward's outputs through the kernels (`ok`) against the
+    plain forward's (`op`), per stage: depth within TOL_DEPTH_FRAC of the
+    range, confidence within TOL_CONF, every depth finite."""
     dtol = TOL_DEPTH_FRAC * (dmax - dmin)
     for s in ("stage1", "stage2", "stage3"):
         dd = float((ok[s]["depth"] - op[s]["depth"]).abs().max())
@@ -2255,7 +2287,6 @@ def compare_forwards(tag, mk, mp, inputs):
             f"{dtol:.3e}), confidence {dc:.3e} (tol {TOL_CONF:g})")
         if not (finite and dd <= dtol and dc <= TOL_CONF):
             raise AssertionError(f"{tag} {s}: depth {dd}, conf {dc}, finite {finite}")
-    return ok, op
 
 
 def phase_end_to_end(dev, cam0, poses0):
@@ -2427,6 +2458,21 @@ def phase_end_to_end_bf16(dev, cam0, poses0, model_type):
             m.load_state_dict(mk.state_dict())
             outs[name] = m(imgs, rel, dmin, dmax)
             del m
+    res = hold_bf16_forward(f"e2e:bf16:{model_type}", outs, dmin, dmax)
+    # where a bfloat16 forward's device time goes, by family
+    fams = {"sweep_pair": "K1", "sweep_cost": "K2", "sweep_var": "K2v", "red2_level": "K3",
+            "conv_mma": "K5 (in K4)", "gru_": "K4 GRU passes"}
+    fams.update({k: "cuDNN convs" for k in CONV_FAMILY})
+    profile_forward(mk, (imgs, rel, dmin, dmax), fams, f"profile:bf16:{model_type}")
+    return res
+
+
+def hold_bf16_forward(tag, outs, dmin, dmax):
+    """A bfloat16 forward's outputs through the kernels (`outs['kernel']`)
+    against the plain bfloat16 forward's (`outs['plain']`), per stage,
+    depth and confidence: within BF16_GAP_FACTOR x the plain bfloat16 vs
+    plain float32 (`outs['plain32']`) distance, or the float32 tolerances
+    where larger. Returns {stage: {key: (diff, gap)}}."""
     res = {}
     for s in ("stage1", "stage2", "stage3"):
         row = {}
@@ -2435,17 +2481,13 @@ def phase_end_to_end_bf16(dev, cam0, poses0, model_type):
             k, p, p32 = (outs[n][s][key].float() for n in ("kernel", "plain", "plain32"))
             diff, gap = float((k - p).abs().max()), float((p - p32).abs().max())
             tol = max(BF16_GAP_FACTOR * gap, floor)
+            finite = bool(torch.isfinite(k).all())
             row[key] = (diff, gap)
-            log(f"[e2e:bf16:{model_type}] {s} {key}: kernel vs plain bf16 max |diff| "
+            log(f"[{tag}] {s} {key}: kernel vs plain bf16 max |diff| "
                 f"{diff:.3e}; plain bf16 vs plain fp32 {gap:.3e}; tol {tol:.3e}")
-            if not diff <= tol:
-                raise AssertionError(f"bf16 end to end {model_type} {s} {key}: {diff} > {tol}")
+            if not (finite and diff <= tol):
+                raise AssertionError(f"{tag} {s} {key}: {diff} > {tol} (finite {finite})")
         res[s] = row
-    # where a bfloat16 forward's device time goes, by family
-    fams = {"sweep_pair": "K1", "sweep_cost": "K2", "sweep_var": "K2v", "red2_level": "K3",
-            "conv_mma": "K5 (in K4)", "gru_": "K4 GRU passes"}
-    fams.update({k: "cuDNN convs" for k in CONV_FAMILY})
-    profile_forward(mk, (imgs, rel, dmin, dmax), fams, f"profile:bf16:{model_type}")
     return res
 
 
@@ -3489,6 +3531,370 @@ def phase_shards(dev, cam0, poses0, model_type):
 
 
 # ---------------------------------------------------------------------------
+# every channel count: the widths a base width other than 8 gives the kernels
+# ---------------------------------------------------------------------------
+
+# (wrapper, C, stage): the sweeps at the new instances' widths (4 and 64)
+# and at one width of the runtime-C path (12), each at the stage of the
+# 384x512 point where a model reaches it: C = 4b at stage 1 (b = 16, 3),
+# C = b at stage 3 (b = 4). K1 takes C = 4b, and no model takes a base
+# below 2 (the JAX AdaMVS at base 1 raises in its initializer), so K1 at
+# C = 4 is checked and timed but launched by no forward: it has no row in
+# the kernels line.
+WIDTH_SWEEPS = (("sweep_corr", 64, 0), ("sweep_corr", 12, 0), ("sweep_corr", 4, 0),
+                ("sweep_cost", 64, 0), ("sweep_cost", 12, 0), ("sweep_cost", 4, 2),
+                ("sweep_var", 64, 0), ("sweep_var", 12, 0), ("sweep_var", 4, 2))
+# the base widths whose AdaMVS and MSREDNet forwards count those launches
+WIDTH_BASES = (16, 3, 4)
+# K3 at Cin 64 (AdaMVS base 16, stage 1: conv1 in two chunks of 32) and at
+# Cin 4 (base 4, stage 3: zero planes up to 8)
+WIDTH_RED2 = ((64, 0), (4, 2))
+# MSREDNet at base 16: K4 (base 8, as the JAX package builds it) and K5 at
+# the cost widths 64, 32, 16
+WIDTH_MSRED = (64, 32, 16)
+WIDTH_ITERS = 10
+# DeformConv2d and depth_from_normal, card against CPU: 1e-5 (relative for
+# depth_from_normal). Both are plain gathers and elementwise ops, but
+# DeformConv2d's offset, mask and 1x1 convs sum in another order in cuDNN
+# (run under cudnn.deterministic, no TF32) than on the CPU, and an offset's
+# rounding moves its bilinear taps along the image's gradient. So where
+# float32 itself is farther from exact than 1e-5 allows, the card is held
+# to CARD_CPU_GAP_FACTOR x the CPU's own float32 distance to the same
+# module in float64, measured in the same run (the rule of BF16_GAP_FACTOR)
+TOL_CARD_CPU = 1e-5
+CARD_CPU_GAP_FACTOR = 2.0
+
+
+def width_base(C, stage):
+    """The base width b whose model gives a kernel C channels at `stage`."""
+    return C // 4 if stage == 0 else C
+
+
+def phase_widths(dev, cam0, poses0):
+    """`[widths]`: the kernels at the channel counts of base widths other
+    than 8, and the modules no earlier phase runs. AdaMVS and MSREDNet
+    forwards at base 16, 3 and 4 (384x512, float32 and bfloat16), each
+    with its wrappers' counters set to 0 just before it and read just
+    after (per channel count, `launches_by_width`), each against its plain
+    forward (same weights; bfloat16 within BF16_GAP_FACTOR x the plain
+    bfloat16 vs float32 distance, as `[e2e:bf16:*]`); CasMVSNet with norm 'batch'
+    (non-trivial statistics) and 'layer', kernels against plain;
+    DeformConv2d and depth_from_normal on the card against the CPU; then
+    K1/K2/K2v at C 64, 12 and 4 (float32 and bfloat16, timed, then each
+    once in the compensated projection), K3 at Cin 64 and 4
+    (score entry and softmax fold), K4 and K5 at MSREDNet base 16's cost
+    widths, each against its plain version and timed. Returns the width
+    rows of the `kernels` line (per map of the forward that launches the
+    width)."""
+    from deep3d_aerial_tpu_torch.models import build_model
+    from deep3d_aerial_tpu_torch.models.blocks import BatchNorm, DeformConv2d
+    from deep3d_aerial_tpu_torch.models.cascade import OnlineSoftmaxState
+    from deep3d_aerial_tpu_torch.models.cost_reg import RedStep2, RedStep4
+    from deep3d_aerial_tpu_torch.ops import normals
+    from deep3d_aerial_tpu_torch.ops import sweep as sw
+    from deep3d_aerial_tpu_torch.ops.cf_conv import cf_conv3x3
+    from deep3d_aerial_tpu_torch.ops.red_step2 import red_step2, red_step2_plain
+    from deep3d_aerial_tpu_torch.ops.red_step4 import red_step4, red_step4_plain
+    from deep3d_aerial_tpu_torch.weights import init_random_weights
+
+    t0 = time.perf_counter()
+    wrappers = {"sweep_corr": sw.sweep_corr, "sweep_cost": sw.sweep_cost,
+                "sweep_var": sw.sweep_var, "red_step2": red_step2, "red_step4": red_step4}
+    paths = {"adamvs": ("sweep_corr", "sweep_cost", "red_step2"),
+             "msrednet": ("sweep_var", "red_step4")}
+    imgs, rel, dmin, dmax, ref_depth = sample(cam0, poses0, dev, ref=1)
+    inputs = (imgs, rel, dmin, dmax)
+
+    # the forwards: launches by channel count, each base and dtype
+    seen, k5_launches = {}, {}
+    for model_type, names in paths.items():
+        for b in WIDTH_BASES:
+            for dt in ("float32", "bfloat16"):
+                mk = init_random_weights(build_model(model_type, base_channels=b,
+                                                     dtype=getattr(torch, dt)),
+                                         seed=b).to(dev).eval()
+                for n in names:
+                    wrappers[n].launches = 0
+                    wrappers[n].launches_by_width.clear()
+                cf_conv3x3.launches = 0
+                with torch.no_grad():
+                    out = mk(*inputs)
+                torch.cuda.synchronize()
+                got = {n: dict(wrappers[n].launches_by_width) for n in names}
+                total = {n: wrappers[n].launches for n in names}
+                k5_launches[(model_type, b, dt)] = cf_conv3x3.launches
+                seen[(model_type, b, dt)] = got
+                log(f"[widths] {model_type} base {b} {dt} {H0}x{W0}: launches by "
+                    f"channel count " + json.dumps({n: {str(c): k for c, k in sorted(v.items())}
+                                                    for n, v in got.items()})
+                    + (f", cf_conv3x3 {cf_conv3x3.launches}" if model_type == "msrednet" else ""))
+                if any(total[n] <= 0 or sum(got[n].values()) != total[n] for n in names):
+                    raise AssertionError(f"widths {model_type} base {b} {dt}: launches "
+                                         f"{total}, by width {got}")
+                # the same forward through the plain versions (same weights)
+                outs = {"kernel": out}
+                with torch.no_grad():
+                    for pn, pdt in (("plain", dt), ("plain32", "float32")):
+                        if pn == "plain32" and dt == "float32":
+                            continue
+                        mp = build_model(model_type, base_channels=b, dtype=getattr(torch, pdt),
+                                         warp_impl="plain", red_impl="plain").to(dev).eval()
+                        mp.load_state_dict(mk.state_dict())
+                        outs[pn] = mp(*inputs)
+                        del mp
+                tag = f"widths:{model_type}:base{b}:{dt}"
+                if dt == "float32":
+                    hold_forward(tag, outs["kernel"], outs["plain"], dmin, dmax)
+                else:
+                    hold_bf16_forward(tag, outs, dmin, dmax)
+                del mk, out, outs
+    log(f"[widths] forwards {time.perf_counter() - t0:.1f} s")
+
+    # CasMVSNet with the 'batch' and 'layer' norms, K2v against plain
+    for norm in ("batch", "layer"):
+        mk = init_random_weights(build_model("casmvsnet", norm=norm), seed=3)
+        gen = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for m in mk.modules():
+                if isinstance(m, BatchNorm):
+                    m.mean.copy_(torch.randn(m.mean.shape, generator=gen) * 0.3)
+                    m.var.copy_(torch.rand(m.var.shape, generator=gen) * 1.5 + 0.5)
+        mk = mk.to(dev).eval()
+        mp = build_model("casmvsnet", norm=norm, warp_impl="plain").to(dev).eval()
+        mp.load_state_dict(mk.state_dict())
+        sw.sweep_var.launches = 0
+        check_volume_forwards(f"widths:casmvsnet:{norm}", "casmvsnet", mk, mp, inputs)
+        log(f"[widths] casmvsnet norm '{norm}': {sw.sweep_var.launches} sweep_var launches")
+        if sw.sweep_var.launches <= 0:
+            raise AssertionError(f"casmvsnet norm {norm}: no sweep_var launch")
+        del mk, mp
+
+    # DeformConv2d and depth_from_normal, the card against the CPU
+    x = imgs[0].permute(2, 0, 1)[None].float().cpu()
+    dc = init_random_weights(DeformConv2d(3, 8), seed=5)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for conv in (dc.p_conv, dc.m_conv):
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * 0.3)
+        off = dc.p_conv(x)
+        want = dc(x)
+        want64 = copy.deepcopy(dc).double()(x.double())
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            got = dc.to(dev)(x.to(dev)).cpu()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+    err = float((got - want).abs().max())
+    gap = float((want.double() - want64).abs().max())
+    err64 = float((got.double() - want64).abs().max())
+    tol = max(TOL_CARD_CPU, CARD_CPU_GAP_FACTOR * gap)
+    log(f"[widths] DeformConv2d 3->8 at {H0}x{W0}, offsets up to "
+        f"{float(off.abs().max()):.2f} px, largest |value| {float(want.abs().max()):.3f}: "
+        f"card vs CPU max |diff| {err:.3e} (tol {tol:.3e}); against float64 on the CPU: "
+        f"card {err64:.3e}, CPU float32 {gap:.3e}")
+    if not (err <= tol and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"DeformConv2d card vs CPU {err} > {tol}")
+    cam = cam0
+    K = torch.tensor(cam.K, dtype=torch.float32)
+    depth = ref_depth.float().cpu()
+    normal = normals.normals_from_depth(depth, torch.linalg.inv(K))
+    gray = imgs[0].mean(-1).float().cpu()
+    want = normals.depth_from_normal(depth, normal, K, gray)
+    got = normals.depth_from_normal(depth.to(dev), normal.to(dev), K.to(dev),
+                                    gray.to(dev)).cpu()
+    wgot = normals.depth_gradient_weights(gray.to(dev)).cpu()
+    werr = float((wgot - normals.depth_gradient_weights(gray)).abs().max())
+    rel_err = float(((got - want).abs() / want.abs()).max())
+    log(f"[widths] depth_from_normal at {H0}x{W0}: card vs CPU max relative "
+        f"diff {rel_err:.3e}, edge weights max |diff| {werr:.3e} (tol {TOL_CARD_CPU:g})")
+    if not (rel_err <= TOL_CARD_CPU and werr <= TOL_CARD_CPU):
+        raise AssertionError(f"depth_from_normal card vs CPU {rel_err}, weights {werr}")
+    log(f"[widths] modules {time.perf_counter() - t0:.1f} s")
+
+    # the kernels at the new widths, against their plain versions
+    g = torch.Generator(device=dev).manual_seed(13)
+    records = []
+    V1 = VIEWS - 1
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    plains = {"sweep_corr": sw.sweep_corr_plain, "sweep_cost": sw.sweep_cost_plain,
+              "sweep_var": sw.sweep_var_plain}
+    works = {"sweep_corr": sweep_corr_work, "sweep_cost": sweep_cost_work,
+             "sweep_var": sweep_var_work}
+    for name, C, stage in WIDTH_SWEEPS:
+        H, W = H0 >> (2 - stage), W0 >> (2 - stage)
+        rel_s = stage_rel(cam0, poses0, stage, dev)
+        K = NDEPTHS[0] if name == "sweep_corr" else CHUNK
+        d = stage_planes(cam0, poses0, stage, H, W, dev, n=K)
+        wts = torch.rand((V1, H, W), generator=g, device=dev) * 0.9 + 0.1
+        extra = (wts,) if name == "sweep_cost" else ()
+        model = "msrednet" if name == "sweep_var" else "adamvs"
+        b = width_base(C, stage)
+        for dt in (torch.float32, torch.bfloat16):
+            bf = dt == torch.bfloat16
+            ref, srcs = rnd(H, W, C).to(dt), rnd(V1, H, W, C).to(dt)
+            kern, plain = wrappers[name], plains[name]
+            per_map = seen.get((model, b, "bfloat16" if bf else "float32"),
+                               {}).get(name, {}).get(C, 0)
+            compare_kernel(
+                records, f"{name}:C{C}" + (":bf16" if bf else ""),
+                f"stage{stage + 1} {H}x{W} C{C} V{V1} K{K}",
+                lambda: kern(ref, srcs, rel_s, d, *extra),
+                lambda: plain(ref, srcs, rel_s, d, *extra), TOL_SWEEP,
+                works[name](V1, K, H, W, C, fb=2 if bf else 4), per_map, WIDTH_ITERS,
+                ulps=TOL_BF16_ULPS_SWEEP if bf else None)
+            records[-1].update(model=model, base=b, stage=stage, C=C)
+            # the compensated projection at the same width, checked once
+            nc = kern.launches_compensated
+            with torch.no_grad():
+                got = kern(ref, srcs, rel_s, d, *extra, compensated=True)
+                want = plain(ref, srcs, rel_s, d, *extra, compensated=True)
+            err = float((got.float() - want.float()).abs().max())
+            n_ulps = bf16_ulps((got,), (want,)) if bf else None
+            finite = bool(torch.isfinite(got).all())
+            log(f"[widths] {name}:C{C}{':bf16' if bf else ''} compensated: kernel vs plain "
+                f"max |diff| {err:.3e} (" + (f"{n_ulps:.2f} bf16 ulps, tol "
+                                             f"{TOL_BF16_ULPS_SWEEP})" if bf else
+                                             f"tol {TOL_SWEEP:g})"))
+            ok = n_ulps <= TOL_BF16_ULPS_SWEEP if bf else err <= TOL_SWEEP
+            if not (finite and ok and kern.launches_compensated == nc + 1):
+                raise AssertionError(f"{name} C{C} {dt} compensated: {err} ({n_ulps} ulps), "
+                                     f"finite {finite}, launches "
+                                     f"{kern.launches_compensated - nc}")
+            del got, want
+    log(f"[widths] sweeps {time.perf_counter() - t0:.1f} s")
+
+    for C, stage in WIDTH_RED2:
+        H, W, up = H0 >> (2 - stage), W0 >> (2 - stage), stage < 2
+        b = width_base(C, stage)
+        mod = init_random_weights(RedStep2(C, up=up), seed=C).to(dev)
+        params, packed = dict(mod.named_parameters()), mod._packed_params()
+        cost, s1 = rnd(C, H, W), rnd(8, H, W, scale=0.5)
+        s2 = rnd(16, (H + 1) // 2, (W + 1) // 2, scale=0.5)
+        n_w = sum(p.numel() for p in params.values())
+        shape = (2 * H, 2 * W) if up else (H, W)
+        costs = [rnd(C, H, W) for _ in range(3)]
+        dvs = [torch.full(shape, 100.0 + k, device=dev) for k in range(3)]
+
+        def planes(fold, osm):
+            a, c = s1, s2
+            for cst, dv in zip(costs, dvs):
+                if fold:
+                    _, a, c = red_step2(params, cst, a, c, up=up, packed=packed, osm=osm, dv=dv)
+                else:
+                    sc, a, c = red_step2_plain(params, cst, a, c, up=up)
+                    osm = OnlineSoftmaxState.update(osm, sc, dv)
+            return osm, a, c
+
+        def checked(fold):
+            (m, s, acc, pmax), a, c = planes(fold, OnlineSoftmaxState.init(shape, device=dev))
+            return m, s, acc / 102.0, pmax, a, c  # acc sums e * depth
+
+        osm_t = OnlineSoftmaxState.init(shape, device=dev)
+        tag = f"stage{stage + 1} {H}x{W} Cin{C}" + (" up" if up else "")
+        per_map = seen[("adamvs", b, "float32")]["red_step2"].get(C, 0)
+        with torch.no_grad():
+            compare_kernel(records, f"red_step2:Cin{C}", tag + " score entry",
+                           lambda: red_step2(params, cost, s1, s2, up=up, packed=packed),
+                           lambda: red_step2_plain(params, cost, s1, s2, up=up),
+                           TOL_RED, red_step2_work(C, H, W, up, n_w), 0, WIDTH_ITERS,
+                           conv=True)
+            compare_kernel(records, f"red_step2:Cin{C}", tag + " softmax fold",
+                           lambda: checked(True), lambda: checked(False), TOL_RED,
+                           red_step2_work(C, H, W, up, n_w, fold=True), per_map,
+                           WIDTH_ITERS, n_calls=3, conv=True,
+                           time_fns=(lambda: planes(True, osm_t), lambda: planes(False, osm_t)))
+        records[-1].update(model="adamvs", base=b, stage=stage, C=C)
+
+    msred = seen[("msrednet", 16, "float32")]["red_step4"]
+    for stage, C in enumerate(WIDTH_MSRED):
+        H, W = H0 >> (2 - stage), W0 >> (2 - stage)
+        mod = init_random_weights(RedStep4(C), seed=C).to(dev)
+        params, packed = dict(mod.named_parameters()), mod._packed.get(mod)
+        costs = [rnd(C, H, W) for _ in range(3)]
+        s0 = [rnd(c, H >> l, W >> l, scale=0.5) for l, c in enumerate((8, 16, 32, 64))]
+        n_w = sum(p.numel() for p in params.values())
+
+        def chain(step):
+            states = s0
+            for cst in costs:
+                score, *states = step(cst, *states)
+            return (score, *states)
+
+        with torch.no_grad():
+            compare_kernel(records, "red_step4:base16",
+                           f"stage{stage + 1} {H}x{W} Cin{C} 3 planes",
+                           lambda: chain(lambda *a: red_step4(params, *a, packed=packed)),
+                           lambda: chain(lambda *a: red_step4_plain(params, *a)),
+                           TOL_RED4, red_step4_work(C, H, W, n_w), msred.get(C, 0), 5,
+                           n_calls=3, conv=True)
+    k5 = k5_per_map(rnd, WIDTH_MSRED, [],
+                    f"MSREDNet(base_channels=16) {H0}x{W0} map (Cin {WIDTH_MSRED})")
+    torch.cuda.empty_cache()
+    log(f"[widths] kernels {time.perf_counter() - t0:.1f} s")
+
+    # the rows: per map of the forward that launches each width
+    src = {"sweep_corr": ("sweep.cu", "pallas_sweep.py:235"),
+           "sweep_cost": ("sweep.cu", "pallas_sweep.py:520"),
+           "sweep_var": ("sweep.cu", "pallas_sweep.py:520"),
+           "red_step2": ("red_step2.cu", "pallas_red.py:250"),
+           "red_step4": ("red_step4.cu", "pallas_red4.py:138")}
+    names = {"adamvs": "AdaMVS", "msrednet": "MSREDNet"}
+    kernels = []
+    for row in dict.fromkeys(r["name"] for r in records):
+        rs = [r for r in records if r["name"] == row]
+        main = [r for r in rs if r["per_map"]]
+        kernel = row.split(":")[0]
+        bf = row.endswith(":bf16")
+        if not main:
+            log(f"[widths] {row}: no forward launches it (no row in the kernels line)")
+            continue
+        if kernel == "red_step4":
+            launches, path = sum(msred.values()), (f"MSREDNet(base_channels=16) {H0}x{W0} "
+                                                   f"map, Cin {WIDTH_MSRED}")
+        else:
+            r0 = main[0]
+            C = r0["C"]
+            launches = seen[(r0["model"], r0["base"], "bfloat16" if bf else "float32")][
+                kernel].get(C, 0)
+            path = (f"{names[r0['model']]}(base_channels={r0['base']}) {H0}x{W0} "
+                    f"{'bf16 ' if bf else ''}map, C{C} at stage {r0['stage'] + 1}")
+        kernels.append({
+            "name": row, "route": "cuda",
+            "source": f"deep3d_aerial_tpu_torch/csrc/{src[kernel][0]}",
+            "replaces": f"deep3d_aerial_tpu/ops/{src[kernel][1]}",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": sum(r["ms"] * r["per_map"] for r in main),
+            "plain_ms": sum(r["plain_ms"] * r["per_map"] for r in main),
+            "bound_ms": sum(r["bound_ms"] * r["per_map"] for r in main),
+            "bound_by": max(main, key=lambda r: r["bound_ms"] * r["per_map"])["bound_by"],
+            "library_ms": None, "per_map_of": path,
+        })
+        if bf:
+            kernels[-1]["max_ulps"] = max(r["ulps"] for r in rs)
+    kernels.append({
+        "name": "cf_conv3x3:base16", "route": "cuda",
+        "source": "deep3d_aerial_tpu_torch/csrc/red_step4.cu",
+        "replaces": "deep3d_aerial_tpu/ops/pallas_cf_conv.py:150",
+        "launches": k5_launches[("msrednet", 16, "float32")],
+        "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": k5["library_ms"],
+        "per_map_of": f"MSREDNet(base_channels=16) {H0}x{W0} map (inside red_step4, "
+                      f"{RED4_CONVS} per step; gru1 at ci = Cin + 8)",
+    })
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']}: no launch on its forward")
+    log(f"[phase] widths {time.perf_counter() - t0:.1f} s")
+    return kernels
+
+
+# ---------------------------------------------------------------------------
 # multi-card: dp x sp (parallel/) and the multi-host driver
 # ---------------------------------------------------------------------------
 
@@ -3838,7 +4244,14 @@ def phase_multihost(dev, cam0, poses0, smi):
                       for r in recs]) + f"; launch_local {wall:.1f} s")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="The port's kernels and phases on one CUDA card.")
+    ap.add_argument("--phases", default="all", choices=("all", "widths"),
+                    help="'all' (the default): every phase; 'widths': the kernel "
+                         "builds and [widths] alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3882,6 +4295,8 @@ def main() -> int:
 
     cam0, poses0 = survey(W0, H0)
     camF, posesF = survey(FULL_W, FULL_H)
+    if args.phases == "widths":
+        return report(phase_widths(dev, cam0, poses0), smi)
     # AdaMVS: K1, K2, K3
     t = time.perf_counter()
     records, red2_yard = phase_kernels(dev, cam0, poses0, camF, posesF)
@@ -3967,6 +4382,8 @@ def main() -> int:
         t = time.perf_counter()
         phase_shards(dev, cam0, poses0, model_type)
         log(f"[phase] shards:{model_type} {time.perf_counter() - t:.1f} s")
+    # every channel count: the kernels at base widths other than 8
+    width_kernels = phase_widths(dev, cam0, poses0)
 
     # multi-card: dp x sp and the multi-host driver
     t = time.perf_counter()
@@ -4056,7 +4473,13 @@ def main() -> int:
                     "own Function at one conv shape",
         "train_launches_per_step": {"msrednet": train["msrednet"]["launches"]["cf_conv3x3"]},
     })
-    kernels += bf16_kernels + comp_kernels
+    kernels += bf16_kernels + comp_kernels + width_kernels
+    return report(kernels, smi)
+
+
+def report(kernels, smi) -> int:
+    """The last three lines of standard output: the kernels line, the
+    card's name and power limit, the result line."""
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

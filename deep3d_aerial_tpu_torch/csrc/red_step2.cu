@@ -68,6 +68,17 @@
 //     give every warp an item.
 //   - Channel planes in shared memory are padded to 8 mod 32 words, so the
 //     4 channels of an A fragment land 8 banks apart.
+//   - Any cost width Cin: the cost's channels are staged as planes of 8
+//     (a Cin that is not a multiple of 8 gets zero planes up to the next
+//     one, and pack_params zero weights for them: pack_frags pads). Up to
+//     32 channels L1 stages the whole cost once; above 32 (AdaMVS at a base
+//     width above 8: Cin = 4b, 2b, b) its Chunked instance stages the cost
+//     32 channels at a time into the same planes and runs conv1's k-steps
+//     over each chunk, adding each chunk's sums into x1 before the bias and
+//     ReLU of the last; the weights of every chunk stay resident. Up to 32
+//     channels the single-pass instance runs (no slower than the kernel
+//     before the chunks at Cin 8, 16, 32, paired on an H100:
+//     scripts/red_step2_probe.py --parent).
 // No float atomics; every sum runs in an order fixed by the layer shapes
 // and the device's SM count (chunk, then tap, then the fragment's K), so a
 // plane gives the same bits from run to run.
@@ -92,6 +103,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "bf16.cuh"
 #include "tf32_mma.cuh"
@@ -101,8 +115,9 @@ namespace {
 constexpr int kFrag = 128;           // floats of one packed (chunk, tap, n8) fragment
 constexpr int kFragB = 64;           // words of one bfloat16 (chunk of 16, tap, n8) fragment
 constexpr int kSmemMax = 232448;     // bytes of shared memory a block may use
-constexpr int kUnsupported = 10000;  // cost channel count without an instance
 constexpr int kBadArgs = 10001;
+// cost channels L1 stages at once: above this, conv1 runs in chunks
+constexpr int kCostChunk = 32;
 // threads a block: 16 warps for the two GRU levels (one block an SM, held
 // there by its registers and shared memory) unless 8-warp blocks, two to
 // an SM, take all the tiles in one wave; 8 for the decoder, whose smaller
@@ -112,7 +127,8 @@ constexpr int kDecThreads = 256;
 
 // Packed weights (ops/red_step2.py:pack_params), three sections, each
 // layer as its fragments then its bias (padded to 8):
-//   L1: conv1 [Cin -> 8], gates1 [16 -> 16], cand1 [16 -> 8]
+//   L1: conv1 [Cin8 -> 8] (Cin8: Cin rounded up to a multiple of 8),
+//       gates1 [16 -> 16], cand1 [16 -> 8]
 //   L2: conv2 [8 -> 16], gates2 [32 -> 32], cand2 [32 -> 16]
 //   L3: upconv1 [16 -> 8], then the score conv [8][3][3] and its bias
 //       (padded to 8), read on the CUDA cores
@@ -121,9 +137,15 @@ constexpr int kDecThreads = 256;
 __host__ __device__ constexpr int frag_floats(int ci, int co, bool b16) {
   return b16 ? (ci + 15) / 16 * 16 * co * 9 / 2 : ci * co * 18;
 }
+__host__ __device__ constexpr int pad8(int cin) { return (cin + 7) / 8 * 8; }
 __host__ __device__ constexpr int w1_floats(int cin, bool b16) {
-  return frag_floats(cin, 8, b16) + 8 + frag_floats(16, 16, b16) + 16 +
+  return frag_floats(pad8(cin), 8, b16) + 8 + frag_floats(16, 16, b16) + 16 +
          frag_floats(16, 8, b16) + 8;
+}
+// L1's cost planes: the whole (padded) cost up to kCostChunk channels, one
+// chunk above; at least 16, since they take r*h1 and u1 after conv1
+__host__ __device__ constexpr int cost_planes(int cin) {
+  return pad8(cin) > kCostChunk ? kCostChunk : pad8(cin) > 16 ? pad8(cin) : 16;
 }
 __host__ __device__ constexpr int w2_floats(bool b16) {
   return frag_floats(8, 16, b16) + 16 + frag_floats(32, 32, b16) + 32 +
@@ -162,7 +184,7 @@ constexpr int kSlotsG = slots((16 / 2 + 3) * (32 / 2 + 3));         // L3 s2' wi
 
 // shared-memory floats of each level at a tile size
 __host__ __device__ constexpr int l1_floats(int th, int tw, int cin, bool b16) {
-  return w1_floats(cin, b16) + ((cin > 16 ? cin : 16) + 16) * plane((th + 6) * (tw + 6));
+  return w1_floats(cin, b16) + (cost_planes(cin) + 16) * plane((th + 6) * (tw + 6));
 }
 __host__ __device__ constexpr int l2_floats(int th, int tw, bool b16) {
   return w2_floats(b16) + 32 * plane((th + 4) * (tw + 4)) +
@@ -176,6 +198,7 @@ __host__ __device__ constexpr int l3_floats(int th, int tw, bool b16) {
 }
 static_assert(l1_floats(16, 32, 32, false) * 4 <= kSmemMax, "L1 tile too large at Cin 32");
 static_assert(l1_floats(32, 32, 16, false) * 4 <= kSmemMax, "L1 tile too large at Cin 16");
+static_assert(l1_floats(16, 32, 64, false) * 4 <= kSmemMax, "L1 tile too large at Cin 64");
 static_assert(l2_floats(16, 16, false) * 4 <= kSmemMax, "L2 tile too large");
 
 // (the tensors' pointers carry bfloat16 bits in the bfloat16 mode, all but
@@ -221,12 +244,13 @@ __device__ __forceinline__ void load_weights(float* dst, const float* src, int n
 
 // Channels [0, nch) of a [nch, H, W] tensor, window rows [y0, y0 + R) x
 // columns [x0, x0 + C), into planes of `cs` floats (row pitch C); zeros
-// outside the image. Each thread's window positions are worked out once.
-// B16: the tensor is bfloat16, upcast with plain loads (cp.async copies 4
-// bytes at least).
+// outside the image, and in planes [nch, npl) (a width padded to 8). Each
+// thread's window positions are worked out once. B16: the tensor is
+// bfloat16, upcast with plain loads (cp.async copies 4 bytes at least).
 template <int S, bool B16>
 __device__ __forceinline__ void load_window(float* dst, int cs, const float* src, int H, int W,
-                                            int nch, int y0, int x0, int R, int C) {
+                                            int nch, int y0, int x0, int R, int C,
+                                            int npl = 0) {
   const long long HW = (long long)H * W;
   int spos[S], goff[S];
 #pragma unroll
@@ -237,6 +261,11 @@ __device__ __forceinline__ void load_window(float* dst, int cs, const float* src
     spos[k] = idx < R * C ? idx : -1;
     goff[k] = iy >= 0 && iy < H && ix >= 0 && ix < W ? iy * W + ix : -1;
   }
+#pragma unroll 1
+  for (int ch = nch; ch < npl; ++ch)
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      if (spos[k] >= 0) dst[ch * cs + spos[k]] = 0.f;
   if constexpr (B16) {
     const bf16_t* sb = reinterpret_cast<const bf16_t*>(src);
 #pragma unroll 1
@@ -429,22 +458,24 @@ struct Ring {
 };
 
 // L1: x1, the gates and the candidate of the full-res GRU over a tile of
-// s1'. Frame: the tile + a 3-px ring, origin (y0 - 3, x0 - 3).
-template <bool B16>
+// s1'. Frame: the tile + a 3-px ring, origin (y0 - 3, x0 - 3). Chunked
+// (a cost of more than kCostChunk channels): conv1 over the cost's chunks.
+template <bool B16, bool Chunked>
 __global__ void __launch_bounds__(kGruThreads) red2_level1_kernel(const __grid_constant__ Step p,
                                                                   const Tiling t) {
   extern __shared__ __align__(16) float smem[];
-  const int Cin = p.Cin;
+  const int Cin = p.Cin, C8 = pad8(Cin);
   const int nw = w1_floats(Cin, B16);
   const int FR = t.th + 6, FC = t.tw + 6, CS = plane(FR * FC);
+  const long long HW = (long long)p.H * p.W;
   float* wts = smem;
-  float* cst = smem + nw;                    // cost; then r*h1 | u1
-  float* x1 = cst + (Cin > 16 ? Cin : 16) * CS;
+  float* cst = smem + nw;                    // cost (a chunk of it); then r*h1 | u1
+  float* x1 = cst + cost_planes(Cin) * CS;
   float* h1 = x1 + 8 * CS;
   float* rh = cst;
   float* u1 = cst + 8 * CS;
   const float* wc = wts;
-  const float* bc = wc + frag_floats(Cin, 8, B16);
+  const float* bc = wc + frag_floats(C8, 8, B16);
   const float* wg = bc + 8;
   const float* bg = wg + frag_floats(16, 16, B16);
   const float* wd = bg + 16;
@@ -460,20 +491,51 @@ __global__ void __launch_bounds__(kGruThreads) red2_level1_kernel(const __grid_c
   for (int tile = blockIdx.x; tile < t.ntiles; tile += gridDim.x) {
     const int fy = (tile / t.tiles_x) * t.th - 3, fx = (tile % t.tiles_x) * t.tw - 3;
     const Ring r1(FR, FC, 1, fy, fx), r2(FR, FC, 2, fy, fx), r3(FR, FC, 3, fy, fx);
-    load_window<kSlots1, B16>(cst, CS, p.cost, p.H, p.W, Cin, fy, fx, FR, FC);
-    load_window<kSlots1, B16>(h1, CS, p.s1, p.H, p.W, 8, fy, fx, FR, FC);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
     // x1 = relu(conv1(cost) + b) over the 2-px ring (0 outside the image:
     // the GRU convs pad x1 with zeros)
-    conv_mma<B16>(r1.frags(), 1, Cin / 8, CS, wc, [&](int q) { return r1.loc(q); }, tap,
-             [&](int k) { return cst + k * 8 * CS; },
-             [&](const Loc& l, int co, float v) {
-               const bool in = l.y >= 0 && l.y < p.H && l.x >= 0 && l.x < p.W;
-               x1[co * CS + l.o] = in ? fmaxf(v + bc[co], 0.f) : 0.f;
-             });
+    if constexpr (!Chunked) {
+      load_window<kSlots1, B16>(cst, CS, p.cost, p.H, p.W, Cin, fy, fx, FR, FC, C8);
+      load_window<kSlots1, B16>(h1, CS, p.s1, p.H, p.W, 8, fy, fx, FR, FC);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      conv_mma<B16>(r1.frags(), 1, C8 / 8, CS, wc, [&](int q) { return r1.loc(q); }, tap,
+               [&](int k) { return cst + k * 8 * CS; },
+               [&](const Loc& l, int co, float v) {
+                 const bool in = l.y >= 0 && l.y < p.H && l.x >= 0 && l.x < p.W;
+                 x1[co * CS + l.o] = in ? fmaxf(v + bc[co], 0.f) : 0.f;
+               });
+    } else {
+      // the cost's chunks of kCostChunk channels, each chunk's sums into
+      // x1, the bias and ReLU after the last
+      load_window<kSlots1, B16>(h1, CS, p.s1, p.H, p.W, 8, fy, fx, FR, FC);
+#pragma unroll 1
+      for (int c0 = 0; c0 < C8; c0 += kCostChunk) {
+        const int npl = min(kCostChunk, C8 - c0);
+        const bool last = c0 + kCostChunk >= C8;
+        if (c0 > 0) __syncthreads();  // the previous chunk's planes are read
+        const float* src = B16 ? reinterpret_cast<const float*>(
+                                     reinterpret_cast<const bf16_t*>(p.cost) + c0 * HW)
+                               : p.cost + c0 * HW;
+        load_window<kSlots1, B16>(cst, CS, src, p.H, p.W, min(npl, Cin - c0), fy, fx, FR,
+                                  FC, npl);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        conv_mma<B16>(r1.frags(), 1, npl / 8, CS, wc + frag_floats(c0, 8, B16),
+                 [&](int q) { return r1.loc(q); }, tap, [&](int k) { return cst + k * 8 * CS; },
+                 [&](const Loc& l, int co, float v) {
+                   float& o = x1[co * CS + l.o];
+                   const float sum = c0 == 0 ? v : o + v;
+                   if (!last) {
+                     o = sum;
+                     return;
+                   }
+                   const bool in = l.y >= 0 && l.y < p.H && l.x >= 0 && l.x < p.W;
+                   o = in ? fmaxf(sum + bc[co], 0.f) : 0.f;
+                 });
+      }
+    }
     __syncthreads();
 
     // gates over the 1-px ring: r*h1 (0 outside the image, where h1 is 0)
@@ -733,26 +795,24 @@ inline int same_pad_lo(int n) {
 
 using Kernel = void (*)(Step, Tiling);
 
-// Blocks of a level one SM holds at once at a tile size, read once per
-// device (the kernels' dynamic shared-memory limit is raised first).
-int resident(Kernel k, int level, int b16, int threads, int opt, int cin, int bytes) {
-  static int cached[64][2][3][2][kMaxOpts][3] = {};
-  static bool raised[64][2][3] = {};
+// Blocks of a kernel one SM holds at once with `threads` threads and
+// `bytes` of dynamic shared memory, asked once per device, kernel and shape
+// (the kernel's dynamic shared-memory limit is raised first).
+int resident(Kernel k, int threads, int bytes) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, std::uintptr_t, int, int>, int> cached;
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
-  int& n = cached[dev][b16][level][threads == kDecThreads][opt][cin == 8 ? 0 : cin == 16 ? 1 : 2];
-  if (n == 0) {
-    if (!raised[dev][b16][level]) {
-      if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax) !=
-          cudaSuccess)
-        return 1;
-      raised[dev][b16][level] = true;
-    }
-    int got = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got, k, threads, bytes);
-    n = got > 0 ? got : 1;
-  }
-  return n;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  const auto key = std::make_tuple(dev, reinterpret_cast<std::uintptr_t>(k), threads, bytes);
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto it = cached.find(key);
+  if (it != cached.end()) return it->second;
+  if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax) !=
+      cudaSuccess)
+    return 1;
+  int got = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got, k, threads, bytes);
+  return cached[key] = got > 0 ? got : 1;
 }
 
 // Per level, whether a tiling's last wave of blocks must be at least half
@@ -766,8 +826,8 @@ constexpr bool kFullWaves[3] = {true, false, false};
 // of blocks at least half full), else the smallest; persistent blocks of
 // `threads`, or of kDecThreads where only those take every tile at once.
 template <class Bytes>
-cudaError_t launch(Kernel k, int level, int b16, int threads, const TileOpts& opts, int h,
-                   int w, int cin, Bytes bytes, const Step& p, cudaStream_t s) {
+cudaError_t launch(Kernel k, int level, int threads, const TileOpts& opts, int h, int w,
+                   Bytes bytes, const Step& p, cudaStream_t s) {
   const int sms = sm_count() > 0 ? sm_count() : 132;
   int opt = 0;
   Tiling t{};
@@ -778,8 +838,7 @@ cudaError_t launch(Kernel k, int level, int b16, int threads, const TileOpts& op
     if (bytes(t.th, t.tw) * (int)sizeof(float) > kSmemMax) continue;
     t.tiles_x = (w + t.tw - 1) / t.tw;
     t.ntiles = ((h + t.th - 1) / t.th) * t.tiles_x;
-    cap = (long long)sms *
-          resident(k, level, b16, threads, opt, cin, bytes(t.th, t.tw) * (int)sizeof(float));
+    cap = (long long)sms * resident(k, threads, bytes(t.th, t.tw) * (int)sizeof(float));
     const long long last = t.ntiles % cap;
     if ((t.ntiles >= sms && (!kFullWaves[level] || last == 0 || 2 * last >= cap)) ||
         opt == opts.n - 1)
@@ -787,8 +846,7 @@ cudaError_t launch(Kernel k, int level, int b16, int threads, const TileOpts& op
   }
   const int nbytes = bytes(t.th, t.tw) * (int)sizeof(float);
   if (threads != kDecThreads && t.ntiles > cap) {
-    const long long half =
-        (long long)sms * resident(k, level, b16, kDecThreads, opt, cin, nbytes);
+    const long long half = (long long)sms * resident(k, kDecThreads, nbytes);
     if (t.ntiles <= half) {
       threads = kDecThreads;
       cap = half;
@@ -808,7 +866,6 @@ cudaError_t launch(Kernel k, int level, int b16, int threads, const TileOpts& op
 }  // namespace
 
 extern "C" const char* error_string(int code) {
-  if (code == kUnsupported) return "unsupported cost channel count (take 8, 16 or 32)";
   if (code == kBadArgs) return "bad arguments (sizes, or neither a score nor a softmax state)";
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -826,8 +883,7 @@ template <bool B16>
 int step(const float* cost, int Cin, const float* s1, const float* s2, const float* w,
          float* s1_out, float* s2_out, float* s1f, float* score, float* m, float* s,
          float* acc, float* pmax, const float* dv, int H, int W, int up, void* stream) {
-  if (Cin != 8 && Cin != 16 && Cin != 32) return kUnsupported;
-  if (H <= 0 || W <= 0 || (!score && !m) || (m && (!s || !acc || !pmax || !dv)) ||
+  if (Cin < 1 || H <= 0 || W <= 0 || (!score && !m) || (m && (!s || !acc || !pmax || !dv)) ||
       (B16 && !s1f))
     return kBadArgs;
   cudaStream_t st = (cudaStream_t)stream;
@@ -838,11 +894,13 @@ int step(const float* cost, int Cin, const float* s1, const float* s2, const flo
   p.m = m; p.s = s; p.acc = acc; p.pmax = pmax; p.dv = dv;
   p.Cin = Cin; p.H = H; p.W = W; p.H2 = (H + 1) / 2; p.W2 = (W + 1) / 2;
   p.pad_y = same_pad_lo(H); p.pad_x = same_pad_lo(W); p.up = up ? 1 : 0;
-  RS2_CHECK(launch(red2_level1_kernel<B16>, 0, B16, kGruThreads, kL1Tiles, H, W, Cin,
+  RS2_CHECK(launch(pad8(Cin) > kCostChunk ? red2_level1_kernel<B16, true>
+                                           : red2_level1_kernel<B16, false>,
+                   0, kGruThreads, kL1Tiles, H, W,
                    [Cin](int th, int tw) { return l1_floats(th, tw, Cin, B16); }, p, st));
-  RS2_CHECK(launch(red2_level2_kernel<B16>, 1, B16, kGruThreads, kL2Tiles, p.H2, p.W2, Cin,
+  RS2_CHECK(launch(red2_level2_kernel<B16>, 1, kGruThreads, kL2Tiles, p.H2, p.W2,
                    [](int th, int tw) { return l2_floats(th, tw, B16); }, p, st));
-  RS2_CHECK(launch(red2_level3_kernel<B16>, 2, B16, kDecThreads, kL3Tiles, H, W, Cin,
+  RS2_CHECK(launch(red2_level3_kernel<B16>, 2, kDecThreads, kL3Tiles, H, W,
                    [](int th, int tw) { return l3_floats(th, tw, B16); }, p, st));
   return 0;
 }

@@ -64,6 +64,17 @@
 //   that would leave the grid under kMinBlocks blocks (the small stages).
 //   Lane-per-quad blocks take a fixed number of planes a mode (see
 //   kCostPlanes).
+// - Channel counts: instances for C = 4 (one lane a pixel in pair mode,
+//   the *_wide kernels in cost and variance modes), 8, 16, 32 and 64
+//   (G = 16 lanes a pixel, 16 pixels a block; the pair mode takes 16
+//   planes a block there, one plane's total a lane after the
+//   reduce-scatter). Any other C (the feature widths 4b, 2b, b of a base
+//   width b that is not a power of two) goes to the *_any kernels: one
+//   thread a pixel, C a runtime value and every channel a scalar load, so
+//   any C and any alignment of a pixel's channels; cost and variance split
+//   the channels into chunks of kAnyChannels (blockIdx.z), the pair mode
+//   sums every channel of a pixel in its thread. They project as the other
+//   kernels do and are the slow path by design (a quad is four loads).
 // - The projection uses round-to-nearest intrinsics, so no product and sum
 //   is fused into an FMA: the coordinates round exactly as the plain PyTorch
 //   chain's (ops/warp.py) do. Sums over views stay in view order, and
@@ -104,8 +115,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnsupported = 10000;  // channel count without an instance
-constexpr int kBadSize = 10001;      // H or W below 2, or H*W*C >= 2^31
+constexpr int kBadSize = 10001;      // H or W below 2, C below 1, or H*W*C >= 2^31
 constexpr int kTooManyViews = 10002; // compensated rays of V views over shared memory
 // shared memory a block may take on an H100 (the compensated ray cache)
 constexpr int kMaxSharedBytes = 232448;
@@ -133,8 +143,9 @@ struct Tile {
   static constexpr int G = C / 4;
   static constexpr int NPIX = kThreads / G;
   // shared-memory row stride of a [C, NPIX] plane tile: the pad makes the
-  // lanes' quad writes (rows 4q..4q+3, column p) hit distinct banks
-  static constexpr int S = NPIX + 8 / G;
+  // lanes' quad writes (rows 4q..4q+3, column p) hit distinct banks (at
+  // G = 16 two lanes share one: a warp holds 32 lanes of 2 pixels)
+  static constexpr int S = NPIX + (G <= 8 ? 8 / G : 1);
   int y, x0;  // the segment's row and first column
   int p, q;   // this lane's pixel in the segment and channel quad
   int x;      // its column, clamped into the image (lanes past the right
@@ -695,6 +706,113 @@ sweep_var_wide_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
   }
 }
 
+// The *_any kernels: a runtime channel count C, every channel a scalar
+// load (so no alignment of a pixel's channels is needed), one thread a
+// pixel; the tap sum is gather()'s, channel by channel.
+constexpr int kAnyChannels = 16;  // channels a cost or variance thread keeps
+
+template <class T>
+__device__ __forceinline__ float scalar(const T* p) { return to_f32(__ldg(p)); }
+
+template <class T>
+__device__ __forceinline__ float gather1(const T* __restrict__ b, float4 w, int C, int row) {
+  const float v0 = scalar(b), v1 = scalar(b + C), v2 = scalar(b + row), v3 = scalar(b + row + C);
+  return fmaf(v3, w.w, fmaf(v2, w.z, fmaf(v1, w.y, v0 * w.x)));
+}
+
+// pair mode: out[v, k] for view v = blockIdx.z, planes blockIdx.y * KB ..
+template <class T, bool Comp>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSMWide)
+sweep_pair_any_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
+                      const float* __restrict__ rels, const float* __restrict__ depths,
+                      T* __restrict__ out, int D, int H, int W, int C, int KB) {
+  const long long HW = (long long)H * W;
+  const long long at = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (at >= HW) return;
+  const int y = (int)(at / W), x = (int)(at % W), v = blockIdx.z;
+  const RayOf<Comp> g = make_ray<Comp>(rels + 16 * v, (float)x, (float)y);
+  const T* rp = ref + at * C;
+  const T* sv = srcs + (long long)v * HW * C;
+  const int k0 = blockIdx.y * KB, k1 = min(D, k0 + KB);
+  for (int k = k0; k < k1; ++k) {
+    int off;
+    float4 w;
+    describe(g, __ldg(depths + k * HW + at), H, W, C, off, w);
+    float dot = 0.f;
+    for (int c = 0; c < C; ++c) dot += gather1(sv + off + c, w, C, W * C) * scalar(rp + c);
+    out[((long long)v * D + k) * HW + at] = from_f32<T>(dot / (float)C);
+  }
+}
+
+// cost (Var = false) and variance (Var = true) modes: channels
+// blockIdx.z * kAnyChannels .. of planes blockIdx.y * KB ..
+template <bool Var, class T, bool Comp>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSMWide)
+sweep_any_kernel(const T* __restrict__ ref, const T* __restrict__ srcs,
+                 const float* __restrict__ rels, const float* __restrict__ depths,
+                 const float* __restrict__ weights, T* __restrict__ out, int V, int K, int H,
+                 int W, int C, int KB) {
+  constexpr int N = kAnyChannels;
+  const long long HW = (long long)H * W;
+  const long long at = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const bool live = at < HW;
+  const long long pix = live ? at : HW - 1;
+  const int y = (int)(pix / W), x = (int)(pix % W);
+  const int c0 = blockIdx.z * N, nc = min(N, C - c0);
+  float rv[N];
+#pragma unroll
+  for (int c = 0; c < N; ++c) rv[c] = c < nc ? scalar(ref + pix * C + c0 + c) : 0.f;
+  float wsum = 0.f;
+  if constexpr (!Var)
+    for (int v = 0; v < V; ++v) wsum += __ldg(weights + v * HW + pix);
+  const float denom = wsum + 1e-5f, n = (float)(V + 1);
+  extern __shared__ float rays[];
+  cache_rays<Comp>(rays, rels, V, (float)x, (float)y);
+  const int k0 = blockIdx.y * KB, k1 = min(K, k0 + KB);
+  for (int k = k0; k < k1; ++k) {
+    const float d = __ldg(depths + k * HW + pix);
+    // cost: the weighted sums; variance: s = ref + the warps, sq = their squares
+    float s[N], sq[N];
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      s[c] = Var ? rv[c] : 0.f;
+      sq[c] = rv[c] * rv[c];
+    }
+    for (int v = 0; v < V; ++v) {
+      int off;
+      float4 w;
+      describe(view_ray<Comp>(rays, rels, v, (float)x, (float)y), d, H, W, C, off, w);
+      const T* b = srcs + (long long)v * HW * C + off + c0;
+      const float wv = Var ? 0.f : __ldg(weights + v * HW + pix);
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        if (c < nc) {  // predicated, so s and sq stay in registers
+          const float u = gather1(b + c, w, C, W * C);
+          if constexpr (Var) {
+            s[c] += u;
+            sq[c] += u * u;
+          } else {
+            s[c] += (u * rv[c]) * wv;
+          }
+        }
+      }
+    }
+    if (!live) continue;
+    T* o = out + ((long long)k * C + c0) * HW + pix;
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      if (c < nc) {
+        if constexpr (Var) {
+          const float m = s[c] / n;
+          o[c * HW] = from_f32<T>(sq[c] / n - m * m);
+        } else {
+          o[c * HW] = from_f32<T>(s[c] / denom);
+        }
+      }
+    }
+  }
+}
+
 template <int C>
 inline unsigned tiles_for(int H, int W) {
   return (unsigned)H * (unsigned)((W + Tile<C>::NPIX - 1) / Tile<C>::NPIX);
@@ -776,19 +894,50 @@ int launch_var(const T* ref, const T* srcs, const float* rels,
   return 0;
 }
 
+// The *_any kernels' launches (any C): planes per block as the
+// one-thread-per-pixel kernels', counting the channel chunks' blocks.
+template <class T, bool Comp>
+void launch_pair_any(const T* ref, const T* srcs, const float* rels, const float* depths,
+                     T* out, int V, int D, int H, int W, int C, cudaStream_t s) {
+  const unsigned blocks = wide_blocks(H, W);
+  const int kb = planes_per_block(blocks * (unsigned)V, D);
+  sweep_pair_any_kernel<T, Comp><<<dim3(blocks, (D + kb - 1) / kb, V), kThreads, 0, s>>>(
+      ref, srcs, rels, depths, out, D, H, W, C, kb);
+}
+
+template <bool Var, class T, bool Comp>
+int launch_any(const T* ref, const T* srcs, const float* rels, const float* depths,
+               const float* weights, T* out, int V, int K, int H, int W, int C,
+               cudaStream_t s) {
+  const unsigned blocks = wide_blocks(H, W), chunks = (C + kAnyChannels - 1) / kAnyChannels;
+  const int kb = planes_per_block(blocks * chunks, K);
+  size_t smem;
+  const int rc = wide_shared(sweep_any_kernel<Var, T, Comp>, Comp, V, smem);
+  if (rc != 0) return rc;
+  sweep_any_kernel<Var, T, Comp><<<dim3(blocks, (K + kb - 1) / kb, chunks), kThreads, smem, s>>>(
+      ref, srcs, rels, depths, weights, out, V, K, H, W, C, kb);
+  return 0;
+}
+
+inline bool bad_size(int H, int W, int C) {
+  return H < 2 || W < 2 || C < 1 || (long long)H * W * C >= (1LL << 31);
+}
+
 // The entries of one feature type T (float or bfloat16 bits) and one
 // projection (Comp: compensated).
 template <class T, bool Comp>
 int corr_entry(const T* ref, const T* srcs, const float* rels, const float* depths,
                T* out, int V, int D, int H, int W, int C, void* stream) {
   if ((long long)V * D * H * W == 0) return 0;
-  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
+  if (bad_size(H, W, C)) return kBadSize;
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
+    case 4: launch_pair<4, 4, T, Comp>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
     case 8: launch_pair<8, 8, T, Comp>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
     case 16: launch_pair<16, 8, T, Comp>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
     case 32: launch_pair<32, 8, T, Comp>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
-    default: return kUnsupported;
+    case 64: launch_pair<64, 16, T, Comp>(ref, srcs, rels, depths, out, V, D, H, W, s); break;
+    default: launch_pair_any<T, Comp>(ref, srcs, rels, depths, out, V, D, H, W, C, s);
   }
   return (int)cudaGetLastError();
 }
@@ -798,14 +947,16 @@ int cost_entry(const T* ref, const T* srcs, const float* rels, const float* dept
                const float* weights, T* out, int V, int K, int H, int W, int C,
                void* stream) {
   if ((long long)K * H * W == 0) return 0;
-  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
+  if (bad_size(H, W, C)) return kBadSize;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   switch (C) {
+    case 4: rc = launch_cost<4, T, Comp>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
     case 8: rc = launch_cost<8, T, Comp>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
     case 16: rc = launch_cost<16, T, Comp>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
     case 32: rc = launch_cost<32, T, Comp>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
-    default: return kUnsupported;
+    case 64: rc = launch_cost<64, T, Comp>(ref, srcs, rels, depths, weights, out, V, K, H, W, s); break;
+    default: rc = launch_any<false, T, Comp>(ref, srcs, rels, depths, weights, out, V, K, H, W, C, s);
   }
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
@@ -814,14 +965,16 @@ template <class T, bool Comp>
 int var_entry(const T* ref, const T* srcs, const float* rels, const float* depths,
               T* out, int V, int K, int H, int W, int C, void* stream) {
   if ((long long)K * H * W == 0) return 0;
-  if (H < 2 || W < 2 || (long long)H * W * C >= (1LL << 31)) return kBadSize;
+  if (bad_size(H, W, C)) return kBadSize;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   switch (C) {
+    case 4: rc = launch_var<4, T, Comp>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
     case 8: rc = launch_var<8, T, Comp>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
     case 16: rc = launch_var<16, T, Comp>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
     case 32: rc = launch_var<32, T, Comp>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
-    default: return kUnsupported;
+    case 64: rc = launch_var<64, T, Comp>(ref, srcs, rels, depths, out, V, K, H, W, s); break;
+    default: rc = launch_any<true, T, Comp>(ref, srcs, rels, depths, nullptr, out, V, K, H, W, C, s);
   }
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
@@ -829,8 +982,7 @@ int var_entry(const T* ref, const T* srcs, const float* rels, const float* depth
 }  // namespace
 
 extern "C" const char* error_string(int code) {
-  if (code == kUnsupported) return "unsupported channel count (take 8, 16 or 32)";
-  if (code == kBadSize) return "unsupported image size (take H, W >= 2 and H*W*C < 2^31)";
+  if (code == kBadSize) return "unsupported size (take H, W >= 2, C >= 1 and H*W*C < 2^31)";
   if (code == kTooManyViews)
     return "too many source views for the compensated projection's ray cache "
            "(take V <= 37)";

@@ -5,8 +5,8 @@ Parameter layouts are PyTorch's (conv OIHW or OIDHW; transposed conv
 [in, out, 3, 3] or [in, out, 3, 3, 3], flipped, see ops/conv.py), and the
 submodule names follow the JAX package's tree so
 that weights.py maps one onto the other by rule: `Conv_0` / `ConvTranspose_0`
--> `conv`, `GroupNorm_0` -> `norm`, `ConvBlock_i` -> `convs.i`,
-`DeconvBlock_i` -> `deconvs.i`.
+-> `conv`, `GroupNorm_0` / `LayerNorm_0` / `BatchNorm_0` -> `norm`,
+`ConvBlock_i` -> `convs.i`, `DeconvBlock_i` -> `deconvs.i`.
 """
 
 from __future__ import annotations
@@ -26,12 +26,15 @@ from ..ops.resize import upsample_axis_lerp
 
 
 class Conv2d(nn.Module):
-    """The JAX package's nn.Conv(padding='SAME'): OIHW weight, optional bias."""
+    """The JAX package's nn.Conv(padding='SAME'): OIHW weight, optional bias.
+    `zero_init`: the JAX module initializes the kernel to zeros
+    (weights.init_random_weights does the same)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 bias: bool = True):
+                 bias: bool = True, zero_init: bool = False):
         super().__init__()
         self.stride = stride
+        self.zero_init = zero_init
         self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
@@ -150,17 +153,74 @@ class GroupNorm(nn.Module):
         return y + self.bias.reshape(C, *ones)
 
 
+class LayerNorm(nn.Module):
+    """nn.LayerNorm as the JAX package applies it (defaults, on channels-last
+    maps): each position normalized over its channels only -- dim 1 of an
+    [N, C, ...] map or volume, not nn.LayerNorm([C, H, W]) -- epsilon 1e-6,
+    variance E[x^2] - E[x]^2 clamped at 0, the scale folded into the
+    inverse deviation. A bfloat16 input is normalized in float32 and the
+    result rounded to bfloat16, as Linen does (force_float32_reductions)."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        if x.dtype != torch.float32:
+            return self.forward(x.float()).to(x.dtype)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mean = x.mean(dim=1, keepdim=True)
+        var = ((x * x).mean(dim=1, keepdim=True) - mean * mean).clamp_min(0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(shape)
+        return (x - mean) * mul + self.bias.reshape(shape)
+
+
+class BatchNorm(nn.Module):
+    """nn.BatchNorm(use_running_average=True) as the JAX package applies it:
+    per channel (dim 1), (x - mean) * rsqrt(var + 1e-5) * scale + bias, with
+    the statistics of the `batch_stats` collection, never a batch's own and
+    never updated, in training too; a bfloat16 input is normalized in
+    float32 and rounded to bfloat16. The statistics are buffers `mean` and
+    `var`; weights.py maps them to and from
+    `['batch_stats'][...]['BatchNorm_0']['mean' | 'var']`, and a parameter
+    tree without them does not load (the JAX `apply` of `params` alone
+    raises ScopeCollectionNotFound)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x):
+        if x.dtype != torch.float32:
+            return self.forward(x.float()).to(x.dtype)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(self.var.reshape(shape) + self.eps) * self.weight.reshape(shape)
+        return (x - self.mean.reshape(shape)) * mul + self.bias.reshape(shape)
+
+
+NORMS = {"group": GroupNorm, "layer": LayerNorm, "batch": BatchNorm}
+
+
 def _norm(norm: str, channels: int):
-    if norm == "group":
-        return GroupNorm(channels)
+    """The norm layer of a ConvBlock or DeconvBlock ('group', 'layer',
+    'batch'), or None for 'none'; any other name raises ValueError, as the
+    JAX package's _norm_layer does."""
     if norm == "none":
         return None
-    raise NotImplementedError(f"norm {norm!r} is not ported (group, none)")
+    if norm not in NORMS:
+        raise ValueError(f"unknown norm {norm!r}")
+    return NORMS[norm](channels)
 
 
 class ConvBlock(nn.Module):
-    """Conv (2-D, or 3-D with ndim=3) + optional GroupNorm + optional ReLU;
-    bias only without norm."""
+    """Conv (2-D, or 3-D with ndim=3) + optional norm (group, layer or
+    batch) + optional ReLU; bias only without norm."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  relu: bool = True, norm: str = "group", ndim: int = 2):
@@ -177,8 +237,8 @@ class ConvBlock(nn.Module):
 
 
 class DeconvBlock(nn.Module):
-    """Exact-2x transposed conv (2-D, or 3-D with ndim=3) + optional
-    GroupNorm + optional ReLU."""
+    """Exact-2x transposed conv (2-D, or 3-D with ndim=3) + optional norm
+    (group, layer or batch) + optional ReLU."""
 
     def __init__(self, cin: int, cout: int, relu: bool = True,
                  norm: str = "group", ndim: int = 2):
@@ -220,6 +280,77 @@ class ConvGRUCell(nn.Module):
         r, u = torch.sigmoid(self.gates(torch.cat([x, h], dim=1))).chunk(2, dim=1)
         c = torch.tanh(self.cand(torch.cat([x, r * h], dim=1)))
         return u * h + (1.0 - u) * c
+
+
+class ConvLSTMCell(nn.Module):
+    """Convolutional LSTM cell: one fused 4-gate conv `gates` over
+    cat([x, h]), split i, f, o, g; c' = f*c + i*g, h' = o*tanh(c');
+    returns (h', c', o)."""
+
+    def __init__(self, cin: int, hidden: int, kernel: int = 3):
+        super().__init__()
+        self.gates = Conv2d(cin + hidden, 4 * hidden, kernel)
+
+    def forward(self, x, h, c):
+        ai, af, ao, ag = self.gates(torch.cat([x, h], dim=1)).chunk(4, dim=1)
+        i, f, o = torch.sigmoid(ai), torch.sigmoid(af), torch.sigmoid(ao)
+        c_new = f * c + i * torch.tanh(ag)
+        return o * torch.tanh(c_new), c_new, o
+
+
+class DeformConv2d(nn.Module):
+    """Modulated deformable convolution (v2) on [N, C, H, W], in plain
+    gathers, as the JAX package computes it (outside any Pallas kernel): a
+    3x3 `p_conv` gives each of the k*k taps a (dy, dx) offset per pixel (the
+    dy of every tap, then every dx), a 3x3 `m_conv` a sigmoid modulation;
+    tap t of pixel (y, x) samples the input bilinearly at (y + t//k - r +
+    dy, x + t%k - r + dx), r = (k-1)/2, the position CLIPPED to [0, H-1] x
+    [0, W-1] before its floor (not the zero padding of torchvision's
+    deform_conv2d), and is scaled by its mask. The taps stack tap-major on
+    the channels ([t0 channels, t1 channels, ...]) and a biased 1x1 conv
+    `w` applies the kernel's weights. p_conv and m_conv start at zero (the
+    JAX initializer)."""
+
+    def __init__(self, cin: int, features: int, kernel: int = 3,
+                 modulation: bool = True):
+        super().__init__()
+        taps = kernel * kernel
+        self.kernel = kernel
+        self.modulation = modulation
+        self.p_conv = Conv2d(cin, 2 * taps, zero_init=True)
+        self.m_conv = Conv2d(cin, taps, zero_init=True) if modulation else None
+        self.w = Conv2d(taps * cin, features, kernel=1)
+
+    def forward(self, x):
+        N, C, H, W = x.shape
+        k, taps = self.kernel, self.kernel * self.kernel
+        off = self.p_conv(x)  # [N, 2 * taps, H, W]: dy of every tap, then dx
+        if self.modulation:
+            m = torch.sigmoid(self.m_conv(x))
+        gy, gx = torch.meshgrid(torch.arange(H, dtype=x.dtype, device=x.device),
+                                torch.arange(W, dtype=x.dtype, device=x.device),
+                                indexing="ij")
+        r = (k - 1) / 2.0
+        flat = x.reshape(N, C, H * W)
+
+        def tap(yi, xi):
+            idx = (yi * W + xi).reshape(N, 1, H * W).expand(N, C, H * W)
+            return flat.gather(2, idx).reshape(N, C, H, W)
+
+        out = []
+        for t in range(taps):
+            py = (gy + (t // k - r) + off[:, t]).clamp(0.0, H - 1.0)
+            px = (gx + (t % k - r) + off[:, taps + t]).clamp(0.0, W - 1.0)
+            y0, x0 = torch.floor(py), torch.floor(px)
+            fy, fx = (py - y0)[:, None], (px - x0)[:, None]
+            y0, x0 = y0.long(), x0.long()
+            y1, x1 = (y0 + 1).clamp_max(H - 1), (x0 + 1).clamp_max(W - 1)
+            v = ((1 - fy) * (1 - fx) * tap(y0, x0) + (1 - fy) * fx * tap(y0, x1)
+                 + fy * (1 - fx) * tap(y1, x0) + fy * fx * tap(y1, x1))
+            if self.modulation:
+                v = v * m[:, t:t + 1]
+            out.append(v)
+        return self.w(torch.cat(out, dim=1))
 
 
 def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:

@@ -118,22 +118,26 @@ class CostRegNet3D(nn.Module):
 class RedStep2(nn.Module):
     """One recurrent-regularization step (2-level GRU), AdaMVS flavour.
 
-    cost [Cin, H, W], states s1 [8, H, W], s2 [16, H/2, W/2] (channel-first,
-    the layout K3 reads and writes) -> (score [2H, 2W] if `up` else [H, W],
-    s1', s2'). impl 'kernel' runs K3 on CUDA tensors (its plain version on
-    CPU tensors); 'plain' always runs the plain version.
+    cost [Cin, H, W], states s1 [b, H, W], s2 [2b, H/2, W/2] for the base
+    width b (channel-first, the layout K3 reads and writes) -> (score
+    [2H, 2W] if `up` else [H, W], s1', s2'). impl 'kernel' runs K3 on CUDA
+    tensors (its plain version on CPU tensors); 'plain' always runs the
+    plain version. K3 is built for the published base width 8 (its GRU
+    widths 8 and 16 are the kernel's layer shapes); at any other base the
+    step runs its plain body on every device, decided here, once, from
+    `base` (`self.kernel`), as the JAX package's RedStep2 takes its Pallas
+    kernel only when `self.base == 8` (models/cost_reg.py:169).
     """
 
     def __init__(self, cin: int, up: bool = True, base: int = 8,
                  impl: str = "kernel"):
         super().__init__()
-        if base != 8:
-            raise NotImplementedError("RedStep2 is ported at base 8 only")
         if impl not in ("kernel", "plain"):
             raise ValueError(f"RedStep2 impl {impl!r} (kernel, plain)")
         b = base
         self.up = up
-        self.impl = impl
+        self.base = b
+        self.kernel = impl == "kernel" and base == 8
         self.conv1 = ConvBlock(cin, b, norm="none")
         self.gru1 = ConvGRUCell(b, b)
         self.conv2 = ConvBlock(b, 2 * b, stride=2, norm="none")
@@ -160,7 +164,7 @@ class RedStep2(nn.Module):
         dv=depth) -> (None, s1', s2') with `state` updated in place, and
         carries `folds_softmax`."""
         params = dict(self.named_parameters())
-        if self.impl == "plain":
+        if not self.kernel:
             return functools.partial(red_step2_plain, params, up=self.up)
         if device.type != "cuda":
             return functools.partial(red_step2, params, up=self.up)
@@ -173,8 +177,9 @@ class RedStep2(nn.Module):
         return self.plane_step(cost.device, cost.dtype)(cost, s1, s2)
 
     def init_states(self, H: int, W: int, device=None, dtype=torch.float32):
-        return (torch.zeros((8, H, W), device=device, dtype=dtype),
-                torch.zeros((16, (H + 1) // 2, (W + 1) // 2), device=device,
+        b = self.base
+        return (torch.zeros((b, H, W), device=device, dtype=dtype),
+                torch.zeros((2 * b, (H + 1) // 2, (W + 1) // 2), device=device,
                             dtype=dtype))
 
 
@@ -213,19 +218,24 @@ class RedStep4(nn.Module):
     """One 4-level recurrent encoder-decoder step, MSREDNet flavour.
 
     cost [Cin, H, W] (the variance cost; the step negates it), states
-    s1 [8, H, W], s2 [16, H/2, W/2], s3 [32, H/4, W/4], s4 [64, H/8, W/8]
-    (channel-first, the layout K4 reads and writes), H and W multiples of 8
-    -> (score [H, W], s1', s2', s3', s4'), at MSREDNet's published base
-    width 8. impl 'kernel' runs K4 on CUDA tensors (its plain version on
-    CPU tensors); 'plain' always runs the plain version.
+    s1 [b, H, W], s2 [2b, H/2, W/2], s3 [4b, H/4, W/4], s4 [8b, H/8, W/8]
+    for the base width b (channel-first, the layout K4 reads and writes),
+    H and W multiples of 8 -> (score [H, W], s1', s2', s3', s4'). impl
+    'kernel' runs K4 on CUDA tensors (its plain version on CPU tensors);
+    'plain' always runs the plain version. K4 is built for the published
+    base width 8 (MSREDNet builds every RedStep4 so); at any other base the
+    step runs its plain body on every device, decided here, once, from
+    `base` (`self.kernel`), as the JAX package's RedStep4 takes its Pallas
+    kernel only when `self.base == 8` (models/cost_reg.py:313).
     """
 
-    def __init__(self, cin: int, impl: str = "kernel"):
+    def __init__(self, cin: int, base: int = 8, impl: str = "kernel"):
         super().__init__()
         if impl not in ("kernel", "plain"):
             raise ValueError(f"RedStep4 impl {impl!r} (kernel, plain)")
-        b = 8
-        self.impl = impl
+        b = base
+        self.base = b
+        self.kernel = impl == "kernel" and base == 8
         self.conv1 = ConvBlock(cin, 2 * b, stride=2, norm="none")
         self.conv2 = ConvBlock(2 * b, 4 * b, stride=2, norm="none")
         self.conv3 = ConvBlock(4 * b, 8 * b, stride=2, norm="none")
@@ -245,7 +255,7 @@ class RedStep4(nn.Module):
         parameters (and K4's packed weights for the compute `dtype`)
         gathered once: the streaming sweep calls it for every plane."""
         params = dict(self.named_parameters())
-        if self.impl == "plain":
+        if not self.kernel:
             return functools.partial(rs4.red_step4_plain, params)
         packed = self._packed.get(self, dtype) if device.type == "cuda" else None
         return functools.partial(rs4.red_step4, params, packed=packed)
@@ -257,5 +267,5 @@ class RedStep4(nn.Module):
         if H % 8 or W % 8:
             raise ValueError(f"RedStep4 needs H and W multiples of 8, got "
                              f"{H} x {W}")
-        return tuple(torch.zeros((c, H >> l, W >> l), device=device, dtype=dtype)
-                     for l, c in enumerate(rs4.HIDDEN))
+        return tuple(torch.zeros((self.base << l, H >> l, W >> l), device=device,
+                                 dtype=dtype) for l in range(4))

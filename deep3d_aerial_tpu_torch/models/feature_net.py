@@ -25,6 +25,11 @@ class FeatureNet(nn.Module):
         super().__init__()
         if arch not in ("fpn", "branch", "unet"):
             raise ValueError(f"unknown feature arch {arch!r}")
+        if arch == "branch" and base_channels < 2:
+            # stage 3's branches would have b // 2 = 0 channels; the JAX
+            # initializer divides by their fan and raises ZeroDivisionError
+            raise ValueError(f"the 'branch' feature net needs a base width of 2 or "
+                             f"more, got {base_channels}")
         b = base_channels
         self.base_channels = b
         self.arch = arch
@@ -40,19 +45,22 @@ class FeatureNet(nn.Module):
             self.inner2 = Conv2d(b, 4 * b, 1)
             self.out3 = Conv2d(4 * b, b, 3, bias=False)
             return
-        # 'branch' heads see [ctx1, ctx2, x]: twice the stage's channels
-        k = 2 if arch == "branch" else 1
+        # 'branch' heads see [ctx1, ctx2, x]: the stage's channels and two
+        # branches of half as many (b // 2 at stage 3: 2b - 1 in all at an
+        # odd base width, as the JAX heads infer from their input)
+        heads = [4 * b, 2 * b, b]
         if arch == "branch":
             for stage, (cin, cbr) in enumerate(((4 * b, 2 * b), (2 * b, b),
                                                 (b, b // 2)), start=1):
+                heads[stage - 1] += 2 * cbr
                 for j in (1, 2):
                     self.add_module(f"branch{stage}_{j}",
                                     ConvBlock(cin, cbr, kernel=1, norm=norm))
-        self.out1 = Conv2d(4 * k * b, 4 * b, 1, bias=False)
+        self.out1 = Conv2d(heads[0], 4 * b, 1, bias=False)
         self.deconv1 = DeconvFuse(4 * b, 2 * b, 2 * b, norm=norm)
-        self.out2 = Conv2d(2 * k * b, 2 * b, 1, bias=False)
+        self.out2 = Conv2d(heads[1], 2 * b, 1, bias=False)
         self.deconv2 = DeconvFuse(2 * b, b, b, norm=norm)
-        self.out3 = Conv2d(k * b, b, 1, bias=False)
+        self.out3 = Conv2d(heads[2], b, 1, bias=False)
 
     @property
     def out_channels(self) -> Tuple[int, int, int]:

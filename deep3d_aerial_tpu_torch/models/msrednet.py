@@ -9,6 +9,11 @@ RED-Net family (counterpart of deep3d_aerial_tpu/models/msrednet.py):
     resolution. Stage sizes must be multiples of 8 (RedStep4's three
     stride-2 levels), so the frame's must be multiples of 32.
 
+base_channels sets the feature widths (4b, 2b, b), so the cost widths; every
+RedStep4 keeps its published base 8 whatever base_channels is, as the JAX
+package builds it (deep3d_aerial_tpu/models/msrednet.py:67), so K4 and K5
+run at Cin = 4b, 2b and b.
+
 warp_impl / red_impl: 'kernel' runs the CUDA kernels on CUDA tensors (their
 plain versions on CPU tensors); 'plain' runs the plain versions everywhere.
 dtype: float32 or bfloat16 (features, cost chunks and states; the softmax
@@ -37,7 +42,7 @@ class MSREDNet(nn.Module):
     def __init__(self, ndepths: Tuple[int, ...] = (48, 32, 8),
                  depth_interval_ratios: Tuple[float, ...] = (4.0, 2.0, 1.0),
                  num_depth: int = 384, base_channels: int = 8,
-                 norm: str = "group", plane_chunk: int = 8,
+                 arch: str = "unet", norm: str = "group", plane_chunk: int = 8,
                  warp_impl: str = "kernel", red_impl: str = "kernel",
                  depth_shards: int = 1, warp_precision: str = "float32",
                  dtype=torch.float32):
@@ -47,16 +52,12 @@ class MSREDNet(nn.Module):
         self.depth_shards = int(depth_shards)
         if warp_impl not in ("kernel", "plain"):
             raise ValueError(f"warp_impl {warp_impl!r} (kernel, plain)")
-        if base_channels != 8:
-            raise NotImplementedError(
-                "MSREDNet is ported at its published base width 8 only "
-                "(RedStep4's hidden widths 8/16/32/64)")
         self.ndepths = tuple(int(d) for d in ndepths)
         self.depth_interval_ratios = tuple(float(r) for r in depth_interval_ratios)
         self.num_depth = num_depth
         self.plane_chunk = plane_chunk
         self.warp_impl = warp_impl
-        self.feature = FeatureNet(base_channels, arch="unet", norm=norm)
+        self.feature = FeatureNet(base_channels, arch=arch, norm=norm)
         for s, c in enumerate(self.feature.out_channels[:len(self.ndepths)]):
             self.add_module(f"red{s}", RedStep4(c, impl=red_impl))
 

@@ -4,7 +4,9 @@ PyTorch version.
 Replaces deep3d_aerial_tpu/ops/pallas_red.py:_red_kernel (entries
 red_step2_fused / red_step2_tiled), and the online-softmax update that the
 JAX package's sweep fuses after it. Channel-first tensors: cost [Cin, H, W]
-(Cin in 8, 16, 32; the sweep_cost output planes, read as they are), states
+(any Cin: the kernel stages it 32 channels at a time and pads a Cin that
+is not a multiple of 8 with zero planes; the sweep_cost output planes,
+read as they are), states
 s1 [8, H, W] and s2 [16, ceil(H/2), ceil(W/2)] -> (score, s1', s2') with
 score [2H, 2W] when `up` else [H, W]. `params` maps the names of
 models.cost_reg.RedStep2's parameters (conv1.conv.weight, gru1.gates.weight,
@@ -37,7 +39,8 @@ the identity); the softmax fold stays float32 on the rounded score.
 `red_step2` launches the kernel for CUDA tensors and raises if the launch
 fails; it takes the plain version only for CPU tensors. It counts one call
 (one step) in `red_step2.launches`, and those of the bfloat16 entry also
-in `red_step2.launches_bf16`.
+in `red_step2.launches_bf16`; `red_step2.launches_by_width` (a Counter)
+counts the steps by the cost's channel count Cin.
 
 Where autograd needs a gradient, the score entry goes through
 ops/autograd.py's KernelFn (the JAX package's `_fused_fn` custom VJP): K3
@@ -50,6 +53,7 @@ otherwise.
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -244,6 +248,7 @@ def _launch(params: Params, cost: torch.Tensor, s1: torch.Tensor,
                                    stream)
     check(lib, rc, "red_step2")
     red_step2.launches += 1
+    red_step2.launches_by_width[Cin] += 1
     if bf16:
         red_step2.launches_bf16 += 1
     return score, s1n, s2n
@@ -251,3 +256,4 @@ def _launch(params: Params, cost: torch.Tensor, s1: torch.Tensor,
 
 red_step2.launches = 0
 red_step2.launches_bf16 = 0
+red_step2.launches_by_width = collections.Counter()

@@ -17,7 +17,9 @@ csrc/red_step4.cu; its convolutions are the K5 template (ops/cf_conv.py).
 takes the plain version only for CPU tensors. It counts one launch per step
 in `red_step4.launches` and adds the step's conv-template launches to
 `cf_conv3x3.launches`; the bfloat16 entry's count the same in
-`red_step4.launches_bf16` and `cf_conv3x3.launches_bf16`.
+`red_step4.launches_bf16` and `cf_conv3x3.launches_bf16`;
+`red_step4.launches_by_width` (a Counter) counts the steps by the cost's
+channel count Cin.
 
 bfloat16 mode (cost and states in bfloat16: the JAX package's
 `dtype=jnp.bfloat16` with precision='bf16'): the conv template's bfloat16
@@ -40,6 +42,7 @@ inside the step are covered by it.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Dict, Optional, Tuple
 
@@ -233,6 +236,7 @@ def _launch(params: Params, cost: torch.Tensor, s1: torch.Tensor,
                    ctypes.byref(convs), torch.cuda.current_stream(dev).cuda_stream)
     check(lib, rc, "red_step4")
     red_step4.launches += 1
+    red_step4.launches_by_width[Cin] += 1
     cf_conv3x3.launches += convs.value
     if bf16:
         red_step4.launches_bf16 += 1
@@ -242,3 +246,4 @@ def _launch(params: Params, cost: torch.Tensor, s1: torch.Tensor,
 
 red_step4.launches = 0
 red_step4.launches_bf16 = 0
+red_step4.launches_by_width = collections.Counter()

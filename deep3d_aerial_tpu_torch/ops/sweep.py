@@ -14,8 +14,10 @@ They replace deep3d_aerial_tpu/ops/pallas_sweep.py:_sweep_corr_kernel and
 :_sweep_cost_kernel (mode='corr' and mode='variance'). Features are
 channels-last ([H, W, C]), depths per pixel ([K, H, W]), rels the [V, 4, 4]
 src_P @ inv(ref_P) (the plain versions also take [V, 3, 4]; the kernels
-read rows 0-2 of the [4, 4] matrices in place). The kernel source, with its
-design and bound, is csrc/sweep.cu.
+read rows 0-2 of the [4, 4] matrices in place). Any channel count C: the
+kernels have instances for C = 4, 8, 16, 32 and 64 and a runtime-C path
+for every other C (csrc/sweep.cu). The kernel source, with its design and
+bound, is csrc/sweep.cu.
 
 Features come in float32 or bfloat16 (ref and srcs alike); the output has
 their dtype. In bfloat16 every mode reads the features as they are, 2 bytes
@@ -30,7 +32,8 @@ current one for the launch, since the C entries size their grids for the
 current device), and raises if the launch fails; it takes the plain
 version only for CPU tensors. Each wrapper counts
 its launches in `<wrapper>.launches`, and those of its bfloat16 entry also
-in `<wrapper>.launches_bf16`. Where autograd needs a gradient, the
+in `<wrapper>.launches_bf16`; `<wrapper>.launches_by_width` (a Counter)
+counts every launch by its channel count C. Where autograd needs a gradient, the
 launch goes through ops/autograd.py's KernelFn: the kernel forward, the
 plain version's VJP backward (the JAX package's custom VJPs), with
 gradients to ref, srcs, weights and depths (and rels when they need one).
@@ -47,6 +50,7 @@ wrapper counts the compensated launches apart in
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -158,8 +162,9 @@ def _mode(fn, compensated: bool):
     return functools.partial(fn, compensated=True) if compensated else fn
 
 
-def _count(wrapper, suffix: str, compensated: bool) -> None:
+def _count(wrapper, suffix: str, compensated: bool, C: int) -> None:
     wrapper.launches += 1
+    wrapper.launches_by_width[C] += 1
     if suffix == "bf16":
         wrapper.launches_bf16 += 1
     if compensated:
@@ -168,7 +173,7 @@ def _count(wrapper, suffix: str, compensated: bool) -> None:
 
 def sweep_corr(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
                depths: torch.Tensor, compensated: bool = False) -> torch.Tensor:
-    """K1: ref [H, W, C] (C in 8, 16, 32), srcs [V, H, W, C], rels
+    """K1: ref [H, W, C] (any C), srcs [V, H, W, C], rels
     [V, 4, 4], depths [D, H, W] -> [V, D, H, W], in one launch."""
     if not ref.is_cuda:
         return sweep_corr_plain(ref, srcs, rels, depths, compensated)
@@ -195,19 +200,20 @@ def _launch_corr(ref, srcs, rels, depths, compensated=False):
             out.data_ptr(), V, D, H, W, C,
             torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_corr")
-    _count(sweep_corr, suffix, compensated)
+    _count(sweep_corr, suffix, compensated, C)
     return out
 
 
 sweep_corr.launches = 0
 sweep_corr.launches_bf16 = 0
 sweep_corr.launches_compensated = 0
+sweep_corr.launches_by_width = collections.Counter()
 
 
 def sweep_cost(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
                depths: torch.Tensor, weights: torch.Tensor,
                compensated: bool = False) -> torch.Tensor:
-    """K2: ref [H, W, C] (C in 8, 16, 32), srcs [V, H, W, C], rels
+    """K2: ref [H, W, C] (any C), srcs [V, H, W, C], rels
     [V, 4, 4], depths [K, H, W], weights [V, H, W] -> [K, C, H, W]."""
     if not ref.is_cuda:
         return sweep_cost_plain(ref, srcs, rels, depths, weights, compensated)
@@ -238,18 +244,19 @@ def _launch_cost(ref, srcs, rels, depths, weights, compensated=False):
             weights.data_ptr(), out.data_ptr(), V, K, H, W, C,
             torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_cost")
-    _count(sweep_cost, suffix, compensated)
+    _count(sweep_cost, suffix, compensated, C)
     return out
 
 
 sweep_cost.launches = 0
 sweep_cost.launches_bf16 = 0
 sweep_cost.launches_compensated = 0
+sweep_cost.launches_by_width = collections.Counter()
 
 
 def sweep_var(ref: torch.Tensor, srcs: torch.Tensor, rels: torch.Tensor,
               depths: torch.Tensor, compensated: bool = False) -> torch.Tensor:
-    """K2v: ref [H, W, C] (C in 8, 16, 32), srcs [V, H, W, C], rels
+    """K2v: ref [H, W, C] (any C), srcs [V, H, W, C], rels
     [V, 4, 4], depths [K, H, W] -> [K, C, H, W]."""
     if not ref.is_cuda:
         return sweep_var_plain(ref, srcs, rels, depths, compensated)
@@ -276,10 +283,11 @@ def _launch_var(ref, srcs, rels, depths, compensated=False):
             out.data_ptr(), V, K, H, W, C,
             torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, rc, "sweep_var")
-    _count(sweep_var, suffix, compensated)
+    _count(sweep_var, suffix, compensated, C)
     return out
 
 
 sweep_var.launches = 0
 sweep_var.launches_bf16 = 0
 sweep_var.launches_compensated = 0
+sweep_var.launches_by_width = collections.Counter()

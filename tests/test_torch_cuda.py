@@ -281,18 +281,20 @@ def test_red_step2_wrapper_refuses(dev):
     with pytest.raises(ValueError, match="packed"):
         rs.red_step2(params, cost, s1, s2, up=True,
                      packed=rs.pack_params(params, True)[:-4])
-    n12 = load("red_step2").red_step2_param_floats(12, 0)  # a size the C entry accepts
-    with pytest.raises(RuntimeError, match="channel"):
+    # any Cin runs; the packed weights must fit it (12 channels pack as 16)
+    n12 = load("red_step2").red_step2_param_floats(12, 0)
+    assert n12 == load("red_step2").red_step2_param_floats(16, 0)
+    with pytest.raises(ValueError, match="packed"):
         rs.red_step2(params, torch.zeros((12, 12, 18), device=dev), s1, s2, up=True,
-                     packed=torch.zeros(n12, device=dev))
+                     packed=torch.zeros(n12 - 4, device=dev))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
-    x = torch.zeros((4, 4, 12), device=dev)  # 12 channels: no instance
+    x = torch.zeros((4, 4, 12), device=dev)  # any C runs (12: the runtime-C path)
     d = torch.full((2, 4, 4), 100.0, device=dev)
     rel = torch.eye(4, device=dev)[None]
-    with pytest.raises(RuntimeError, match="channel"):
-        sw.sweep_corr(x, x[None], rel, d)
+    with pytest.raises(RuntimeError, match="size"):  # a 1-row image: no 2x2 tap block
+        sw.sweep_corr(x[:1], x[None, :1], rel, d[:, :1])
     with pytest.raises(ValueError):
         sw.sweep_corr(x.double(), x[None].double(), rel, d)
     with pytest.raises(ValueError, match="rels"):  # the kernels read [V, 4, 4]
@@ -972,7 +974,8 @@ def _check_compensated(kern, plain, ref, srcs, rel, args, ulps=None):
 
 
 @pytest.mark.parametrize("C,H,W,K", [(8, 13, 21, 8), (16, 40, 33, 5), (32, 96, 128, 8),
-                                     (8, 384, 512, 13)])
+                                     (8, 384, 512, 13), (4, 19, 27, 8), (12, 37, 45, 13),
+                                     (64, 48, 64, 8), (3, 13, 21, 5)])
 def test_sweep_kernels_compensated_match_plain(dev, C, H, W, K):
     """K1, K2 and K2v in the compensated projection against their plain
     versions in it (float32: 1e-4; the bfloat16 entries: 2 bfloat16 ulps),
@@ -1057,3 +1060,128 @@ def test_depth_shards_forward_kernel_vs_plain(dev, name):
         for key, tol in (("depth", 1e-3 * 20.0), ("photometric_confidence", TOL)):
             assert torch.isfinite(outs[2][s][key]).all()
             torch.testing.assert_close(outs[2][s][key], op[s][key], rtol=0, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# every channel count: the sweeps at C = 4 and 64 (instances) and at any
+# other C (the runtime-C kernels), K3 at any Cin, K4 at MSREDNet's base-16
+# cost widths, the models at base width 16
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("C", [4, 12, 64, 3, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_sweep_kernels_at_every_width(dev, C, dtype):
+    """K1, K2 and K2v at the new widths and odd ones, odd sizes and plane
+    counts; float32 within TOL, bfloat16 within 2 ulps."""
+    rng = np.random.default_rng(1300 + C)
+    ref, srcs, rels, depths, wts = _sweep_inputs(dev, rng, C, 37, 45, 4, 13)
+    ref, srcs = ref.to(dtype), srcs.to(dtype)
+    for kern, plain, args in ((sw.sweep_corr, sw.sweep_corr_plain, (depths,)),
+                              (sw.sweep_cost, sw.sweep_cost_plain, (depths, wts)),
+                              (sw.sweep_var, sw.sweep_var_plain, (depths,))):
+        n = kern.launches
+        got, want = kern(ref, srcs, rels, *args), plain(ref, srcs, rels, *args)
+        assert kern.launches == n + 1 and got.dtype == dtype
+        if dtype == BF:
+            assert _ulps((got,), (want,)) <= 2, kern.__name__
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("cin,H,W,up", [(4, 24, 40, True), (12, 17, 30, False),
+                                        (64, 96, 128, True), (40, 33, 20, False),
+                                        (64, 192, 256, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_red_step2_kernel_at_every_width(dev, cin, H, W, up, dtype):
+    """K3 at cost widths other than 8, 16 and 32 (zero planes past a Cin
+    that is not a multiple of 8; conv1 in chunks of 32 channels above 32):
+    the score entry, then three planes folded into the online softmax."""
+    mod, cost, s1, s2 = _red2_inputs(dev, cin, H, W, up, cin + H)
+    params, packed = dict(mod.named_parameters()), mod._packed_params(dtype)
+    g = torch.Generator(device=dev).manual_seed(cin)
+    shape = (2 * H, 2 * W) if up else (H, W)
+    cost, s1, s2 = cost.to(dtype), s1.to(dtype), s2.to(dtype)
+
+    def close(got, want, scales=(1,) * 3):
+        """bfloat16: 8 ulps; float32: TOL x scale (the softmax's acc sums
+        e * depth: TOL x the depth, as test_red_step2_folds_the_online_softmax)."""
+        if dtype == BF:
+            assert _ulps(got, want) <= 8
+        else:
+            for a, b, scale in zip(got, want, scales):
+                torch.testing.assert_close(a, b, rtol=0, atol=TOL * scale)
+
+    with torch.no_grad():
+        close(rs.red_step2(params, cost, s1, s2, up=up, packed=packed),
+              rs.red_step2_plain(params, cost, s1, s2, up=up))
+        osm_k = OnlineSoftmaxState.init(shape, device=dev)
+        osm_p = OnlineSoftmaxState.init(shape, device=dev)
+        a, b, pa, pb = s1, s2, s1, s2
+        for k in range(3):
+            c = torch.randn((cin, H, W), generator=g, device=dev).to(dtype)
+            dv = torch.full(shape, 100.0 + k, device=dev)
+            _, a, b = rs.red_step2(params, c, a, b, up=up, packed=packed, osm=osm_k, dv=dv)
+            sc, pa, pb = rs.red_step2_plain(params, c, pa, pb, up=up)
+            osm_p = OnlineSoftmaxState.update(osm_p, sc, dv)
+    close(tuple(osm_k) + (a, b), tuple(osm_p) + (pa, pb), (1, 1, 102.0, 1, 1, 1))
+
+
+@pytest.mark.parametrize("cin,H,W", [(64, 96, 128), (32, 192, 256), (16, 384, 512),
+                                     (12, 96, 128), (3, 384, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_red_step4_kernel_at_every_width(dev, cin, H, W, dtype):
+    """K4 (and the conv template K5 inside it, at ci = Cin + 8 for gru1)
+    at cost widths other than 8, 16 and 32 (MSREDNet at base 16, 64/32/16,
+    and at base 3, 12/6/3), three planes."""
+    mod = init_random_weights(RedStep4(cin), seed=cin).to(dev)
+    params, packed = dict(mod.named_parameters()), mod._packed.get(mod, dtype)
+    g = torch.Generator(device=dev).manual_seed(cin)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    sk = sp = [rnd(c, H >> l, W >> l) * 0.5 for l, c in enumerate(rs4.HIDDEN)]
+    n, nc = rs4.red_step4.launches, cc.cf_conv3x3.launches
+    with torch.no_grad():
+        for _ in range(3):
+            c = rnd(cin, H, W)
+            got = rs4.red_step4(params, c, *sk, packed=packed)
+            want = rs4.red_step4_plain(params, c, *sp)
+            sk, sp = list(got[1:]), list(want[1:])
+    assert rs4.red_step4.launches == n + 3
+    assert cc.cf_conv3x3.launches == nc + 3 * CONV_LAUNCHES_PER_STEP
+    if dtype == BF:
+        assert _ulps(got, want) <= 8
+    else:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("name", ["adamvs", "msrednet"])
+def test_base_16_forward_kernel_vs_plain(dev, name):
+    """A base-16 forward (128x160, 3 views, ndepths 16/8/8) through the
+    kernels against the plain versions: depth within 1e-3 x the depth
+    range, confidence within 1e-4; every kernel of the path launched (K1
+    at C 64, K2 and K3 at 64/32/16; K2v and K4 with K5 at 64/32/16)."""
+    from deep3d_aerial_tpu_torch.models import build_model
+
+    rng = np.random.default_rng(16)
+    V, H, W = 3, 128, 160
+    imgs = torch.from_numpy(rng.normal(size=(V, H, W, 3)).astype(np.float32)).to(dev)
+    rel = torch.from_numpy(np.stack([_rels(rng, V - 1)] * 3)).to(dev)
+    nd = (16, 8, 8)
+    counters = ((sw.sweep_corr, sw.sweep_cost, rs.red_step2) if name == "adamvs"
+                else (sw.sweep_var, rs4.red_step4, cc.cf_conv3x3))
+    mk = init_random_weights(build_model(name, ndepths=nd, base_channels=16),
+                             seed=0).to(dev).eval()
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        ok = mk(imgs, rel, 90.0, 110.0)
+    assert all(c.launches > b for c, b in zip(counters, before))
+    mp = build_model(name, ndepths=nd, base_channels=16, warp_impl="plain",
+                     red_impl="plain").to(dev).eval()
+    mp.load_state_dict(mk.state_dict())
+    with torch.no_grad():
+        op = mp(imgs, rel, 90.0, 110.0)
+    for s in ("stage1", "stage2", "stage3"):
+        for key, tol in (("depth", 1e-3 * 20.0), ("photometric_confidence", TOL)):
+            assert torch.isfinite(ok[s][key]).all()
+            torch.testing.assert_close(ok[s][key], op[s][key], rtol=0, atol=tol)

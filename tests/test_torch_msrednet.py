@@ -205,7 +205,7 @@ def test_msrednet_plain_impls_and_registry(jax_forward):
 
 @pytest.mark.parametrize("kw,error", [
     ({"warp_precision": "float64"}, ValueError),
-    ({"base_channels": 16}, NotImplementedError),
+    ({"norm": "instance"}, ValueError),
     ({"warp_impl": "xla"}, ValueError),
     ({"red_impl": "flax"}, ValueError),
 ])
